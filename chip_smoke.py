@@ -10,9 +10,12 @@ and any failure exits non-zero:
 1. device and build: the hand-written CUDA kernels are compiled from the
    checkout's sources with ``nvcc`` into ``build/kernels/``;
 2. kernel vs plain: the paged-decode kernel against its plain PyTorch
-   version on the card (f32 atol/rtol 2e-5, bf16 2e-2), then timed with
-   CUDA events at the main path's shapes beside its bound, the plain
-   version and ``scaled_dot_product_attention`` on the gathered K/V;
+   version on the card (f32 atol/rtol 2e-5, bf16 2e-2), then timed at
+   the main path's shapes beside its bound, the plain version and
+   ``scaled_dot_product_attention`` on the gathered K/V: device time
+   from ``torch.profiler`` (the kernels' own time; the JSON line's
+   numbers) and time per call between CUDA events (which also holds the
+   host's time to issue each call where that is longer);
 3. the main path: ``repro_torch.launch.serve.main`` serves 8 requests
    with the full-width, full-depth qwen3-0.6b (bf16, random weights from
    a seed); every request must complete and the kernel must have been
@@ -20,7 +23,22 @@ and any failure exits non-zero:
 4. card vs CPU: the same full-width qwen3-0.6b in f32 (TF32 off), one
    32-token prefill chunk for 2 rows and 4 decode steps, on the card
    (kernel) and on the CPU (plain): greedy tokens equal, logits within
-   ``PARITY_ATOL``.
+   ``PARITY_ATOL``;
+5. the dense kernels vs plain: the flash-attention prefill and dense
+   decode-attention kernels against their plain PyTorch versions on the
+   card (f32 2e-5, bf16 2e-2), then timed at the dense path's shapes
+   beside their bounds, the plain versions and
+   ``scaled_dot_product_attention``;
+6. the dense main path: ``repro_torch.launch.serve.main`` with
+   ``--backend dense`` serves the same 8 requests; the flash kernel must
+   have been launched once per layer per prefill call and the decode
+   kernel once per layer per decode step;
+7. card vs CPU on the dense path: the full-width qwen3-0.6b in f32, a
+   ``prefill`` of 2 rows x 32 tokens and 4 ``decode_step``s: greedy
+   tokens equal, logits within ``PARITY_ATOL``.
+
+Each main path (phases 3 and 6) runs with every kernel's launch count
+set to 0 just before it and read just after.
 
 The last three lines are the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line describing each kernel, and the
@@ -28,6 +46,7 @@ JSON status line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -45,16 +64,16 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-#: phase 4: f32 logits on the card vs the CPU.  Both sides compute in
-#: f32, but in another order (cuBLAS vs the CPU BLAS, the kernel's
-#: online softmax over pages vs one softmax over the gathered row);
+#: phases 4 and 7: f32 logits on the card vs the CPU.  Both sides
+#: compute in f32, but in another order (cuBLAS vs the CPU BLAS, the
+#: kernels' online softmax over tiles vs one softmax over the row);
 #: relative rounding of ~1e-6 per product, compounded over 28 layers,
 #: stays orders of magnitude below this bound on logits of order 1, and
 #: far below the gap between the top two logits that decides each
 #: greedy token.
 PARITY_ATOL = 2e-3
 
-#: where phases 2 and 4 put the kernel's side (the card)
+#: where phases 2, 4, 5 and 7 put the kernel's side (the card)
 DEVICE = "cuda"
 
 MAIN_ARGV = ["--arch", "qwen3-0.6b", "--requests", "8", "--prompt-len",
@@ -133,6 +152,9 @@ def _to(arrs, dtype):
 
 
 def _cuda_ms(fn, iters: int) -> float:
+    """Time per call between CUDA events around ``iters`` calls: the
+    device's time, or the host's time to issue each call where that is
+    longer (a small kernel behind a Python wrapper)."""
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
@@ -146,6 +168,52 @@ def _cuda_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def _device_ms(fn, iters: int, kernel: str = "") -> float:
+    """Device time per call: the summed times of the kernels that
+    ``iters`` calls of ``fn`` launch (``torch.profiler``; one stream, so
+    they do not overlap), over ``iters``.  With ``kernel``, the mean time
+    of the kernels whose name holds it (one per call; the profiler may
+    drop an event, so at least nine tenths of them must be seen).  Unlike
+    ``_cuda_ms`` it leaves out the gaps while the host issues the next
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.name]
+    if not kernels or (kernel and not 0.9 * iters <= len(kernels) <= iters):
+        raise AssertionError(f"the profiler saw {len(kernels)} device "
+                             f"events named {kernel!r} for {iters} calls")
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return total / (len(kernels) if kernel else iters)
+
+
+def timed(fn, iters: int, kernel: str = "") -> dict:
+    """{"ms": device time per call (of ``kernel`` alone, if named),
+    "call_ms": event time per call}."""
+    return {"ms": _device_ms(fn, iters, kernel),
+            "call_ms": _cuda_ms(fn, iters)}
+
+
+def _us(t: dict) -> str:
+    return f"{t['ms'] * 1e3:.2f} us ({t['call_ms'] * 1e3:.2f} per call)"
+
+
+def bound(nbytes: float, ops: float, dtype):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the memory rate and the operations over the peak rate for ``dtype``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def paged_bound_ms(q, page, Hkv, lens, dtype):
     """Least time for the card: each live K/V page, q, the output, the
     live table slots and lens moved once; 4 * Hq * D operations per live
@@ -156,9 +224,7 @@ def paged_bound_ms(q, page, Hkv, lens, dtype):
     nbytes = (pages * page * Hkv * D * 2 * es + 2 * B * Hq * D * es
               + pages * 4 + B * 4)
     ops = 4 * Hq * D * int(sum(int(n) for n in lens))
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(nbytes, ops, dtype)
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -198,9 +264,9 @@ def phase_kernel_vs_plain() -> dict:
     q, kp, vp, table, ln = _to(paged_case(B, P, page, Hq, Hkv, D, lens,
                                           seed=99, L=L), dtype)
     scale = D ** -0.5
-    ms = _cuda_ms(lambda i: pa_ops.paged_attention(
-        q, kp[i % L], vp[i % L], table, ln), 20 * L)
-    plain_ms = _cuda_ms(lambda i: paged_attention_ref(
+    ker = timed(lambda i: pa_ops.paged_attention(
+        q, kp[i % L], vp[i % L], table, ln), 20 * L, "paged_decode_kernel")
+    plain = timed(lambda i: paged_attention_ref(
         q.transpose(1, 2), kp[i % L], vp[i % L], table, ln, scale=scale),
         2 * L)
     # the yardstick: one library call on K/V already gathered (the live
@@ -215,9 +281,8 @@ def phase_kernel_vs_plain() -> dict:
     mask = mask[:, None, None, :]
     qs = q.transpose(1, 2)                           # [B, Hq, 1, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _cuda_ms(lambda i: sdpa(qs, kd[i % L], vd[i % L],
-                                         attn_mask=mask, scale=scale),
-                          20 * L)
+    lib = timed(lambda i: sdpa(qs, kd[i % L], vd[i % L], attn_mask=mask,
+                               scale=scale), 20 * L)
     lib_err = (sdpa(qs, kd[0], vd[0], attn_mask=mask, scale=scale)
                .transpose(1, 2).float()
                - pa_ops.paged_attention(q, kp[0], vp[0], table, ln).float()
@@ -226,40 +291,70 @@ def phase_kernel_vs_plain() -> dict:
     print(f"phase 2 kernel vs plain: {len(errs)} cases ok, max abs err "
           f"{worst:.3g} [{' '.join(errs)}]; main shapes bf16 (B={B}, "
           f"Hq={Hq}, Hkv={Hkv}, D={D}, page={page}, maxp={P - 1}, "
-          f"lens<={max(lens)}): kernel {ms * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.2f} us, sdpa {library_ms * 1e3:.2f} us "
-          f"(|sdpa - kernel| {lib_err:.2g}), bound {bound_ms * 1e3:.3f} us "
-          f"({bound_by})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+          f"lens<={max(lens)}), device time: kernel {_us(ker)}, plain "
+          f"{_us(plain)}, sdpa {_us(lib)} (|sdpa - kernel| {lib_err:.2g}), "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    return {"max_abs_err": worst, "ms": ker["ms"], "plain_ms": plain["ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": lib["ms"]}
 
 
 # --- phase 3 -----------------------------------------------------------------
 
-def phase_main_path() -> int:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+def launchers() -> dict:
+    """Each kernel's launcher, by kernel name (each carries ``.launches``,
+    which it bumps where it launches its kernel and nowhere else)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_fwd
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_fwd
+    return {f.__name__: f for f in (paged_attention_fwd, flash_attention_fwd,
+                                    decode_attention_fwd)}
+
+
+def serve_counted(argv):
+    """``serve.main(argv)`` with every kernel's launch count set to 0 just
+    before and read just after, and the device's peak memory reset:
+    (output, {kernel name: launches})."""
     from repro_torch.launch import serve
-    cfg = get_config("qwen3-0.6b")
+    gc.collect()           # free what earlier phases left, then reset
     torch.cuda.reset_peak_memory_stats()
-    pa_kernel.paged_attention_fwd.launches = 0
-    out = serve.main(MAIN_ARGV)
-    launches = pa_kernel.paged_attention_fwd.launches
-    summary, backends = out["summary"], out["backends"]
-    calls = sum(be.decode_calls for be in backends)
-    if summary["completed"] != 8:
-        raise AssertionError(f"served {summary['completed']}/8 requests")
+    fns = launchers()
+    for f in fns.values():
+        f.launches = 0
+    out = serve.main(argv)
+    return out, {name: f.launches for name, f in fns.items()}
+
+
+def check_served(out, cfg) -> None:
+    if out["summary"]["completed"] != 8:
+        raise AssertionError(f"served {out['summary']['completed']}/8 "
+                             f"requests")
     for r in out["engine"].requests:
         if len(r.tokens) != r.max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.rid}: {len(r.tokens)} tokens "
                                  f"of {r.max_new_tokens}, or out of vocab")
+
+
+def phase_main_path() -> int:
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-0.6b")
+    out, counts = serve_counted(MAIN_ARGV)
+    launches = counts["paged_attention_fwd"]
+    summary, backends = out["summary"], out["backends"]
+    calls = sum(be.decode_calls for be in backends)
+    check_served(out, cfg)
     if not (cfg.num_layers == 28 and launches == cfg.num_layers * calls
             and launches > 0):
         raise AssertionError(f"kernel launched {launches} times for "
                              f"{calls} decode steps x {cfg.num_layers} "
                              f"layers")
+    if counts["flash_attention_fwd"] or counts["decode_attention_fwd"]:
+        raise AssertionError(f"the paged path launched a dense kernel: "
+                             f"{counts}")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
     print(f"phase 3 main path: qwen3-0.6b full ({cfg.num_layers} layers, "
@@ -275,13 +370,9 @@ def phase_main_path() -> int:
 
 
 def decode_step_profile(be, batch: int = 8, steps: int = 5) -> None:
-    """Where a decode step's time goes: ``torch.profiler`` over ``steps``
-    decode steps with the phase-3 backend's weights and page pool size,
-    every row of the batch live (context 128 on distinct pages), each
-    step ending in the greedy read-back as in serving; timed first
-    without the profiler and then under it.  Device busy time is the sum
-    of the kernels' times (one stream, so they do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
+    """Where a paged decode step's time goes: the phase-3 backend's
+    weights and page pool size, every row of the batch live (context 128
+    on distinct pages)."""
     from repro_torch.models import model as model_lib
     from repro_torch.train.step import build_paged_decode_step
     cfg, dev, page = be.cfg, be.device, be.page_size
@@ -297,24 +388,39 @@ def decode_step_profile(be, batch: int = 8, steps: int = 5) -> None:
     token = torch.full((batch, 1), 7, dtype=torch.long, device=dev)
     active = torch.ones(batch, dtype=torch.bool, device=dev)
     decode = build_paged_decode_step(cfg)
+    state = {"cache": cache}
+
+    def step():
+        logits, state["cache"] = decode(be.params, state["cache"], token,
+                                        active)
+        return logits
+    profile_steps("phase 3 decode-step profile", step, batch, ctx, steps)
+
+
+def profile_steps(label: str, step, batch: int, ctx: int,
+                  steps: int = 5) -> None:
+    """``torch.profiler`` over ``steps`` calls of ``step`` (one decode
+    step returning its logits), each ending in the greedy read-back as
+    in serving; timed first without the profiler and then under it.
+    Device busy time is the sum of the kernels' times (one stream, so
+    they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     for _ in range(steps):
-        logits, cache = decode(be.params, cache, token, active)
-        logits.argmax(-1).cpu()
+        step().argmax(-1).cpu()
     plain_wall = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, cache = decode(be.params, cache, token, active)
-            logits.argmax(-1).cpu()
+            step().argmax(-1).cpu()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"phase 3 decode-step profile: {1e3 * plain_wall:.2f} ms "
-              f"per step (host clock, batch {batch}); the profiler saw no "
-              f"device time: busy and idle share not measured")
+        print(f"{label}: {1e3 * plain_wall:.2f} ms per step (host clock, "
+              f"batch {batch}); the profiler saw no device time: busy and "
+              f"idle share not measured")
         return
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     by_name = {}
@@ -322,7 +428,7 @@ def decode_step_profile(be, batch: int = 8, steps: int = 5) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"phase 3 decode-step profile: batch {batch}, context {ctx}: "
+    print(f"{label}: batch {batch}, context {ctx}: "
           f"{1e3 * plain_wall:.2f} ms per step (host clock; "
           f"{1e3 * wall / steps:.2f} under the profiler), device busy "
           f"{1e3 * busy / steps:.3f} ms per step ({len(kernels) // steps} "
@@ -356,14 +462,33 @@ def _run_parity(cfg, params, device, prompts, table, num_pages, page):
     return outs
 
 
-def phase_parity(cfg) -> None:
-    from repro_torch.models import model as model_lib
-    p_cpu = model_lib.init(cfg, torch.Generator().manual_seed(0), "cpu")
+def to_card(tree):
+    """A copy of a param tree on the card."""
+    return ({k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.to(DEVICE))
 
-    def to_cuda(t):
-        return ({k: to_cuda(v) for k, v in t.items()} if isinstance(t, dict)
-                else t.to(DEVICE))
-    p_gpu = to_cuda(p_cpu)
+
+def check_parity(label: str, gpu, cpu) -> str:
+    """Greedy tokens equal and logits within ``PARITY_ATOL``, card vs
+    CPU; returns the numbers for the phase's line."""
+    diff = max((g - c).abs().max().item() for g, c in zip(gpu, cpu))
+    spread = max(c.std().item() for c in cpu)
+    tok_g = [g.argmax(-1).flatten().tolist() for g in gpu]
+    tok_c = [c.argmax(-1).flatten().tolist() for c in cpu]
+    if not all(torch.isfinite(g).all() for g in gpu):
+        raise AssertionError(f"{label}: non-finite logits on the card")
+    if tok_g != tok_c:
+        raise AssertionError(f"{label}: greedy tokens differ: card {tok_g} "
+                             f"vs cpu {tok_c}")
+    if diff > PARITY_ATOL:
+        raise AssertionError(f"{label}: card vs CPU logits differ by "
+                             f"{diff:.3g} > {PARITY_ATOL}")
+    return (f"greedy tokens equal {tok_g}; logits max abs diff {diff:.3g} "
+            f"<= {PARITY_ATOL} (logit std {spread:.3g})")
+
+
+def phase_parity(cfg, p_cpu) -> None:
+    p_gpu = to_card(p_cpu)
     r = np.random.default_rng(4)
     B, C, page, num_pages = 2, 32, 16, 9
     prompts = r.integers(3, cfg.vocab_size, (B, C)).astype(np.int32)
@@ -374,37 +499,326 @@ def phase_parity(cfg) -> None:
     t1 = time.perf_counter()
     cpu = _run_parity(cfg, p_cpu, "cpu", prompts, table, num_pages, page)
     t2 = time.perf_counter()
-    diff = max((g - c).abs().max().item() for g, c in zip(gpu, cpu))
-    spread = max(c.std().item() for c in cpu)
-    tok_g = [g.argmax(-1).flatten().tolist() for g in gpu]
-    tok_c = [c.argmax(-1).flatten().tolist() for c in cpu]
-    if not all(torch.isfinite(g).all() for g in gpu):
-        raise AssertionError("non-finite logits on the card")
-    if tok_g != tok_c:
-        raise AssertionError(f"greedy tokens differ: card {tok_g} vs cpu "
-                             f"{tok_c}")
-    if diff > PARITY_ATOL:
-        raise AssertionError(f"card vs CPU logits differ by {diff:.3g} "
-                             f"> {PARITY_ATOL}")
     print(f"phase 4 card vs CPU: qwen3-0.6b full f32 (TF32 off), prefill "
-          f"{B}x{C} + 4 decode steps: greedy tokens equal {tok_g}; logits "
-          f"max abs diff {diff:.3g} <= {PARITY_ATOL} (logit std "
-          f"{spread:.3g}); card {t1 - t0:.2f}s, cpu {t2 - t1:.2f}s")
+          f"{B}x{C} + 4 decode steps: {check_parity('phase 4', gpu, cpu)}; "
+          f"card {t1 - t0:.2f}s, cpu {t2 - t1:.2f}s")
+
+
+# --- phase 5 -----------------------------------------------------------------
+
+#: (name, (B, S, Hq, Hkv, D), causal, window, softcap): causal and not,
+#: window, softcap, S not a multiple of the 64 x 32 tiles, G in {1, 2, 4},
+#: the D > 128 tiling, and the main path's shapes
+FLASH_CASES = [
+    ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
+    ("mha-ragged", (2, 80, 4, 4, 16), True, 0, 0.0),
+    ("gqa2-1.5tiles", (2, 96, 4, 2, 32), True, 0, 0.0),
+    ("gqa4", (1, 128, 8, 2, 64), True, 0, 0.0),
+    ("window16", (2, 64, 4, 2, 16), True, 16, 0.0),
+    ("softcap30", (2, 64, 4, 2, 16), True, 0, 30.0),
+    ("window32-softcap50-ragged", (2, 72, 4, 2, 16), True, 32, 50.0),
+    ("noncausal", (2, 64, 4, 2, 16), False, 0, 0.0),
+    ("noncausal-window24-gqa4", (1, 70, 4, 1, 32), False, 24, 0.0),
+    ("d256", (1, 40, 2, 1, 256), True, 0, 0.0),
+    ("main-window48-softcap50", (8, 100, 16, 8, 128), True, 48, 50.0),
+]
+
+#: (name, (B, S, Hq, Hkv, D, lens), window, softcap): lens include 1 and
+#: S, S not a multiple of the 64-token chunk, G in {1, 2, 4}, a len-0 row,
+#: and the main path's shapes (8 rows at the shared position)
+DECODE_CASES = [
+    ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
+    ("main-mixed-lens", (8, 161, 16, 8, 128,
+                         [161, 160, 151, 140, 129, 97, 64, 1]), 0, 0.0),
+    ("lens-1-and-S", (2, 64, 4, 4, 16, [1, 64]), 0, 0.0),
+    ("gqa2-ragged", (2, 96, 8, 4, 32, [96, 40]), 0, 0.0),
+    ("gqa4-short", (1, 50, 4, 1, 16, [7]), 0, 0.0),
+    ("window16", (3, 130, 8, 2, 64, [130, 1, 77]), 16, 0.0),
+    ("softcap30", (2, 70, 4, 2, 32, [70, 33]), 0, 30.0),
+    ("window24-softcap50", (2, 100, 4, 2, 32, [100, 65]), 24, 50.0),
+    ("d48-odd-heads", (1, 96, 6, 3, 48, [11]), 0, 0.0),
+    ("zero-len-row", (2, 64, 4, 2, 16, [0, 9]), 0, 0.0),
+]
+
+
+def attended_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep in one S x S attention."""
+    qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
+    ok = np.ones((S, S), bool)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= kp > qp - window
+    return int(ok.sum())
+
+
+def _check_close(name, dtype, out, ref, errs) -> float:
+    a, b = out.float(), ref.float()
+    err = (a - b).abs().max().item()
+    tol = TOL[dtype]
+    if not torch.allclose(a, b, atol=tol, rtol=tol):
+        raise AssertionError(f"{name} {dtype}: kernel vs plain max abs err "
+                             f"{err:.3g} > {tol}")
+    errs.append(f"{name}/{str(dtype)[6:]}={err:.2g}")
+    return err
+
+
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device=DEVICE, dtype=dtype)
+
+
+def phase_dense_kernels_vs_plain() -> dict:
+    """Both dense kernels against their plain versions, then timed at the
+    dense main path's shapes (bf16; q/k/v or caches of all 28 layers
+    cycled so each launch reads from device memory, as a step does)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L = get_config("qwen3-0.6b").num_layers
+    dtype = torch.bfloat16
+    es = torch.empty((), dtype=dtype).element_size()
+    out = {}
+
+    # flash prefill: correctness
+    errs, worst = [], 0.0
+    for seed, (name, (B, S, Hq, Hkv, D), causal, window, cap) in \
+            enumerate(FLASH_CASES):
+        r = np.random.default_rng(seed)
+        arrs = [r.normal(0, 1, (B, S, H, D)).astype(np.float32)
+                for H in (Hq, Hkv, Hkv)]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(a).to(DEVICE, dt) for a in arrs)
+            got = fa_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, attn_softcap=cap)
+            ref = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                scale=D ** -0.5, causal=causal,
+                                window=window, softcap=cap).transpose(1, 2)
+            torch.cuda.synchronize()
+            worst = max(worst, _check_close(name, dt, got, ref, errs))
+    # flash prefill: timing at the main path's shapes
+    _, (B, S, Hq, Hkv, D), _, _, _ = FLASH_CASES[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(99)
+    qs = [_rand(gen, (B, S, Hq, D), dtype) for _ in range(L)]
+    ks = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    vs = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    ker = timed(lambda i: fa_ops.flash_attention(
+        qs[i % L], ks[i % L], vs[i % L]), 20 * L, "flash_fwd_kernel")
+    plain = timed(lambda i: attention_ref(
+        qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
+        vs[i % L].transpose(1, 2), scale=D ** -0.5), 2 * L)
+    # the yardstick: one library call on [B, Hq, S, D] with K/V repeated
+    # to the query heads (made outside the timing)
+    G = Hq // Hkv
+    qh = [t.transpose(1, 2).contiguous() for t in qs]
+    kh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in ks]
+    vh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in vs]
+    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L],
+                               is_causal=True), 20 * L)
+    lib_err = (sdpa(qh[0], kh[0], vh[0], is_causal=True).transpose(1, 2)
+               .float() - fa_ops.flash_attention(qs[0], ks[0], vs[0])
+               .float()).abs().max().item()
+    nbytes = B * S * D * es * (2 * Hq + 2 * Hkv)
+    ops = 4 * D * Hq * B * attended_pairs(S, True, 0)
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    out["flash_attention_fwd"] = dict(
+        max_abs_err=worst, ms=ker["ms"], plain_ms=plain["ms"],
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib["ms"])
+    print(f"phase 5 flash kernel vs plain: {len(errs)} cases ok, max abs "
+          f"err {worst:.3g} [{' '.join(errs)}]; main shapes bf16 (B={B}, "
+          f"S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, causal), device time: kernel "
+          f"{_us(ker)}, plain {_us(plain)}, sdpa {_us(lib)} (|sdpa - "
+          f"kernel| {lib_err:.2g}), "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.2f} "
+          f"MB, {ops / 1e9:.3f} GFLOP)")
+    del qs, ks, vs, qh, kh, vh
+
+    # dense decode: correctness
+    errs, worst = [], 0.0
+    for seed, (name, (B, S, Hq, Hkv, D, lens), window, cap) in \
+            enumerate(DECODE_CASES):
+        r = np.random.default_rng(100 + seed)
+        arrs = [r.normal(0, 1, (B, 1, Hq, D)).astype(np.float32),
+                r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
+                r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32)]
+        ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        for dt in (torch.float32, torch.bfloat16):
+            q, kc, vc = (torch.from_numpy(a).to(DEVICE, dt) for a in arrs)
+            got = da_ops.decode_attention(q, kc, vc, ln - 1, window=window,
+                                          attn_softcap=cap)
+            ref = decode_attention_ref(q.transpose(1, 2), kc, vc, ln,
+                                       scale=D ** -0.5, window=window,
+                                       softcap=cap).transpose(1, 2)
+            torch.cuda.synchronize()
+            live = ln >= 1       # the plain version averages len-0 rows
+            if not torch.all(got[~live] == 0):
+                raise AssertionError(f"{name}: a len == 0 row is not zero")
+            worst = max(worst, _check_close(name, dt, got[live], ref[live],
+                                            errs))
+    # dense decode: timing at the main path's shapes
+    _, (B, S, Hq, Hkv, D, lens), _, _ = DECODE_CASES[0]
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    # every row at one shared position, as the dense path's cache is
+    pos = torch.tensor(lens[0] - 1, dtype=torch.int32, device=DEVICE)
+    qs = [_rand(gen, (B, 1, Hq, D), dtype) for _ in range(L)]
+    kc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    vc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    ker = timed(lambda i: da_ops.decode_attention(
+        qs[i % L], kc[i % L], vc[i % L], pos), 20 * L, "dense_decode_kernel")
+    plain = timed(lambda i: decode_attention_ref(
+        qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], ln,
+        scale=D ** -0.5), 2 * L)
+    # the yardstick: one library call, the 1-token query against the live
+    # K/V (every row has the same length here), heads repeated to Hq
+    n = lens[0]
+    qh = [t.transpose(1, 2).contiguous() for t in qs]
+    kh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+          .contiguous() for t in kc]
+    vh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+          .contiguous() for t in vc]
+    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L]), 20 * L)
+    lib_err = (sdpa(qh[0], kh[0], vh[0]).transpose(1, 2).float()
+               - da_ops.decode_attention(qs[0], kc[0], vc[0], pos)
+               .float()).abs().max().item()
+    live = int(sum(lens))
+    nbytes = live * Hkv * D * 2 * es + 2 * B * Hq * D * es + B * 4
+    ops = 4 * Hq * D * live
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    out["decode_attention_fwd"] = dict(
+        max_abs_err=worst, ms=ker["ms"], plain_ms=plain["ms"],
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib["ms"])
+    print(f"phase 5 decode kernel vs plain: {len(errs)} cases ok, max abs "
+          f"err {worst:.3g} [{' '.join(errs)}]; main shapes bf16 (B={B}, "
+          f"S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, lens={n}), device time: "
+          f"kernel {_us(ker)}, plain {_us(plain)}, sdpa {_us(lib)} (|sdpa - "
+          f"kernel| {lib_err:.2g}), "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.2f} "
+          f"MB)")
+    return out
+
+
+# --- phase 6 -----------------------------------------------------------------
+
+def phase_dense_path() -> dict:
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3-0.6b")
+    out, counts = serve_counted(MAIN_ARGV + ["--backend", "dense"])
+    summary, backends = out["summary"], out["backends"]
+    check_served(out, cfg)
+    pre = sum(be.prefill_calls for be in backends)
+    dec = sum(be.decode_calls for be in backends)
+    fl, de = counts["flash_attention_fwd"], counts["decode_attention_fwd"]
+    L = cfg.num_layers
+    if not (L == 28 and fl == L * pre and de == L * dec and pre > 0
+            and dec > 0):
+        raise AssertionError(f"flash kernel launched {fl} times for {pre} "
+                             f"prefill calls, decode kernel {de} times for "
+                             f"{dec} decode steps, x {L} layers")
+    if counts["paged_attention_fwd"]:
+        raise AssertionError(f"the dense path launched the paged kernel: "
+                             f"{counts}")
+    dec_s = sum(be.decode_seconds for be in backends)
+    tok = summary["good_tokens"]
+    print(f"phase 6 dense path: qwen3-0.6b full ({L} layers, "
+          f"d={cfg.d_model}, {cfg.param_dtype}) served "
+          f"{summary['completed']}/8 requests, {tok} tokens in "
+          f"{out['wall_s']:.2f}s wall ({tok / out['wall_s']:.1f} tok/s); "
+          f"{pre} prefill calls, flash kernel launched {fl} = {L} x {pre}; "
+          f"{dec} decode steps, mean {1e3 * dec_s / dec:.2f} ms/step, "
+          f"decode kernel launched {de} = {L} x {dec}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    dense_decode_profile(backends[0])
+    return counts
+
+
+def dense_decode_profile(be, batch: int = 8, steps: int = 5) -> None:
+    """Where a dense decode step's time goes: the phase-6 backend's
+    weights and cache length, every row of the batch at context 128 (or
+    less, to leave room for the steps in the cache)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.train.step import build_decode_step
+    ctx, dev = min(128, be.max_len - 2 * steps), be.device
+    cache = model_lib.init_cache(be.cfg, batch, be.max_len, device=dev)
+    cache["len"] = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    token = torch.full((batch, 1), 7, dtype=torch.long, device=dev)
+    decode = build_decode_step(be.cfg)
+    state = {"cache": cache}
+
+    def step():
+        logits, state["cache"] = decode(be.params, state["cache"], token)
+        return logits
+    profile_steps("phase 6 dense decode-step profile", step, batch, ctx,
+                  steps)
+
+
+# --- phase 7 -----------------------------------------------------------------
+
+def _run_dense_parity(cfg, params, device, prompts, max_len):
+    from repro_torch.train.step import build_decode_step, build_prefill_step
+    dev = torch.device(device)
+    logits, cache = build_prefill_step(cfg, max_len)(
+        params, {"tokens": torch.from_numpy(prompts).long().to(dev)})
+    outs = [logits.cpu()]
+    decode = build_decode_step(cfg)
+    for _ in range(4):
+        token = logits.argmax(-1)                    # [B, 1]
+        logits, cache = decode(params, cache, token)
+        outs.append(logits.cpu())
+    return outs
+
+
+def phase_dense_parity(cfg, p_cpu) -> None:
+    p_gpu = to_card(p_cpu)
+    r = np.random.default_rng(7)
+    B, C = 2, 32
+    prompts = r.integers(3, cfg.vocab_size, (B, C)).astype(np.int32)
+    max_len = C + 8
+    t0 = time.perf_counter()
+    gpu = _run_dense_parity(cfg, p_gpu, DEVICE, prompts, max_len)
+    t1 = time.perf_counter()
+    cpu = _run_dense_parity(cfg, p_cpu, "cpu", prompts, max_len)
+    t2 = time.perf_counter()
+    print(f"phase 7 dense card vs CPU: qwen3-0.6b full ({cfg.num_layers} "
+          f"layers) f32 (TF32 off), prefill {B}x{C} + 4 decode steps: "
+          f"{check_parity('phase 7', gpu, cpu)}; card {t1 - t0:.2f}s, cpu "
+          f"{t2 - t1:.2f}s")
+
+
+#: what each kernel replaces: its source in the port and the TPU kernel
+KERNELS = {
+    "paged_attention_fwd": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/kernel.py:81"),
+    "flash_attention_fwd": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:90"),
+    "decode_attention_fwd": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:76"),
+}
 
 
 def main() -> None:
     card = phase_device_and_build()
-    timing = phase_kernel_vs_plain()
-    launches = phase_main_path()
+    timing = {"paged_attention_fwd": phase_kernel_vs_plain()}
+    paged_launches = phase_main_path()
     from repro_torch.configs import get_config
-    phase_parity(get_config("qwen3-0.6b").replace(param_dtype="float32",
-                                                  compute_dtype="float32"))
-    kernels = [dict(
-        name="paged_attention_fwd", route="cuda",
-        source="src/repro_torch/kernels/paged_attention/csrc/"
-               "paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention/kernel.py:81",
-        launches=launches, **timing)]
+    from repro_torch.models import model as model_lib
+    f32 = get_config("qwen3-0.6b").replace(param_dtype="float32",
+                                           compute_dtype="float32")
+    # the same random f32 weights for phases 4 and 7, kept on the CPU (a
+    # copy goes to the card for each parity phase only)
+    p_cpu = model_lib.init(f32, torch.Generator().manual_seed(0), "cpu")
+    phase_parity(f32, p_cpu)
+    timing.update(phase_dense_kernels_vs_plain())
+    launches = phase_dense_path()
+    launches["paged_attention_fwd"] = paged_launches
+    phase_dense_parity(f32, p_cpu)
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name], **timing[name])
+               for name, (src, rep) in KERNELS.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

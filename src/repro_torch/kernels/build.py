@@ -2,11 +2,12 @@
 
 Every ``kernels/<name>/csrc/*.cu`` is one shared library with a plain C
 interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into
-``build/kernels/`` at the repository root on first use.  A library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused within a checkout.  Nothing is
-downloaded, and there is no fallback: a missing ``nvcc`` or a failed
-compile raises.
+``build/kernels/`` at the repository root on first use.  The sources share
+device code through the headers in ``include/`` (on the include path).
+A library's file name carries a hash of its source, of every header and
+of the flags, so an edited source or header is rebuilt and an unchanged
+one is reused within a checkout.  Nothing is downloaded, and there is no
+fallback: a missing ``nvcc`` or a failed compile raises.
 
     python -c "from repro_torch.kernels import build; build.build_all()"
 """
@@ -22,8 +23,10 @@ from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+INCLUDE_DIR = KERNELS_DIR / "include"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(INCLUDE_DIR))
 
 
 def sources() -> List[Path]:
@@ -48,10 +51,19 @@ def nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def headers() -> List[Path]:
+    """Every shared header, in a stable order."""
+    return sorted(INCLUDE_DIR.glob("*.cuh"))
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    """Where ``source``'s library goes: the name hashes the source, every
+    shared header (a source may include any of them) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in headers():
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(source: Path):

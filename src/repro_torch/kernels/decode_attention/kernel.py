@@ -1,0 +1,120 @@
+"""Launcher of the CUDA dense flash-decode kernel
+(``csrc/decode_attention.cu``).
+
+Replaces ``decode_attention_fwd`` of the JAX package's
+``kernels/decode_attention/kernel.py`` (the Pallas ``_decode_kernel``).
+The kernel is memory-bound: it must read the live K and V rows,
+``sum_b lens[b] * Hkv * D * 2`` elements, once; one thread block per
+(kv head, row) serves all query heads of the group so each row is read
+once (see the source for the design).  The cache is not padded to the
+kernel's chunk: the kernel masks and zero-fills the ragged last chunk.
+
+The library is compiled with ``nvcc`` on first use and bound with
+``ctypes``; this module imports nothing CUDA-specific until then.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
+#: tokens per chunk (``kChunk`` in the source)
+CHUNK = 64
+#: shared memory one block may use on Hopper (bytes)
+MAX_SMEM = 232_448
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    lib = build.load(SOURCE)
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_attention_fwd.argtypes = (
+        [vp] * 5 + [i32] * 5 + [f32, i32, f32, i32, vp])
+    lib.decode_attention_fwd.restype = i32
+    lib.decode_attention_error_string.argtypes = [i32]
+    lib.decode_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smem_bytes(G: int, D: int) -> int:
+    """Dynamic shared memory of one block: fp32 K and V chunks, q and acc
+    for the G heads, the G x chunk scores and (m, l, alpha)."""
+    return 4 * (2 * CHUNK * D + 2 * G * D + G * CHUNK + 3 * G)
+
+
+def _check(q, k_cache, v_cache, lens):
+    if q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"q must be [B, Hq, 1, D], got {tuple(q.shape)}")
+    B, Hq, _, D = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[3] != D:
+        raise ValueError(f"caches must both be [B={B}, S, Hkv, D={D}], got "
+                         f"{tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)}")
+    Hkv = k_cache.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"head dim {D} unsupported (need D <= "
+                         f"{MAX_HEAD_DIM} and D % 8 == 0)")
+    if tuple(lens.shape) != (B,):
+        raise ValueError(f"lens must be [B={B}], got {tuple(lens.shape)}")
+    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise TypeError(f"q and caches must share one of float32/bfloat16, "
+                        f"got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if lens.dtype != torch.int32:
+        raise TypeError("lens must be int32")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("lens", lens)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device "
+                             f"({q.device}), got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"reads rows with 16-byte loads)")
+    smem = smem_bytes(Hq // Hkv, D)
+    if smem > MAX_SMEM:
+        raise ValueError(f"D={D}, G={Hq // Hkv} needs {smem} bytes of "
+                         f"shared memory (> {MAX_SMEM})")
+
+
+def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lens: torch.Tensor, *,
+                         scale: float, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """q [B, Hq, 1, D]; caches [B, S, Hkv, D]; lens [B] int32 (valid
+    entries incl. the current token, each <= S).  All on one CUDA
+    device.  -> [B, Hq, 1, D] in q's dtype.
+
+    Launches on the current stream and does not synchronise.  Adds one
+    to ``decode_attention_fwd.launches`` per launch."""
+    _check(q, k_cache, v_cache, lens)
+    B, Hq, _, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.decode_attention_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D, float(scale),
+            int(window), float(softcap), _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        msg = lib.decode_attention_error_string(err).decode()
+        raise RuntimeError(f"decode_attention_fwd launch failed: {msg} "
+                           f"(cudaError {err})")
+    decode_attention_fwd.launches += 1
+    return out
+
+
+decode_attention_fwd.launches = 0

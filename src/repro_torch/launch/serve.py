@@ -30,18 +30,18 @@ fcfs|sjf|best-fit|arrival-aware``): ``sjf`` serves short requests first,
 shrinking padding and mean TTFT.
 
 ``--device`` picks where the model runs: ``cuda`` (the default) runs on
-the card, and the paged decode attention goes through the hand-written
-CUDA kernel; ``cpu`` runs the plain PyTorch versions and must be asked
-for.  There is no fallback: ``--device cuda`` without a card raises.
+the card, and attention goes through the hand-written CUDA kernels
+(paged decode; with ``--backend dense``, flash prefill and dense
+decode); ``cpu`` runs the plain PyTorch versions and must be asked for.
+There is no fallback: ``--device cuda`` without a card raises.
 
 ``--backend paged`` (default) serves over the page-granular KV backend:
 fixed ``--page-size`` token blocks from a shared pool, per-request page
 tables, and ``--prefill-chunk``-token prefill slices interleaved with
 decode steps — requests join at any step, and admission books
 page-quantized KV demand (the estimator carries ``page_size`` through
-``ServingDemand``).  ``--backend dense`` (the slot-compacted cache)
-comes with the dense-cache serving slice of the port and raises until
-then.
+``ServingDemand``).  ``--backend dense`` keeps the slot-compacted cache
+(shared position, full-prompt prefill stalls) for comparison.
 
 ``--replicas N`` serves over N replica Nodes on the shared
 ``repro_torch.sched.cluster`` runtime — each replica gets its own backend and
@@ -86,7 +86,7 @@ from repro_torch.sched import (Autoscaler, ElasticController,
                                Tenant, TenantRegistry, available_placements,
                                available_routers, available_topologies,
                                get_estimator, get_topology)
-from repro_torch.serve import (Engine, Request, ServingDemand,
+from repro_torch.serve import (Engine, Request, ServingDemand, TorchBackend,
                                TorchPagedBackend, pages_for)
 
 #: estimators that make sense for a serving deployment (job-side ones
@@ -167,7 +167,7 @@ def main(argv=None) -> dict:
                     choices=("paged", "dense"),
                     help="paged = block-granular KV + chunked prefill "
                          "(joins any step); dense = slot-compacted "
-                         "cache (not ported yet: raises)")
+                         "cache (shared position)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV page size in tokens (paged backend); "
                          "demand books page-quantized KV")
@@ -253,21 +253,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model runs: cuda (the card, with the "
-                         "CUDA paged-decode kernel) or cpu (plain "
-                         "PyTorch); no fallback from one to the other")
+                         "CUDA attention kernels) or cpu (plain PyTorch); "
+                         "no fallback from one to the other")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but CUDA is not available; pass "
                            "--device cpu to serve on the CPU")
-    if args.backend == "dense":
-        raise NotImplementedError(
-            "--backend dense comes with the dense-cache serving slice "
-            "(slice 2) of the PyTorch port")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     max_len = args.prompt_len + args.decode_steps + 1
 
-    page_size = args.page_size
+    page_size = args.page_size if args.backend == "paged" else 1
     estimator = get_estimator(args.estimator)
     estimate = estimator.estimate(ModelTarget(
         cfg, max_len,
@@ -340,14 +336,20 @@ def main(argv=None) -> dict:
 
     rng = np.random.default_rng(args.seed)
     requests = build_requests(args, rng, tenants=tenant_list)
-    # pool sized so max_batch worst-case requests can reserve, +1 for the
-    # scratch page
-    num_pages = 1 + args.max_batch * pages_for(max_len, page_size)
-    backends = [TorchPagedBackend(cfg, num_pages=num_pages,
-                                  page_size=page_size,
-                                  prefill_chunk=args.prefill_chunk,
-                                  seed=args.seed + r, device=args.device)
-                for r in range(fleet)]
+    if args.backend == "paged":
+        # pool sized so max_batch worst-case requests can reserve, +1
+        # for the scratch page
+        num_pages = 1 + args.max_batch * pages_for(max_len, page_size)
+        backends = [TorchPagedBackend(cfg, num_pages=num_pages,
+                                      page_size=page_size,
+                                      prefill_chunk=args.prefill_chunk,
+                                      seed=args.seed + r,
+                                      device=args.device)
+                    for r in range(fleet)]
+    else:
+        backends = [TorchBackend(cfg, max_len=max_len, seed=args.seed + r,
+                                 device=args.device)
+                    for r in range(fleet)]
     tracer = None
     if args.trace:
         from repro_torch.obs import Tracer
@@ -365,7 +367,8 @@ def main(argv=None) -> dict:
     axes = ", ".join(
         f"{a}={v:.3g}" + ("Gbps" if a == "net" else "GB")
         for a, v in budget.items())
-    kind = f"paged (page={page_size}, chunk={args.prefill_chunk})"
+    kind = (f"paged (page={page_size}, chunk={args.prefill_chunk})"
+            if args.backend == "paged" else "dense (slot-compacted cache)")
     dev = (torch.cuda.get_device_name(0) if args.device == "cuda"
            else "cpu")
     print(f"serving {args.requests} requests on {dev}, mode={args.mode}, "
@@ -439,9 +442,11 @@ def main(argv=None) -> dict:
         print(f"trace: {len(tracer)} events -> {args.trace} "
               f"(summarize: python scripts/trace_report.py "
               f"{args.trace})")
-    waste = np.mean([be.waste_ratio() for be in backends])
-    print(f"paged KV: {waste:.1%} of resident page slots held no live "
-          f"token (a dense cache would hold the full batch*max_len grid)")
+    if args.backend == "paged":
+        waste = np.mean([be.waste_ratio() for be in backends])
+        print(f"paged KV: {waste:.1%} of resident page slots held no "
+              f"live token (a dense cache would hold the full "
+              f"batch*max_len grid)")
     if topology is not None:
         print(f"network: {summary['migrations']} KV migration(s), "
               f"{len(topology.completed())} transmission(s) completed")

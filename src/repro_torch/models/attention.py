@@ -1,9 +1,12 @@
 """Grouped-query attention with the full option set used by the assigned archs.
 
 The plain PyTorch path of ``attention`` mirrors the JAX package's XLA
-path.  Paged decode on a CUDA tensor runs the hand-written CUDA kernel
-(``kernels/paged_attention``).  The flash-attention and dense
-decode-attention kernels come with the dense-cache serving slice.
+path.  Where the JAX package reaches a Pallas kernel (with
+``use_pallas``), the port reaches its hand-written CUDA kernel whenever
+the tensor lies on the card, whatever ``use_pallas`` says: prefill
+self-attention goes to ``kernels/flash_attention``, dense decode to
+``kernels/decode_attention`` and paged decode to
+``kernels/paged_attention``.  A CPU tensor takes the plain path.
 """
 from __future__ import annotations
 
@@ -14,9 +17,6 @@ import torch
 from repro_torch.models.layers import softcap
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-
-_DENSE_SLICE = ("comes with the dense-cache serving slice (slice 2) of "
-                "the PyTorch port")
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -56,16 +56,25 @@ def attention(
     f32_logits: bool = True,
 ) -> torch.Tensor:
     """Returns [B, Q, Hq, D]. Softmax in fp32 (or in the input dtype with
-    explicit max-subtraction when ``f32_logits=False``)."""
+    explicit max-subtraction when ``f32_logits=False``).
+
+    Self-attention of a whole sequence (``Q > 1``, causal, ``Q == K``, no
+    ``kv_len``: where the JAX package may take its flash kernel) runs the
+    CUDA flash-attention kernel on a CUDA tensor (fp32 online softmax, so
+    ``f32_logits`` and the positions do not apply there, as in the JAX
+    kernel path).  ``use_pallas`` is kept for the callers' signature and
+    has no effect: the tensor's device decides."""
     B, Q, Hq, D = q.shape
     _, K, Hkv, _ = k.shape
     assert Hq % Hkv == 0, (Hq, Hkv)
     G = Hq // Hkv
     scale = D ** -0.5 if scale is None else scale
 
-    if use_pallas and Q > 1 and causal and kv_len is None and Q == K:
-        raise NotImplementedError(
-            "the flash-attention kernel " + _DENSE_SLICE)
+    if q.is_cuda and Q > 1 and causal and kv_len is None and Q == K:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        return fa_ops.flash_attention(
+            q, k, v, causal=True, window=window,
+            attn_softcap=attn_softcap, scale=scale)
 
     if q_positions is None:
         q_positions = torch.arange(Q, device=q.device)
@@ -138,6 +147,36 @@ def paged_decode_attention(
         scale=scale, f32_logits=f32_logits)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, **kw):
-    """One-token attention against a dense KV cache."""
-    raise NotImplementedError("decode_attention " + _DENSE_SLICE)
+def decode_attention(
+    q: torch.Tensor,            # [B, 1, Hq, D]
+    k_cache: torch.Tensor,      # [B, S, Hkv, D]
+    v_cache: torch.Tensor,      # [B, S, Hkv, D]
+    cache_len,                  # scalar int32: index of the current token
+    *,
+    window: int = 0,
+    attn_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    use_pallas: bool = False,
+    f32_logits: bool = True,
+) -> torch.Tensor:
+    """One-token attention against a (possibly partially filled) KV cache.
+
+    The tensor's device decides the path: on a CUDA tensor this always
+    launches the CUDA dense-decode kernel (fp32 online softmax, so
+    ``f32_logits`` does not apply there); on a CPU tensor it runs the
+    plain ``attention``.  ``use_pallas`` is kept for the callers'
+    signature and has no effect."""
+    if q.is_cuda:
+        from repro_torch.kernels.decode_attention import ops as da_ops
+        return da_ops.decode_attention(
+            q, k_cache, v_cache, cache_len,
+            window=window, attn_softcap=attn_softcap, scale=scale)
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=q.device)
+    q_pos = cache_len.reshape(1)               # query at index len
+    return attention(
+        q, k_cache, v_cache, causal=True,
+        q_positions=q_pos,
+        k_positions=torch.arange(k_cache.shape[1], device=q.device),
+        kv_len=cache_len + 1, window=window,
+        attn_softcap=attn_softcap, scale=scale, f32_logits=f32_logits)

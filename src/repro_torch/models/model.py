@@ -4,18 +4,21 @@ forward passes.
 Mirrors the JAX package's ``models/model.py``.  ``param_specs``,
 ``abstract`` and ``init_cache(abstract_only=True)`` cover every family
 (dense / moe / encdec / vlm / ssm / hybrid), so the footprint estimator
-sees the same byte counts.  The forward passes here are the paged subset
-that serving runs (``prefill_chunk`` / ``decode_step_paged``) for the
-dense and vlm families; the rest (MoE blocks, the dense cache, training,
-SSM and the remaining families) comes in later slices of the port.
+sees the same byte counts.  The forward passes here are the ones serving
+runs, for the dense and vlm families: the paged pair (``prefill_chunk``
+/ ``decode_step_paged``) and the dense-cache pair (``prefill`` /
+``decode_step``).  The rest (MoE blocks, training, SSM, hybrid and the
+remaining families) comes in later slices of the port (ROADMAP.md,
+Queue 1), and raises ``NotImplementedError`` until then.
 
 Design rules:
   * Plain functions over a nested dict of tensors, stacked ``[L, ...]``
     per layer; a Python loop over layers replaces ``lax.scan``.
   * Same spec tree drives abstract (``device="meta"``) and concrete init.
   * Weights keep the JAX layouts (``wq`` is ``[d, Hq*hd]``; ``x @ W``).
-  * The paged KV pools are updated in place (see ``_paged_kv_write``):
-    a step consumes the cache it is given, like a donated JAX buffer.
+  * The KV caches are updated in place (``_paged_kv_write``, and the
+    dense write in ``attn_block``): a step consumes the cache it is
+    given, like a donated JAX buffer.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import attention, paged_decode_attention
+from repro_torch.models.attention import (attention, decode_attention,
+                                          paged_decode_attention)
 from repro_torch.models.layers import apply_rope, mlp, rms_norm, softcap
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
@@ -209,11 +213,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+#: what raises until its slice of the port lands (ROADMAP.md, Queue 1)
+_LATER = {
+    "moe": "the MoE slice of the PyTorch port (MoE blocks)",
+    "local_global": "the remaining-families slice of the PyTorch port "
+                    "(gemma2 local/global layers)",
+    "encdec": "the remaining-families slice of the PyTorch port "
+              "(whisper encoder-decoder)",
+    "ssm": "the SSM and hybrid slice of the PyTorch port (SSD scan)",
+    "hybrid": "the SSM and hybrid slice of the PyTorch port (SSD scan)",
+}
+
+
+def _not_ported(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} comes with {_LATER[key]}")
+
+
 def _check_paged(cfg: ModelConfig) -> None:
     if cfg.family == "moe":
-        raise NotImplementedError(
-            "paged serving of the moe family comes with slice 2 of the "
-            "PyTorch port (MoE blocks)")
+        raise _not_ported("paged serving of the moe family", "moe")
     if cfg.family not in ("dense", "vlm") or cfg.local_global:
         raise NotImplementedError(
             f"paged KV cache supports dense-stack families, got "
@@ -278,6 +296,80 @@ def _qk_normed(p, cfg, q, k):
 def _attn_scale(cfg) -> float:
     dim = getattr(cfg, "attn_scale_dim", 0) or cfg.head_dim
     return float(dim) ** -0.5
+
+
+def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+               mode: str,                    # train | prefill | decode
+               causal: bool = True,
+               window: int = 0,
+               layer_kv=None,
+               pos: Optional[torch.Tensor] = None,
+               cross_kv=None,
+               rope: bool = True):
+    """Pre-norm attention with residual. Returns (x_out, new_kv | None).
+
+    * train:   full self-attention, new_kv=None
+    * prefill: full self-attention, returns (k, v) [B,S,Hkv,hd]
+    * decode:  layer_kv is the full cache slice; the new token's k/v is
+               written at index ``pos`` IN PLACE (the JAX version returns
+               an updated copy); returns the same cache slice.
+    * cross_kv set -> cross-attention (no rope, non-causal, ignores cache).
+
+    ``pos`` is the cache's 0-dim position tensor and stays on its device
+    (no read-back).  Unlike ``jax.lax.dynamic_update_slice``, which clamps
+    a start index past the end, the write needs ``pos < S``: the backend
+    asserts it before every decode step, as the JAX backend does.
+    """
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+
+    new_kv = None
+    if cross_kv is not None:
+        k, v = cross_kv
+        q, k = _qk_normed(p, cfg, q, k)
+        out = attention(q, k, v, causal=False, scale=_attn_scale(cfg),
+                        attn_softcap=cfg.attn_softcap,
+                        use_pallas=cfg.use_pallas,
+                        f32_logits=cfg.attn_f32_logits)
+    else:
+        k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+        v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+        q, k = _qk_normed(p, cfg, q, k)
+        if mode == "decode":
+            assert layer_kv is not None and pos is not None and S == 1
+            posv = torch.as_tensor(pos, dtype=torch.int32,
+                                   device=x.device).reshape(1)
+            if rope:
+                q = apply_rope(q, posv, cfg.rope_theta)
+                k = apply_rope(k, posv, cfg.rope_theta)
+            ck, cv = layer_kv
+            ck.index_copy_(1, posv.long(), k.to(ck.dtype))
+            cv.index_copy_(1, posv.long(), v.to(cv.dtype))
+            out = decode_attention(
+                q, ck, cv, pos, window=window,
+                attn_softcap=cfg.attn_softcap, scale=_attn_scale(cfg),
+                use_pallas=cfg.use_pallas,
+                f32_logits=cfg.attn_f32_logits)
+            new_kv = (ck, cv)
+        else:
+            if rope:
+                posv = torch.arange(S, device=x.device)
+                q = apply_rope(q, posv, cfg.rope_theta)
+                k = apply_rope(k, posv, cfg.rope_theta)
+            out = attention(q, k, v, causal=causal, window=window,
+                            attn_softcap=cfg.attn_softcap,
+                            scale=_attn_scale(cfg),
+                            use_pallas=cfg.use_pallas,
+                            f32_logits=cfg.attn_f32_logits)
+            if mode == "prefill":
+                new_kv = (k, v)
+
+    out = out.reshape(B, S, cfg.num_heads * hd) @ p["wo"]
+    if cfg.use_post_norm:
+        out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
+    return x + out, new_kv
 
 
 def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -437,3 +529,89 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache,
     last = h[torch.arange(B, device=dev),
              torch.clamp(chunk_lens - 1, min=0).long()][:, None]
     return _unembed(params, cfg, last), nc
+
+
+# ---------------------------------------------------------------------------
+# Dense-cache serving
+# ---------------------------------------------------------------------------
+
+def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
+    return _unembed(params, cfg, hidden)
+
+
+def _dense_stack(params, cfg, x, mode, cache=None):
+    """Dense / vlm decoder stack, one layer at a time. Returns (h,
+    new_cache_kv, aux).  Decode writes layer ``l``'s token into
+    ``cache["k"][l]`` / ``["v"][l]`` in place; prefill stacks the
+    layers' (k, v) into ``[L, B, S, Hkv, hd]``."""
+    if cfg.local_global:
+        raise _not_ported("the local/global dense stack", "local_global")
+    if "moe" in params["blocks"]:
+        raise _not_ported("the dense stack's MoE blocks", "moe")
+    pos = None if cache is None else cache["len"]
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        pb = _layer(params["blocks"], i)
+        kv = (cache["k"][i], cache["v"][i]) if cache else None
+        x, nkv = attn_block(pb["attn"], cfg, x, mode=mode, layer_kv=kv,
+                            pos=pos)
+        x = mlp_block(pb["mlp"], cfg, x)
+        if mode == "prefill":
+            ks.append(nkv[0])
+            vs.append(nkv[1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        return x, None, aux
+    if mode == "prefill":
+        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+    return x, {"k": cache["k"], "v": cache["v"]}, aux
+
+
+def _check_dense(cfg: ModelConfig, what: str) -> None:
+    if cfg.family in ("encdec", "ssm", "hybrid"):
+        raise _not_ported(f"{what} of the {cfg.family} family", cfg.family)
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor):
+    """One-token decode. token: [B, 1] int. Returns (logits [B,1,V] fp32,
+    cache); the cache's KV arrays are updated in place and its ``len``
+    advances by one on the device."""
+    _check_dense(cfg, "dense decode")
+    x = _embed(params, cfg, token)
+    h, nc, _ = _dense_stack(params, cfg, x, "decode", cache)
+    nc["len"] = cache["len"] + 1
+    # carry across non-updated fields
+    for key in cache:
+        if key not in nc:
+            nc[key] = cache[key]
+    return _unembed(params, cfg, h), nc
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            max_len: int):
+    """Process a prompt, build the cache. Returns (last_logits [B,1,V],
+    cache with KV arrays ``[L, B, max_len, Hkv, hd]`` and ``len`` = S)."""
+    _check_dense(cfg, "prefill")
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    S = x.shape[1]
+    h, nc, _ = _dense_stack(params, cfg, x, "prefill", None)
+    nc = _pad_kv_cache(nc, max_len, S)
+    nc["len"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+    return _unembed(params, cfg, h[:, -1:]), nc
+
+
+def _pad_kv_cache(nc, max_len: int, cur_len: int):
+    """Pad prefill-produced [.., S, Hkv, hd] KV arrays out to max_len
+    slots (zeros)."""
+    def pad(x):
+        if x.dim() >= 4 and x.shape[-3] == cur_len and max_len > cur_len:
+            out = x.new_zeros(x.shape[:-3] + (max_len,) + x.shape[-2:])
+            out[..., :cur_len, :, :] = x
+            return out
+        return x
+    return {k: (pad(v) if k.endswith(("k", "v")) and "cross" not in k
+                and not k.startswith(("ssm", "conv")) else v)
+            for k, v in nc.items()}

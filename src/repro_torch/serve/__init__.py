@@ -11,8 +11,11 @@ PyTorch.
   with pluggable placement ordering.
 * ``batcher`` — :class:`ContinuousBatcher`: per-step vector admission
   producing :class:`StepDecision` records.
-* ``backends`` — :class:`Backend` and :class:`SimBackend` (virtual-time
-  cost model for benchmarks/tests).
+* ``backends`` — :class:`Backend`, :class:`SimBackend` (virtual-time
+  cost model for benchmarks/tests) and :class:`TorchBackend`
+  (``build_prefill_step``/``build_decode_step`` over a slot-compacted
+  dense KV cache with bucketed padding and shrink hysteresis; on the card
+  through the CUDA flash-attention and dense decode-attention kernels).
 * ``paged``   — page-granular KV backends: :class:`PageAllocator`,
   :class:`PagedSimBackend` / :class:`DenseSimBackend`, and
   :class:`TorchPagedBackend` (chunked prefill + paged decode over a
@@ -35,6 +38,7 @@ from repro_torch.serve.batcher import (  # noqa: F401
 from repro_torch.serve.backends import (  # noqa: F401
     Backend,
     SimBackend,
+    TorchBackend,
 )
 from repro_torch.serve.paged import (  # noqa: F401
     DenseSimBackend,

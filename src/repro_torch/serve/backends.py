@@ -11,14 +11,26 @@ takes, behind three operations::
 * :class:`SimBackend` — virtual-time cost model, no torch import.  Step
   cost is ``base + per_seq * batch``; prefill cost is per token.
 
-``_bucket`` / ``_shrink_bucket`` round batch capacity to powers of two
-(with shrink hysteresis), which the model backends use to keep tensor
-shapes few.  The model backend of this port is
-:class:`~repro_torch.serve.paged.TorchPagedBackend`; the dense-cache
-backend comes with the dense-cache serving slice.
+* :class:`TorchBackend` — the dense-cache model backend, mirroring the
+  JAX package's ``JaxBackend`` line for line: drives
+  ``train.step.build_prefill_step`` / ``build_decode_step`` (and through
+  them the flash-attention and dense decode-attention kernels on the
+  card) over a slot-compacted KV cache.  Batch capacity rounds up to a
+  power of two (``_bucket``, with shrink hysteresis in
+  ``_shrink_bucket``) and join positions quantize to ``sync`` steps, so
+  tensor shapes stay few.
+
+Dense-cache alignment: the model's cache keeps ONE shared position
+counter, so a joiner's context is left-padded to the running position
+(its tokens occupy the tail).  Joining is therefore only possible while
+``prefill_len <= position`` and ``position + remaining_new <= max_len``
+— the ``joinable`` predicate the engine passes to the queue.  The
+page-granular backend :class:`~repro_torch.serve.paged.TorchPagedBackend`
+lifts this constraint (per-request lengths, chunked prefill).
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -175,3 +187,203 @@ def _shrink_bucket(cap: int, n: int, streak: int,
     if streak >= patience:
         return target, 0
     return cap, streak
+
+
+class TorchBackend(Backend):
+    """Real prefill/decode over a slot-compacted, bucket-padded cache, in
+    PyTorch on ``device`` (the card by default).
+
+    Slot layout: ``self._slots[i]`` is the request in cache row ``i``;
+    rows ``len(_slots)..cap`` are padding (decoded but discarded).  All
+    rows share the cache position ``self._pos``; joins left-pad to it.
+    The decode step writes the cache in place (the JAX backend donates
+    it).  ``prefill_calls`` and ``decode_calls`` count model calls, and
+    ``decode_seconds`` sums the decode steps' host-clock time (each ends
+    reading the sampled tokens back, so the device work is included).
+    """
+
+    def __init__(self, cfg, params=None, max_len: int = 256,
+                 sync: int = 16, seed: int = 0,
+                 step_time: Optional[SimBackend] = None,
+                 shrink_patience: int = 4, device="cuda"):
+        import torch
+        from repro_torch.models import model as model_lib
+        from repro_torch.train.step import (build_decode_step,
+                                            build_prefill_step)
+        self._torch = torch
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchBackend(device='cuda') but CUDA is not available; "
+                "pass device='cpu' to serve on the CPU")
+        self.cfg = cfg
+        self.max_len = int(max_len)
+        self.join_stride = max(int(sync), 1)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = model_lib.init(cfg, gen, self.device)
+        self.params = params
+        self._prefill = build_prefill_step(cfg, self.max_len)
+        self._decode = build_decode_step(cfg)
+        self._rng = np.random.default_rng(seed)
+        self._slots: List[Request] = []
+        self._cache = None
+        self._last = None          # [cap, 1] int64 last tokens
+        self._pos = 0
+        self.shrink_patience = max(int(shrink_patience), 1)
+        self._shrink_streak = 0
+        # virtual time for deterministic schedules; wall time is
+        # reported separately by the engine's metrics
+        self._timer = step_time or SimBackend()
+        self.prefill_calls = 0
+        self.decode_calls = 0
+        self.decode_seconds = 0.0
+
+    # --- joinability ------------------------------------------------------
+    @property
+    def position(self) -> int:
+        return self._pos
+
+    @property
+    def empty(self) -> bool:
+        return not self._slots
+
+    def joinable(self, req: Request) -> bool:
+        if not self._slots:
+            return True  # empty batch restarts at the joiner's length
+        return (req.prefill_len <= self._pos
+                and self._pos + req.remaining_new <= self.max_len)
+
+    # --- slot ops ---------------------------------------------------------
+    def _req_tokens(self, req: Request, length: int) -> np.ndarray:
+        """Prompt + generated-so-far, left-padded to ``length``."""
+        if req.prompt is None:
+            req.prompt = list(self._rng.integers(
+                PAD_ID, self.cfg.vocab_size, req.prompt_len))
+        toks = list(req.prompt) + list(req.tokens)
+        assert len(toks) <= length, (req.rid, len(toks), length)
+        return np.asarray([PAD_ID] * (length - len(toks)) + toks,
+                          np.int32)
+
+    def _to_device(self, a: np.ndarray, dtype=None):
+        return self._torch.from_numpy(a).to(self.device, dtype)
+
+    def _prefill_batch(self, reqs: Sequence[Request], length: int):
+        torch = self._torch
+        bcap = _bucket(len(reqs))
+        toks = np.full((bcap, length), PAD_ID, np.int32)
+        for i, r in enumerate(reqs):
+            toks[i] = self._req_tokens(r, length)
+        batch = {"tokens": self._to_device(toks, torch.long)}
+        if self.cfg.family == "encdec":
+            batch["enc_embeds"] = self._to_device(self._rng.normal(
+                0, 0.02, (bcap, 8, self.cfg.d_model)), torch.float32)
+        if self.cfg.family == "vlm":
+            batch["patch_embeds"] = self._to_device(self._rng.normal(
+                0, 0.02, (bcap, 4, self.cfg.d_model)), torch.float32)
+        logits, cache = self._prefill(self.params, batch)
+        self.prefill_calls += 1
+        last = logits.argmax(-1)                         # [bcap, 1]
+        return cache, last
+
+    def _cache_rows(self, cache, idx: np.ndarray):
+        """Gather cache rows along the batch axis (axis 1 for stacked
+        [L, B, ...] arrays; the scalar position counter passes through)."""
+        i = self._to_device(np.asarray(idx, np.int64))
+        return {k: (v if v.dim() == 0 else v.index_select(1, i))
+                for k, v in cache.items()}
+
+    @staticmethod
+    def _emit_prefill_tokens(reqs: Sequence[Request], last) -> None:
+        """A prefill's last-position logits ARE one generated token (the
+        first for a fresh join, the next one for a recompute rejoin) —
+        emit it, as the pre-engine wave driver did."""
+        toks = last[:, 0].cpu().numpy()
+        for i, r in enumerate(reqs):
+            if not r.done:
+                r.tokens.append(int(toks[i]))
+
+    def join(self, reqs: Sequence[Request], now: float) -> float:
+        torch = self._torch
+        reqs = list(reqs)
+        if not reqs:
+            return 0.0
+        if not self._slots:
+            # (re)start: position = longest prefill, rounded up to the
+            # sync quantum so restart shapes stay bucketed too — but
+            # never so far up that the slowest joiner's remaining decode
+            # would run past max_len (cache writes must stay in bounds)
+            need = max(r.prefill_len for r in reqs)
+            maxr = max(r.remaining_new for r in reqs)
+            pos = -(-need // self.join_stride) * self.join_stride
+            self._pos = max(min(pos, self.max_len - maxr), need)
+            # the batch prefills EVERY row to the padded position, not
+            # to its raw prefill length — charge what actually runs
+            cost = self._timer.t_prefill_per_token * self._pos * len(reqs)
+            self._cache, self._last = self._prefill_batch(reqs, self._pos)
+            self._slots = reqs
+            self._shrink_streak = 0
+            self._emit_prefill_tokens(reqs, self._last)
+            return cost
+        assert all(self.joinable(r) for r in reqs)
+        cost = self._timer.t_prefill_per_token * self._pos * len(reqs)
+        new_cache, new_last = self._prefill_batch(reqs, self._pos)
+        n_old, n_new = len(self._slots), len(reqs)
+        cap = _bucket(n_old + n_new)
+        old_cap = self._last.shape[0]
+        if cap > old_cap:  # grow the bucket: zero-pad the batch axis
+            pad = cap - old_cap
+            self._cache = {
+                k: (v if v.dim() == 0 else torch.cat(
+                    [v, v.new_zeros((v.shape[0], pad) + v.shape[2:])], 1))
+                for k, v in self._cache.items()}
+            self._last = torch.cat([self._last,
+                                    self._last.new_zeros((pad, 1))])
+        # scatter the joiners' rows into slots [n_old, n_old + n_new)
+        rows = self._cache_rows(new_cache, np.arange(n_new))
+        self._cache = {
+            k: (v if v.dim() == 0 else
+                torch.cat([v[:, :n_old], rows[k], v[:, n_old + n_new:]], 1))
+            for k, v in self._cache.items()}
+        self._last = torch.cat(
+            [self._last[:n_old], new_last[:n_new],
+             self._last[n_old + n_new:]], 0)
+        self._slots = self._slots + reqs
+        self._shrink_streak = 0
+        self._emit_prefill_tokens(reqs, new_last)
+        return cost
+
+    def decode(self, running: Sequence[Request]) -> float:
+        assert set(id(r) for r in running) == \
+            set(id(r) for r in self._slots), "engine/backend slot drift"
+        assert self._pos < self.max_len, \
+            "decode would write past max_len — join gating broke"
+        t0 = time.perf_counter()
+        logits, self._cache = self._decode(self.params, self._cache,
+                                           self._last)
+        self._last = logits.argmax(-1)
+        toks = self._last[:, 0].cpu().numpy()
+        for i, r in enumerate(self._slots):
+            if not r.done:  # wave mode: finished requests idle in slots
+                r.tokens.append(int(toks[i]))
+        self._pos += 1
+        self.decode_calls += 1
+        self.decode_seconds += time.perf_counter() - t0
+        return self._timer.step_cost(len(self._slots))
+
+    def remove(self, reqs: Sequence[Request]) -> None:
+        drop = {id(r) for r in reqs}
+        keep = [i for i, r in enumerate(self._slots)
+                if id(r) not in drop]
+        self._slots = [self._slots[i] for i in keep]
+        if not self._slots:
+            self._cache, self._last, self._pos = None, None, 0
+            self._shrink_streak = 0
+            return
+        cap, self._shrink_streak = _shrink_bucket(
+            self._last.shape[0], len(self._slots),
+            self._shrink_streak, self.shrink_patience)
+        idx = np.asarray(keep + [keep[0]] * (cap - len(keep)))
+        self._cache = self._cache_rows(self._cache, idx)
+        self._last = self._last.index_select(
+            0, self._to_device(idx.astype(np.int64)))

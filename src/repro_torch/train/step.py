@@ -1,8 +1,8 @@
-"""Step builders for paged serving.
+"""Step builders for serving (dense-cache and paged).
 
 Function factories that close over the static config, as in the JAX
 package's ``train/step.py``; PyTorch runs them eagerly (no ``jit``).
-The training and dense-cache builders come with later slices.
+The training builders come with a later slice.
 """
 from __future__ import annotations
 
@@ -10,6 +10,26 @@ from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
+
+
+def build_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+    """Prompt prefill into a dense cache of ``max_len`` slots.
+
+    (params, batch {"tokens": [B,S], ...}) -> (last logits [B,1,V],
+    cache)."""
+    def prefill_step(params, batch):
+        return model_lib.prefill(params, cfg, batch, max_len=max_len)
+    return prefill_step
+
+
+def build_decode_step(cfg: ModelConfig) -> Callable:
+    """One-token decode over the dense cache at its shared position.
+
+    (params, cache, token [B,1]) -> (logits [B,1,V], cache); the cache
+    is updated in place."""
+    def decode_step(params, cache, token):
+        return model_lib.decode_step(params, cfg, cache, token)
+    return decode_step
 
 
 def build_paged_decode_step(cfg: ModelConfig) -> Callable:

@@ -70,8 +70,23 @@ def test_attention_bf16_logits_branch():
 
 
 def test_flash_branch_and_dense_decode_raise():
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ta.attention(q, q, q, use_pallas=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        ta.decode_attention(q[:, :1], q, q, 3)
+    """The flash branch of ``attention`` (Q == K > 1, causal, no kv_len)
+    and ``decode_attention`` compute on the CPU (the plain path, as the
+    JAX package's XLA path does), and the dense model path still raises
+    for the families whose slices have not landed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    q, k, v = _qkv(1, 4, 4, 2, 1, 8, seed=5)
+    out_t = ta.attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                         use_pallas=True)
+    out_j = ja.attention(*(jnp.asarray(a) for a in (q, k, v)))
+    _close(out_t, out_j)
+    dec_t = ta.decode_attention(torch.from_numpy(q[:, :1]),
+                                torch.from_numpy(k), torch.from_numpy(v), 2)
+    dec_j = ja.decode_attention(jnp.asarray(q[:, :1]), jnp.asarray(k),
+                                jnp.asarray(v), 2)
+    _close(dec_t, dec_j)
+    for arch in ("mamba2-780m", "zamba2-2.7b", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            tm.decode_step({}, get_config(arch, smoke=True), {},
+                           torch.zeros(1, 1).long())

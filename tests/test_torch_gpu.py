@@ -4,15 +4,24 @@ so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The CUDA paged-decode kernel is held against its plain PyTorch version
-at the repo's tolerances (f32 2e-5, bf16 2e-2)."""
+The CUDA paged-decode, flash-attention and dense decode-attention
+kernels are held against their plain PyTorch versions at the repo's
+tolerances (f32 2e-5, bf16 2e-2).  The case lists here are shared with
+the CPU tests, which hold the same plain versions against the JAX
+package."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as t_da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as t_ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref as t_paged_ref
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def paged_case(B, P, page, Hq, Hkv, D, lens, seed=0):
@@ -41,6 +50,49 @@ PAGED_CASES = [
     ((2, 16, 8, 4, 2, 32, [21, 37]), 16, 0.0),   # window
     ((2, 16, 8, 4, 2, 32, [21, 37]), 8, 50.0),   # window + softcap
 ]
+
+
+#: (B, S, Hq, Hkv, D, causal, window, softcap): GQA with G in {1, 2, 4},
+#: S not a multiple of the kernel's tiles (64 x 32 rows x keys), window,
+#: softcap, non-causal, and the D > 128 tiling
+FLASH_CASES = [
+    (2, 80, 4, 4, 16, True, 0, 0.0),      # G=1, ragged S
+    (2, 96, 4, 2, 32, True, 0, 0.0),      # G=2, S = 1.5 q tiles
+    (1, 128, 8, 2, 64, True, 0, 0.0),     # G=4
+    (2, 64, 4, 2, 16, True, 16, 0.0),     # window
+    (2, 72, 4, 2, 16, True, 32, 50.0),    # window + softcap, ragged
+    (1, 70, 4, 1, 32, False, 24, 30.0),   # non-causal + window + softcap
+    (1, 40, 2, 1, 256, False, 0, 0.0),    # non-causal, D=256 (32 x 32)
+]
+
+#: (B, S, Hq, Hkv, D, lens, window, softcap): lens include 1 and S, S not
+#: a multiple of the kernel's 64-token chunk, G in {1, 2, 4}
+DECODE_CASES = [
+    (2, 64, 4, 4, 16, [1, 64], 0, 0.0),             # G=1, len 1 and S
+    (2, 96, 8, 4, 32, [96, 40], 0, 0.0),            # G=2, ragged chunk
+    (1, 50, 4, 1, 16, [7], 0, 0.0),                 # G=4, S < a chunk
+    (3, 130, 8, 2, 64, [130, 1, 77], 16, 0.0),      # window
+    (2, 70, 4, 2, 32, [70, 33], 0, 30.0),           # softcap
+    (2, 100, 4, 2, 32, [100, 65], 24, 50.0),        # window + softcap
+    (1, 96, 6, 3, 48, [11], 0, 0.0),                # D=48, odd heads
+]
+
+
+def flash_case(B, S, Hq, Hkv, D, seed=0):
+    """q [B, S, Hq, D], k/v [B, S, Hkv, D] (model layout), numpy f32."""
+    r = np.random.default_rng(seed)
+    return (r.normal(0, 1, (B, S, Hq, D)).astype(np.float32),
+            r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
+            r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32))
+
+
+def decode_case(B, S, Hq, Hkv, D, lens, seed=0):
+    """q [B, 1, Hq, D], caches [B, S, Hkv, D] and lens [B] int32, numpy."""
+    r = np.random.default_rng(seed)
+    return (r.normal(0, 1, (B, 1, Hq, D)).astype(np.float32),
+            r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
+            r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
+            np.asarray(lens, np.int32))
 
 
 def _cuda_or_skip():
@@ -80,3 +132,40 @@ def test_paged_kernel_zero_length_row_is_zero():
     ref = t_paged_ref(q.transpose(1, 2), kp, vp, table, ln,
                       scale=16 ** -0.5).transpose(1, 2)
     torch.testing.assert_close(out[1], ref[1], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_vs_plain_on_card(case, dtype):
+    _cuda_or_skip()
+    B, S, Hq, Hkv, D, causal, window, cap = case
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in flash_case(B, S, Hq, Hkv, D))
+    out = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   attn_softcap=cap)
+    ref = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                        scale=D ** -0.5, causal=causal, window=window,
+                        softcap=cap).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_vs_plain_on_card(case, dtype):
+    _cuda_or_skip()
+    B, S, Hq, Hkv, D, lens, window, cap = case
+    arrs = decode_case(B, S, Hq, Hkv, D, lens)
+    q, kc, vc = (torch.from_numpy(a).to("cuda", dtype) for a in arrs[:3])
+    ln = torch.from_numpy(arrs[3]).cuda()
+    out = t_da_ops.decode_attention(q, kc, vc, ln - 1, window=window,
+                                    attn_softcap=cap)
+    ref = decode_attention_ref(q.transpose(1, 2), kc, vc, ln,
+                               scale=D ** -0.5, window=window,
+                               softcap=cap).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])

@@ -90,9 +90,9 @@ def test_verbatim_copy_has_not_drifted(rel):
 
 #: original file -> {original name: port name or None (left out)}
 PORTED = {
-    "serve/backends.py": {"JaxBackend": None},
+    "serve/backends.py": {"JaxBackend": "TorchBackend"},
     "serve/paged.py": {"PagedJaxBackend": "TorchPagedBackend"},
-    "serve/__init__.py": {"JaxBackend": None,
+    "serve/__init__.py": {"JaxBackend": "TorchBackend",
                           "PagedJaxBackend": "TorchPagedBackend"},
     "configs/registry.py": {"input_specs": None, "concrete_inputs": None},
     "launch/serve.py": {"main": "main"},

@@ -124,16 +124,31 @@ def test_paged_kernel_shared_memory_fits_the_main_path():
     assert smem_bytes(2, 128, 16) < 48 * 1024
 
 
-def test_kernel_build_helpers(tmp_path):
+def test_kernel_build_helpers(tmp_path, monkeypatch):
     """Every kernel source is found, and a library's name follows its
-    source's content (an edited source is rebuilt, never reused)."""
+    source's content and every shared header's (an edited source or
+    header is rebuilt, never reused)."""
     from repro_torch.kernels import build
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["paged_attention.cu"]
+    assert [s.name for s in srcs] == ["decode_attention.cu",
+                                      "flash_attention.cu",
+                                      "paged_attention.cu"]
+    assert [h.name for h in build.headers()] == ["attention_common.cuh"]
+    for s in srcs:
+        assert '#include "attention_common.cuh"' in s.read_text()
     a = tmp_path / "k.cu"
     a.write_text("// one")
     first = build.library_path(a)
     assert first.parent == build.BUILD_DIR and first.suffix == ".so"
     a.write_text("// two")
-    assert build.library_path(a) != first
+    second = build.library_path(a)
+    assert second != first
+    inc = tmp_path / "include"
+    inc.mkdir()
+    (inc / "h.cuh").write_text("// header one")
+    monkeypatch.setattr(build, "INCLUDE_DIR", inc)
+    third = build.library_path(a)
+    assert third != second
+    (inc / "h.cuh").write_text("// header two")
+    assert build.library_path(a) != third
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -75,9 +75,18 @@ def test_cli_serves_on_cpu():
 
 
 def test_cli_dense_backend_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        t_serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
-                      "--backend", "dense"])
+    """``--backend dense --device cpu`` serves every request through the
+    port's TorchBackend (the dense-cache slice has landed)."""
+    from repro_torch.serve import TorchBackend
+    out = t_serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+                        "--backend", "dense", "--requests", "4",
+                        "--decode-steps", "4"])
+    assert out["summary"]["completed"] == 4
+    be = out["backends"][0]
+    assert isinstance(be, TorchBackend) and be.device.type == "cpu"
+    assert be.prefill_calls > 0 and be.decode_calls > 0
+    for r in out["engine"].requests:
+        assert len(r.tokens) == r.max_new_tokens
 
 
 def test_cli_defaults_to_the_card_and_never_falls_back():
