@@ -35,10 +35,28 @@ and any failure exits non-zero:
    kernel once per layer per decode step;
 7. card vs CPU on the dense path: the full-width qwen3-0.6b in f32, a
    ``prefill`` of 2 rows x 32 tokens and 4 ``decode_step``s: greedy
-   tokens equal, logits within ``PARITY_ATOL``.
+   tokens equal, logits within ``PARITY_ATOL``;
+8. the SSD-scan kernel vs plain: the Mamba2 chunked-scan kernel against
+   its plain PyTorch version on the card, y and the final state (f32
+   1e-4, bf16 5e-2), then timed at both SSM main paths' shapes beside
+   its bound and the plain version (no single PyTorch call computes the
+   scan, so there is no library time);
+9. the SSM main path: ``repro_torch.launch.serve.main`` with
+   ``--arch mamba2-780m --backend dense`` serves 8 requests of 192-384
+   prompt tokens with the full-width, full-depth model; the SSD kernel
+   must have been launched once per layer per prefill call and no
+   attention kernel at all;
+10. the hybrid main path: the same with zamba2-2.7b (phase 6's load);
+    the SSD kernel once per mamba layer per prefill call, the flash and
+    dense-decode kernels once per application of the shared attention
+    per prefill call and decode step;
+11. card vs CPU on the SSM and hybrid paths in f32: mamba2-780m at full
+    width and depth and zamba2-2.7b at full width and 12 of its 54
+    layers, a ``prefill`` of 2 rows x 160 tokens and 4 ``decode_step``s.
 
-Each main path (phases 3 and 6) runs with every kernel's launch count
-set to 0 just before it and read just after.
+Each main path (phases 3, 6, 9 and 10) runs with every kernel's launch
+count set to 0 just before it and read just after.  Each phase prints its
+seconds.
 
 The last three lines are the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line describing each kernel, and the
@@ -310,8 +328,9 @@ def launchers() -> dict:
         flash_attention_fwd
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_fwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     return {f.__name__: f for f in (paged_attention_fwd, flash_attention_fwd,
-                                    decode_attention_fwd)}
+                                    decode_attention_fwd, ssd_scan_fwd)}
 
 
 def serve_counted(argv):
@@ -320,6 +339,7 @@ def serve_counted(argv):
     (output, {kernel name: launches})."""
     from repro_torch.launch import serve
     gc.collect()           # free what earlier phases left, then reset
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fns = launchers()
     for f in fns.values():
@@ -352,8 +372,8 @@ def phase_main_path() -> int:
         raise AssertionError(f"kernel launched {launches} times for "
                              f"{calls} decode steps x {cfg.num_layers} "
                              f"layers")
-    if counts["flash_attention_fwd"] or counts["decode_attention_fwd"]:
-        raise AssertionError(f"the paged path launched a dense kernel: "
+    if any(v for k, v in counts.items() if k != "paged_attention_fwd"):
+        raise AssertionError(f"the paged path launched another kernel: "
                              f"{counts}")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
@@ -508,7 +528,8 @@ def phase_parity(cfg, p_cpu) -> None:
 
 #: (name, (B, S, Hq, Hkv, D), causal, window, softcap): causal and not,
 #: window, softcap, S not a multiple of the 64 x 32 tiles, G in {1, 2, 4},
-#: the D > 128 tiling, and the main path's shapes
+#: the D > 128 tiling, and both dense main paths' shapes (qwen3-0.6b, and
+#: zamba2-2.7b's shared attention: D = 80, Hq = Hkv = 32)
 FLASH_CASES = [
     ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
     ("mha-ragged", (2, 80, 4, 4, 16), True, 0, 0.0),
@@ -521,11 +542,12 @@ FLASH_CASES = [
     ("noncausal-window24-gqa4", (1, 70, 4, 1, 32), False, 24, 0.0),
     ("d256", (1, 40, 2, 1, 256), True, 0, 0.0),
     ("main-window48-softcap50", (8, 100, 16, 8, 128), True, 48, 50.0),
+    ("zamba2-d80-mha32", (8, 128, 32, 32, 80), True, 0, 0.0),
 ]
 
 #: (name, (B, S, Hq, Hkv, D, lens), window, softcap): lens include 1 and
 #: S, S not a multiple of the 64-token chunk, G in {1, 2, 4}, a len-0 row,
-#: and the main path's shapes (8 rows at the shared position)
+#: and both dense main paths' shapes (8 rows at the shared position)
 DECODE_CASES = [
     ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
     ("main-mixed-lens", (8, 161, 16, 8, 128,
@@ -538,6 +560,7 @@ DECODE_CASES = [
     ("window24-softcap50", (2, 100, 4, 2, 32, [100, 65]), 24, 50.0),
     ("d48-odd-heads", (1, 96, 6, 3, 48, [11]), 0, 0.0),
     ("zero-len-row", (2, 64, 4, 2, 16, [0, 9]), 0, 0.0),
+    ("zamba2-d80-mha32", (8, 161, 32, 32, 80, [145] * 8), 0, 0.0),
 ]
 
 
@@ -716,9 +739,9 @@ def phase_dense_path() -> dict:
         raise AssertionError(f"flash kernel launched {fl} times for {pre} "
                              f"prefill calls, decode kernel {de} times for "
                              f"{dec} decode steps, x {L} layers")
-    if counts["paged_attention_fwd"]:
-        raise AssertionError(f"the dense path launched the paged kernel: "
-                             f"{counts}")
+    if counts["paged_attention_fwd"] or counts["ssd_scan_fwd"]:
+        raise AssertionError(f"the dense path launched the paged or ssd "
+                             f"kernel: {counts}")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
     print(f"phase 6 dense path: qwen3-0.6b full ({L} layers, "
@@ -733,10 +756,11 @@ def phase_dense_path() -> dict:
     return counts
 
 
-def dense_decode_profile(be, batch: int = 8, steps: int = 5) -> None:
-    """Where a dense decode step's time goes: the phase-6 backend's
-    weights and cache length, every row of the batch at context 128 (or
-    less, to leave room for the steps in the cache)."""
+def dense_decode_profile(be, label: str = "phase 6 dense decode-step "
+                         "profile", batch: int = 8, steps: int = 5) -> None:
+    """Where a dense-cache decode step's time goes: the backend's weights
+    and cache length, every row of the batch at context 128 (or less, to
+    leave room for the steps in the cache)."""
     from repro_torch.models import model as model_lib
     from repro_torch.train.step import build_decode_step
     ctx, dev = min(128, be.max_len - 2 * steps), be.device
@@ -749,8 +773,7 @@ def dense_decode_profile(be, batch: int = 8, steps: int = 5) -> None:
     def step():
         logits, state["cache"] = decode(be.params, state["cache"], token)
         return logits
-    profile_steps("phase 6 dense decode-step profile", step, batch, ctx,
-                  steps)
+    profile_steps(label, step, batch, ctx, steps)
 
 
 # --- phase 7 -----------------------------------------------------------------
@@ -786,6 +809,212 @@ def phase_dense_parity(cfg, p_cpu) -> None:
           f"{t2 - t1:.2f}s")
 
 
+# --- phase 8 -----------------------------------------------------------------
+
+def ssd_key(xb, B_mat, chunk, initial_state) -> tuple:
+    """What fixes an SSD launch's work and memory walk: xb's shape, G and
+    N, the chunk, whether an initial state is read, and B's strides (C's
+    are the same on every path)."""
+    return (tuple(xb.shape), tuple(B_mat.shape[2:]), chunk,
+            initial_state is not None, B_mat.stride())
+
+
+def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init):
+    """Least time for the card: xb, a, the grouped B and C and (when
+    given) the initial state read once, y and the final state written
+    once; the operations of the causal (j <= i) score and score-times-xb
+    products and of the inter-chunk and state-update products, per
+    chunk."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * S * H * P * es + B * S * H * 4 + 2 * B * S * G * N * es
+              + (1 + (init is not None)) * B * H * P * N * 4)
+    ops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        pairs = n * (n + 1) // 2
+        ops += 2 * pairs * (N + P) + 4 * n * N * P
+    return (*bound(nbytes, B * H * ops, dtype), nbytes, B * H * ops)
+
+
+def phase_ssd_kernel_vs_plain() -> dict:
+    """The SSD-scan kernel against its plain version on the card (y and
+    the final state), every case with B and C as views into one
+    projection as the model passes them; then timed at both SSM main
+    paths' launches (bf16; eight sets of inputs cycled, over 300 MB
+    against the 50 MB L2, so each launch reads from device memory as a
+    prefill's layers do).  Returns the timing of each main case, by name,
+    and the launch keys (``ssd_key``) the main paths must match."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_MAIN,
+                                                    SSD_TOL, ssd_case_on)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    errs, worst = [], 0.0
+    for seed, (name, (B, S, H, P, G, N, chunk), init) in \
+            enumerate(SSD_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            xb, a, Bm, Cm, s0 = ssd_case_on(DEVICE, dt, B, S, H, P, G, N,
+                                            init, seed)
+            y, st = ssd_ops.ssd_scan(xb, a, Bm, Cm, chunk=chunk,
+                                     initial_state=s0)
+            yr, sr = ssd_scan_ref(xb, a, Bm, Cm, chunk=chunk,
+                                  initial_state=s0)
+            torch.cuda.synchronize()
+            if y.dtype != dt or st.dtype != torch.float32:
+                raise AssertionError(f"{name}: y {y.dtype}, state {st.dtype}")
+            tol = SSD_TOL[dt]
+            for what, got, ref in (("y", y, yr), ("state", st, sr)):
+                a_, b_ = got.float(), ref.float()
+                err = (a_ - b_).abs().max().item()
+                if not torch.allclose(a_, b_, atol=tol, rtol=tol):
+                    raise AssertionError(f"{name} {dt} {what}: kernel vs "
+                                         f"plain max abs err {err:.3g} > "
+                                         f"{tol}")
+                worst = max(worst, err)
+            errs.append(f"{name}/{str(dt)[6:]}="
+                        f"{(y.float() - yr.float()).abs().max().item():.2g}")
+    print(f"phase 8 ssd kernel vs plain: {len(errs)} cases ok (y and final "
+          f"state), max abs err {worst:.3g} [{' '.join(errs)}]")
+    dtype, out, keys = torch.bfloat16, {}, {}
+    cases = {name: (shape, init) for name, shape, init in SSD_CASES}
+    for arch, name in SSD_MAIN.items():
+        (B, S, H, P, G, N, chunk), init = cases[name]
+        ins = [ssd_case_on(DEVICE, dtype, B, S, H, P, G, N, init, 99 + k)
+               for k in range(8)]
+        keys[arch] = ssd_key(ins[0][0], ins[0][2], chunk, ins[0][4])
+        ker = timed(lambda i: ssd_ops.ssd_scan(
+            *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]),
+            80, "ssd_scan_kernel")
+        plain = timed(lambda i: ssd_scan_ref(
+            *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]), 16)
+        bound_ms, bound_by, nbytes, ops = ssd_bound_ms(B, S, H, P, G, N,
+                                                       chunk, dtype, init)
+        out[name] = dict(max_abs_err=worst, ms=ker["ms"],
+                         plain_ms=plain["ms"], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+        print(f"phase 8 ssd {name} bf16 (B={B}, S={S}, H={H}, P={P}, G={G}, "
+              f"N={N}, chunk={chunk}, initial state "
+              f"{init or 'none'}, B/C strides {tuple(ins[0][2].stride())}), "
+              f"device time: kernel {_us(ker)}, plain {_us(plain)}, bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP); library: none (no single PyTorch "
+              f"call computes the chunked scan)")
+        del ins
+    return out, keys
+
+
+# --- phases 9 and 10 ----------------------------------------------------------
+
+SSM_ARGV = ["--arch", "mamba2-780m", "--backend", "dense", "--requests", "8",
+            "--prompt-len", "384", "--decode-steps", "32", "--budget-gb", "8",
+            "--device", "cuda"]
+HYBRID_ARGV = ([a if a != "qwen3-0.6b" else "zamba2-2.7b" for a in MAIN_ARGV]
+               + ["--backend", "dense"])
+#: (phase, arch, argv, Mamba2 layers, shared-attention applications): the
+#: SSM path serves prompts of 192-384 tokens, which its one prefill call
+#: pads to the longest (384 with the default seed: three chunks of 128),
+#: the hybrid path phase 6's load
+SSM_PATHS = [(9, "mamba2-780m", SSM_ARGV, 48, 0),
+             (10, "zamba2-2.7b", HYBRID_ARGV, 54, 9)]
+
+
+def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
+    """An SSM-family main path at full width and depth: 8 requests must
+    complete, the SSD kernel must run once per Mamba2 layer per prefill
+    call, and every such launch at the shapes, strides and initial state
+    phase 8 checked and timed (``ssd_key_want``), the flash and
+    dense-decode kernels once per application of the shared attention per
+    prefill call and decode step (none for mamba2), and the paged kernel
+    never."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.cases import SSD_MAIN
+    cfg = get_config(arch)
+    launch, seen = ssd_ops.ssd_scan_fwd, set()
+
+    def recorded(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
+        seen.add(ssd_key(xb, B_mat, chunk, initial_state))
+        return launch(xb, a, B_mat, C_mat, chunk=chunk,
+                      initial_state=initial_state)
+
+    ssd_ops.ssd_scan_fwd = recorded
+    try:
+        out, counts = serve_counted(argv)
+    finally:
+        ssd_ops.ssd_scan_fwd = launch
+    if seen != {ssd_key_want}:
+        raise AssertionError(f"SSD launches at {seen}; phase 8 checked and "
+                             f"timed {ssd_key_want}")
+    summary, backends = out["summary"], out["backends"]
+    check_served(out, cfg)
+    pre = sum(be.prefill_calls for be in backends)
+    dec = sum(be.decode_calls for be in backends)
+    n_apps = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
+              else 0)
+    want = {"paged_attention_fwd": 0, "flash_attention_fwd": apps * pre,
+            "decode_attention_fwd": apps * dec, "ssd_scan_fwd": layers * pre}
+    if not ((cfg.num_layers, n_apps) == (layers, apps) and counts == want
+            and pre > 0 and dec > 0):
+        raise AssertionError(f"launches {counts} for {pre} prefill calls and "
+                             f"{dec} decode steps; want {want}")
+    dec_s = sum(be.decode_seconds for be in backends)
+    tok = summary["good_tokens"]
+    print(f"phase {n} {cfg.family} path: {arch} full ({layers} layers, "
+          f"d={cfg.d_model}, {apps} shared-attention applications, "
+          f"{cfg.param_dtype}) served {summary['completed']}/8 requests, "
+          f"{tok} tokens in {out['wall_s']:.2f}s wall "
+          f"({tok / out['wall_s']:.1f} tok/s); {pre} prefill calls, {dec} "
+          f"decode steps, mean {1e3 * dec_s / dec:.2f} ms/step; launches "
+          f"{counts} = ssd {layers} x {pre}, flash {apps} x {pre}, decode "
+          f"{apps} x {dec}, every SSD launch at phase 8's "
+          f"{SSD_MAIN[arch]} case; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    dense_decode_profile(backends[0],
+                         f"phase {n} {cfg.family} decode-step profile")
+    return counts
+
+
+# --- phase 11 ----------------------------------------------------------------
+
+#: (arch, layers or None for the published depth): zamba2 keeps its full
+#: width but runs 12 of its 54 layers (2 shared-attention applications),
+#: so the CPU side stays within the run's memory and time
+SSM_PARITY = [("mamba2-780m", None), ("zamba2-2.7b", 12)]
+
+
+def phase_ssm_parity() -> None:
+    """Card vs CPU in f32 (TF32 off) on the SSM and hybrid paths: a
+    ``prefill`` of 2 rows x 160 tokens (two chunks of 128, the second
+    ragged) and 4 ``decode_step``s; greedy tokens equal, logits within
+    ``PARITY_ATOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    for seed, (arch, layers) in enumerate(SSM_PARITY):
+        cfg = get_config(arch).replace(param_dtype="float32",
+                                       compute_dtype="float32")
+        full = cfg.num_layers
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        p_cpu = model_lib.init(cfg, torch.Generator().manual_seed(seed),
+                               "cpu")
+        r = np.random.default_rng(11 + seed)
+        B, C = 2, 160
+        prompts = r.integers(3, cfg.vocab_size, (B, C)).astype(np.int32)
+        t0 = time.perf_counter()
+        gpu = _run_dense_parity(cfg, to_card(p_cpu), DEVICE, prompts, C + 8)
+        t1 = time.perf_counter()
+        cpu = _run_dense_parity(cfg, p_cpu, "cpu", prompts, C + 8)
+        t2 = time.perf_counter()
+        depth = (f"{cfg.num_layers} layers" if layers is None else
+                 f"{cfg.num_layers} of its {full} layers (depth cut)")
+        print(f"phase 11 {cfg.family} card vs CPU: {arch} full width "
+              f"(d={cfg.d_model}), {depth}, f32 (TF32 off), prefill {B}x{C} "
+              f"+ 4 decode steps: {check_parity('phase 11', gpu, cpu)}; "
+              f"card {t1 - t0:.2f}s, cpu {t2 - t1:.2f}s")
+        del p_cpu, gpu, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -797,13 +1026,27 @@ KERNELS = {
     "decode_attention_fwd": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:76"),
+    "ssd_scan_fwd": (
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:69"),
 }
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def done(n) -> None:
+        now = time.perf_counter()
+        print(f"phase {n} seconds: {now - t_last[0]:.1f}")
+        t_last[0] = now
+
     card = phase_device_and_build()
+    done(1)
     timing = {"paged_attention_fwd": phase_kernel_vs_plain()}
-    paged_launches = phase_main_path()
+    done(2)
+    launches = {"paged_attention_fwd": phase_main_path()}
+    done(3)
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     f32 = get_config("qwen3-0.6b").replace(param_dtype="float32",
@@ -812,10 +1055,30 @@ def main() -> None:
     # copy goes to the card for each parity phase only)
     p_cpu = model_lib.init(f32, torch.Generator().manual_seed(0), "cpu")
     phase_parity(f32, p_cpu)
+    done(4)
     timing.update(phase_dense_kernels_vs_plain())
-    launches = phase_dense_path()
-    launches["paged_attention_fwd"] = paged_launches
+    done(5)
+    dense = phase_dense_path()
+    done(6)
     phase_dense_parity(f32, p_cpu)
+    del p_cpu
+    done(7)
+    ssd_timing, ssd_keys = phase_ssd_kernel_vs_plain()
+    # the JSON line carries the SSM path's (mamba2-780m) launch
+    timing["ssd_scan_fwd"] = ssd_timing["mamba2-main"]
+    done(8)
+    paths = [dense]
+    for n, arch, *path in SSM_PATHS:
+        paths.append(phase_ssm_path(n, arch, *path, ssd_keys[arch]))
+        done(n)
+    phase_ssm_parity()
+    done(11)
+    # launches on the main paths: each path's own run, summed over the
+    # paths that run the kernel (flash and dense decode: phases 6 and 10)
+    for name in ("flash_attention_fwd", "decode_attention_fwd",
+                 "ssd_scan_fwd"):
+        launches[name] = sum(counts[name] for counts in paths)
+    print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **timing[name])
                for name, (src, rep) in KERNELS.items()]

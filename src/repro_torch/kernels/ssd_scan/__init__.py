@@ -1,0 +1,3 @@
+"""Mamba2 SSD chunked scan: CUDA kernel + plain version."""
+from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: F401
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: F401

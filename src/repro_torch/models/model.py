@@ -5,11 +5,12 @@ Mirrors the JAX package's ``models/model.py``.  ``param_specs``,
 ``abstract`` and ``init_cache(abstract_only=True)`` cover every family
 (dense / moe / encdec / vlm / ssm / hybrid), so the footprint estimator
 sees the same byte counts.  The forward passes here are the ones serving
-runs, for the dense and vlm families: the paged pair (``prefill_chunk``
-/ ``decode_step_paged``) and the dense-cache pair (``prefill`` /
-``decode_step``).  The rest (MoE blocks, training, SSM, hybrid and the
-remaining families) comes in later slices of the port (ROADMAP.md,
-Queue 1), and raises ``NotImplementedError`` until then.
+runs: the paged pair (``prefill_chunk`` / ``decode_step_paged``) for the
+dense and vlm families, and the dense-cache pair (``prefill`` /
+``decode_step``) for the dense, vlm, ssm and hybrid families.  The rest
+(MoE blocks, training and the remaining families) comes in later slices
+of the port (ROADMAP.md, Queue 1), and raises ``NotImplementedError``
+until then.
 
 Design rules:
   * Plain functions over a nested dict of tensors, stacked ``[L, ...]``
@@ -17,8 +18,9 @@ Design rules:
   * Same spec tree drives abstract (``device="meta"``) and concrete init.
   * Weights keep the JAX layouts (``wq`` is ``[d, Hq*hd]``; ``x @ W``).
   * The KV caches are updated in place (``_paged_kv_write``, and the
-    dense write in ``attn_block``): a step consumes the cache it is
-    given, like a donated JAX buffer.
+    dense write in ``attn_block``), and so are the SSM and conv states
+    (``_mamba_layer``): a step consumes the cache it is given, like a
+    donated JAX buffer.
 """
 from __future__ import annotations
 
@@ -220,8 +222,6 @@ _LATER = {
                     "(gemma2 local/global layers)",
     "encdec": "the remaining-families slice of the PyTorch port "
               "(whisper encoder-decoder)",
-    "ssm": "the SSM and hybrid slice of the PyTorch port (SSD scan)",
-    "hybrid": "the SSM and hybrid slice of the PyTorch port (SSD scan)",
 }
 
 
@@ -378,6 +378,14 @@ def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
     return x + out
+
+
+def mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[ssm_mod.SSMState] = None, *,
+                decode: bool = False):
+    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    y, new_state = ssm_mod.mamba2_block(p, cfg, h, state, decode=decode)
+    return x + y, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -567,18 +575,83 @@ def _dense_stack(params, cfg, x, mode, cache=None):
     return x, {"k": cache["k"], "v": cache["v"]}, aux
 
 
+def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, cache,
+                 layer: int, decode: bool) -> torch.Tensor:
+    """Mamba2 layer ``layer`` over the cache: starts from
+    ``cache["ssm"][layer]`` / ``cache["conv"][layer]`` and writes its new
+    states there IN PLACE (the JAX version returns updated copies from
+    donated buffers).  A prefill starts from the fresh cache's zero state,
+    so its scan is given no initial state and reads no zeros.  A prompt
+    shorter than the conv window fills only the window's last slots; the
+    rest keep the zeros of the fresh cache, the causal conv's own padding
+    (the JAX version returns a shorter conv state there, which its decode
+    step cannot take)."""
+    ssm, conv = cache["ssm"][layer], cache["conv"][layer]
+    state = ssm_mod.SSMState(ssm=ssm if decode else None, conv=conv)
+    x, ns = mamba_block(p, cfg, x, state, decode=decode)
+    ssm.copy_(ns.ssm)
+    conv[:, conv.shape[1] - ns.conv.shape[1]:].copy_(ns.conv)
+    return x
+
+
+def _ssm_stack(params, cfg, x, mode, cache):
+    """Pure-mamba stack over the cache {"ssm": [L,B,H,P,N], "conv":
+    [L,B,W-1,ch]}, one layer at a time (prefill starts from a zero
+    cache, as in the JAX package); the states are updated in place."""
+    for i in range(cfg.num_layers):
+        x = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x, cache,
+                         i, mode == "decode")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"ssm": cache["ssm"], "conv": cache["conv"]}, aux
+
+
+def _hybrid_stack(params, cfg, x, mode, cache):
+    """Zamba2: groups of ``attn_every`` mamba blocks, a single *shared*
+    attention+MLP block applied before each group, with a KV cache per
+    application (``[n_apps, B, S, Hkv, hd]``).  Decode writes the token's
+    k/v and the mamba states in place; prefill stacks the applications'
+    (k, v)."""
+    n_apps, per = cfg.num_layers // cfg.attn_every, cfg.attn_every
+    decode = mode == "decode"
+    pos = cache["len"]
+    shared = params["shared"]
+    ks, vs = [], []
+    for app in range(n_apps):
+        kv = (cache["k"][app], cache["v"][app])
+        x, nkv = attn_block(shared["attn"], cfg, x, mode=mode, layer_kv=kv,
+                            pos=pos)
+        x = mlp_block(shared["mlp"], cfg, x)
+        if not decode:
+            ks.append(nkv[0])
+            vs.append(nkv[1])
+        for i in range(app * per, (app + 1) * per):
+            x = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x,
+                             cache, i, decode)
+    new_cache = {"ssm": cache["ssm"], "conv": cache["conv"]}
+    if decode:
+        new_cache["k"], new_cache["v"] = cache["k"], cache["v"]
+    else:
+        new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
+
+
+_STACKS = {"dense": _dense_stack, "moe": _dense_stack, "vlm": _dense_stack,
+           "ssm": _ssm_stack, "hybrid": _hybrid_stack}
+
+
 def _check_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family in ("encdec", "ssm", "hybrid"):
+    if cfg.family == "encdec":
         raise _not_ported(f"{what} of the {cfg.family} family", cfg.family)
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor):
     """One-token decode. token: [B, 1] int. Returns (logits [B,1,V] fp32,
-    cache); the cache's KV arrays are updated in place and its ``len``
-    advances by one on the device."""
+    cache); the cache's KV arrays and SSM/conv states are updated in
+    place and its ``len`` advances by one on the device."""
     _check_dense(cfg, "dense decode")
     x = _embed(params, cfg, token)
-    h, nc, _ = _dense_stack(params, cfg, x, "decode", cache)
+    h, nc, _ = _STACKS[cfg.family](params, cfg, x, "decode", cache)
     nc["len"] = cache["len"] + 1
     # carry across non-updated fields
     for key in cache:
@@ -590,14 +663,20 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor):
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_len: int):
     """Process a prompt, build the cache. Returns (last_logits [B,1,V],
-    cache with KV arrays ``[L, B, max_len, Hkv, hd]`` and ``len`` = S)."""
+    cache with KV arrays ``[L, B, max_len, Hkv, hd]`` (the hybrid's
+    ``[n_apps, ...]``), SSM/conv states for ssm/hybrid, and ``len`` = S)."""
     _check_dense(cfg, "prefill")
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm":
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x], dim=1)
     S = x.shape[1]
-    h, nc, _ = _dense_stack(params, cfg, x, "prefill", None)
+    if cfg.family in ("ssm", "hybrid"):
+        # SSM prefill needs real state carry: run with a concrete zero cache
+        cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+        h, nc, _ = _STACKS[cfg.family](params, cfg, x, "prefill", cache)
+    else:
+        h, nc, _ = _dense_stack(params, cfg, x, "prefill", None)
     nc = _pad_kv_cache(nc, max_len, S)
     nc["len"] = torch.tensor(S, dtype=torch.int32, device=x.device)
     return _unembed(params, cfg, h[:, -1:]), nc

@@ -6,9 +6,10 @@ so it also runs where only PyTorch is installed:
 
 The CUDA paged-decode, flash-attention and dense decode-attention
 kernels are held against their plain PyTorch versions at the repo's
-tolerances (f32 2e-5, bf16 2e-2).  The case lists here are shared with
-the CPU tests, which hold the same plain versions against the JAX
-package."""
+tolerances (f32 2e-5, bf16 2e-2), the CUDA SSD-scan kernel at the JAX
+package's SSD tolerances (f32 1e-4, bf16 5e-2).  The attention case
+lists here are shared with the CPU tests, which hold the same plain
+versions against the JAX package."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as t_ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref as t_paged_ref
+from repro_torch.kernels.ssd_scan import ops as t_ssd_ops
+from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_TOL,
+                                                ssd_case_on)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -63,6 +68,7 @@ FLASH_CASES = [
     (2, 72, 4, 2, 16, True, 32, 50.0),    # window + softcap, ragged
     (1, 70, 4, 1, 32, False, 24, 30.0),   # non-causal + window + softcap
     (1, 40, 2, 1, 256, False, 0, 0.0),    # non-causal, D=256 (32 x 32)
+    (1, 128, 32, 32, 80, True, 0, 0.0),   # zamba2's shared attention
 ]
 
 #: (B, S, Hq, Hkv, D, lens, window, softcap): lens include 1 and S, S not
@@ -75,8 +81,8 @@ DECODE_CASES = [
     (2, 70, 4, 2, 32, [70, 33], 0, 30.0),           # softcap
     (2, 100, 4, 2, 32, [100, 65], 24, 50.0),        # window + softcap
     (1, 96, 6, 3, 48, [11], 0, 0.0),                # D=48, odd heads
+    (2, 161, 32, 32, 80, [145, 161], 0, 0.0),       # zamba2's shared attn
 ]
-
 
 def flash_case(B, S, Hq, Hkv, D, seed=0):
     """q [B, S, Hq, D], k/v [B, S, Hkv, D] (model layout), numpy f32."""
@@ -169,3 +175,20 @@ def test_decode_kernel_vs_plain_on_card(case, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES, ids=[c[0] for c in SSD_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_vs_plain_on_card(case, dtype):
+    """B and C as views into one projection, as the model passes them."""
+    _cuda_or_skip()
+    _, (B, S, H, P, G, N, chunk), init = case
+    xb, a, Bm, Cm, s0 = ssd_case_on("cuda", dtype, B, S, H, P, G, N, init)
+    y, st = t_ssd_ops.ssd_scan(xb, a, Bm, Cm, chunk=chunk, initial_state=s0)
+    yr, sr = ssd_scan_ref(xb, a, Bm, Cm, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(st, sr, atol=tol, rtol=tol)

@@ -103,7 +103,7 @@ def test_paged_path_rejects_other_families():
     cfg = t_get_config("qwen3-moe-30b-a3b", smoke=True)
     with pytest.raises(NotImplementedError, match="MoE slice"):
         tm.init_paged_cache(cfg, 1, 4, 4, device="cpu")
-    for arch in ("gemma2-27b", "mamba2-780m"):
+    for arch in ("gemma2-27b", "mamba2-780m", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError):
             tm.init_paged_cache(t_get_config(arch, smoke=True), 1, 4, 4,
                                 abstract_only=True)

@@ -132,9 +132,9 @@ def test_kernel_build_helpers(tmp_path, monkeypatch):
     srcs = build.sources()
     assert [s.name for s in srcs] == ["decode_attention.cu",
                                       "flash_attention.cu",
-                                      "paged_attention.cu"]
+                                      "paged_attention.cu", "ssd_scan.cu"]
     assert [h.name for h in build.headers()] == ["attention_common.cuh"]
-    for s in srcs:
+    for s in srcs[:3]:      # the attention kernels share the header
         assert '#include "attention_common.cuh"' in s.read_text()
     a = tmp_path / "k.cu"
     a.write_text("// one")
