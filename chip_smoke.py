@@ -52,11 +52,32 @@ and any failure exits non-zero:
     per prefill call and decode step;
 11. card vs CPU on the SSM and hybrid paths in f32: mamba2-780m at full
     width and depth and zamba2-2.7b at full width and 12 of its 54
-    layers, a ``prefill`` of 2 rows x 160 tokens and 4 ``decode_step``s.
+    layers, a ``prefill`` of 2 rows x 160 tokens and 4 ``decode_step``s;
+12. the RMSNorm kernel vs plain: every case of
+    ``kernels/rmsnorm/cases.py`` (widths 16 to 5120, d not a multiple of
+    the 16-byte vector, 1 to 1024 rows, one to three leading axes, strided
+    row views) in four (x, w) dtype pairs (tolerance by x's dtype: f32
+    2e-5, bf16 2e-2), then timed at the paths' shapes beside its bound,
+    the plain version and ``torch.nn.functional.rms_norm`` (and whether
+    that call gives the same bf16 values to 1 ulp);
+13. the MoE paged main path: ``repro_torch.launch.serve.main`` serves 8
+    requests with the full-width, full-depth qwen3-moe-30b-a3b (48
+    layers, 128 experts, bf16, random weights from a seed) inside a
+    64 GB budget; no step may be forced over it;
+14. the MoE dense main path: the same with ``--backend dense``;
+15. card vs CPU on both MoE paths in f32: qwen3-moe-30b-a3b at full width
+    and 2 of its 48 layers, 2 rows x 32 tokens and 4 decode steps, with
+    the smallest gap between the k-th and (k+1)-th router probabilities
+    printed (a routing flip would show as a greedy-token or logit
+    mismatch, never hidden by a looser bound).
 
-Each main path (phases 3, 6, 9 and 10) runs with every kernel's launch
-count set to 0 just before it and read just after.  Each phase prints its
-seconds.
+Every path (phases 3, 6, 9, 10, 13 and 14) runs the RMSNorm kernel for
+every norm, and each runs with every kernel's launch count set to 0 just
+before it and read just after: each kernel of the path must have been
+launched exactly its per-call count times the path's calls, and no other
+kernel at all.  The attention cases of phases 2 and 5 include
+qwen3-moe's heads (G = 8) before any MoE path runs.  Each phase prints
+its seconds and the total is printed at the end.
 
 The last three lines are the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line describing each kernel, and the
@@ -97,6 +118,14 @@ DEVICE = "cuda"
 MAIN_ARGV = ["--arch", "qwen3-0.6b", "--requests", "8", "--prompt-len",
              "128", "--decode-steps", "32", "--budget-gb", "8",
              "--device", "cuda"]
+#: RMSNorm launches per model call (a prefill, prefill chunk or decode
+#: step) of each served arch: per layer the block norms (two) and the
+#: qk-norm (two, the qwen3 archs), or Mamba2's pre-norm and gated norm;
+#: zamba2's two block norms per shared-attention application; the final
+#: norm (tests/test_torch_rmsnorm.py counts them on the CPU)
+NORMS_PER_CALL = {"qwen3-0.6b": 28 * 4 + 1, "mamba2-780m": 48 * 2 + 1,
+                  "zamba2-2.7b": 54 * 2 + 9 * 2 + 1,
+                  "qwen3-moe-30b-a3b": 48 * 4 + 1}
 
 
 def card_line() -> str:
@@ -160,6 +189,8 @@ CASES = [
     ("softcap50-main", (8, 177, 16, 16, 8, 128,
                         [161, 160, 151, 140, 129, 97, 64, 17]), 0, 50.0),
     ("zero-len-row", (3, 16, 16, 16, 8, 128, [0, 7, 40]), 0, 0.0),
+    ("qwen3-moe-g8", (8, 177, 16, 32, 4, 128,
+                      [161, 160, 151, 140, 129, 97, 64, 17]), 0, 0.0),
 ]
 
 
@@ -328,9 +359,11 @@ def launchers() -> dict:
         flash_attention_fwd
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_fwd
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     return {f.__name__: f for f in (paged_attention_fwd, flash_attention_fwd,
-                                    decode_attention_fwd, ssd_scan_fwd)}
+                                    decode_attention_fwd, ssd_scan_fwd,
+                                    rmsnorm_fwd)}
 
 
 def serve_counted(argv):
@@ -359,40 +392,54 @@ def check_served(out, cfg) -> None:
                                  f"of {r.max_new_tokens}, or out of vocab")
 
 
-def phase_main_path() -> int:
+def check_launches(counts: dict, want: dict, cfg, layers: int) -> None:
+    """Every kernel's launches on a path equal ``want`` (the others 0),
+    at the arch's published depth."""
+    full = {name: want.get(name, 0) for name in counts}
+    if cfg.num_layers != layers or counts != full:
+        raise AssertionError(f"launches {counts}; want {full} "
+                             f"({cfg.num_layers} layers, want {layers})")
+
+
+def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
+    """A paged main path at full width and depth: 8 requests complete,
+    none forced over the budget; the paged kernel runs once per layer
+    per decode step and the RMSNorm kernel once per norm per call (prefill
+    chunks and decode steps); no other kernel."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-0.6b")
-    out, counts = serve_counted(MAIN_ARGV)
-    launches = counts["paged_attention_fwd"]
+    cfg = get_config(arch)
+    out, counts = serve_counted(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     summary, backends = out["summary"], out["backends"]
-    calls = sum(be.decode_calls for be in backends)
     check_served(out, cfg)
-    if not (cfg.num_layers == 28 and launches == cfg.num_layers * calls
-            and launches > 0):
-        raise AssertionError(f"kernel launched {launches} times for "
-                             f"{calls} decode steps x {cfg.num_layers} "
-                             f"layers")
-    if any(v for k, v in counts.items() if k != "paged_attention_fwd"):
-        raise AssertionError(f"the paged path launched another kernel: "
-                             f"{counts}")
+    pre = sum(be.prefill_calls for be in backends)
+    dec = sum(be.decode_calls for be in backends)
+    norms = NORMS_PER_CALL[arch]
+    check_launches(counts, {"paged_attention_fwd": layers * dec,
+                            "rmsnorm_fwd": norms * (pre + dec)}, cfg, layers)
+    if dec == 0 or summary["forced_steps"]:
+        raise AssertionError(f"{dec} decode steps, {summary['forced_steps']} "
+                             f"steps forced over the budget")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
-    print(f"phase 3 main path: qwen3-0.6b full ({cfg.num_layers} layers, "
+    print(f"phase {n} main path: {arch} full ({cfg.num_layers} layers, "
           f"d={cfg.d_model}, {cfg.param_dtype}) served "
           f"{summary['completed']}/8 requests, {tok} tokens in "
           f"{out['wall_s']:.2f}s wall ({tok / out['wall_s']:.1f} tok/s); "
-          f"{calls} decode steps, mean {1e3 * dec_s / calls:.2f} ms/step; "
-          f"paged-decode kernel launched {launches} = {cfg.num_layers} x "
-          f"{calls}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    decode_step_profile(backends[0])
-    return launches
+          f"{pre} prefill-chunk calls, {dec} decode steps, mean "
+          f"{1e3 * dec_s / dec:.2f} ms/step; paged-decode kernel launched "
+          f"{counts['paged_attention_fwd']} = {layers} x {dec}, rmsnorm "
+          f"{counts['rmsnorm_fwd']} = {norms} x ({pre} + {dec}); none "
+          f"forced over budget; peak device memory {peak:.2f} GiB")
+    decode_step_profile(backends[0], f"phase {n} decode-step profile")
+    return counts
 
 
-def decode_step_profile(be, batch: int = 8, steps: int = 5) -> None:
-    """Where a paged decode step's time goes: the phase-3 backend's
-    weights and page pool size, every row of the batch live (context 128
-    on distinct pages)."""
+def decode_step_profile(be, label: str, batch: int = 8,
+                        steps: int = 5) -> None:
+    """Where a paged decode step's time goes: the backend's weights and
+    page pool size, every row of the batch live (context 128 on distinct
+    pages)."""
     from repro_torch.models import model as model_lib
     from repro_torch.train.step import build_paged_decode_step
     cfg, dev, page = be.cfg, be.device, be.page_size
@@ -414,7 +461,7 @@ def decode_step_profile(be, batch: int = 8, steps: int = 5) -> None:
         logits, state["cache"] = decode(be.params, state["cache"], token,
                                         active)
         return logits
-    profile_steps("phase 3 decode-step profile", step, batch, ctx, steps)
+    profile_steps(label, step, batch, ctx, steps)
 
 
 def profile_steps(label: str, step, batch: int, ctx: int,
@@ -528,8 +575,9 @@ def phase_parity(cfg, p_cpu) -> None:
 
 #: (name, (B, S, Hq, Hkv, D), causal, window, softcap): causal and not,
 #: window, softcap, S not a multiple of the 64 x 32 tiles, G in {1, 2, 4},
-#: the D > 128 tiling, and both dense main paths' shapes (qwen3-0.6b, and
-#: zamba2-2.7b's shared attention: D = 80, Hq = Hkv = 32)
+#: the D > 128 tiling, and the dense main paths' shapes (qwen3-0.6b,
+#: zamba2-2.7b's shared attention: D = 80, Hq = Hkv = 32, and
+#: qwen3-moe-30b-a3b: Hq 32, Hkv 4, G = 8)
 FLASH_CASES = [
     ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
     ("mha-ragged", (2, 80, 4, 4, 16), True, 0, 0.0),
@@ -543,11 +591,12 @@ FLASH_CASES = [
     ("d256", (1, 40, 2, 1, 256), True, 0, 0.0),
     ("main-window48-softcap50", (8, 100, 16, 8, 128), True, 48, 50.0),
     ("zamba2-d80-mha32", (8, 128, 32, 32, 80), True, 0, 0.0),
+    ("qwen3-moe-g8", (8, 128, 32, 4, 128), True, 0, 0.0),
 ]
 
 #: (name, (B, S, Hq, Hkv, D, lens), window, softcap): lens include 1 and
-#: S, S not a multiple of the 64-token chunk, G in {1, 2, 4}, a len-0 row,
-#: and both dense main paths' shapes (8 rows at the shared position)
+#: S, S not a multiple of the 64-token chunk, G in {1, 2, 4, 8}, a len-0
+#: row, and the dense main paths' shapes (8 rows at the shared position)
 DECODE_CASES = [
     ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
     ("main-mixed-lens", (8, 161, 16, 8, 128,
@@ -561,6 +610,7 @@ DECODE_CASES = [
     ("d48-odd-heads", (1, 96, 6, 3, 48, [11]), 0, 0.0),
     ("zero-len-row", (2, 64, 4, 2, 16, [0, 9]), 0, 0.0),
     ("zamba2-d80-mha32", (8, 161, 32, 32, 80, [145] * 8), 0, 0.0),
+    ("qwen3-moe-g8", (8, 161, 32, 4, 128, [145] * 8), 0, 0.0),
 ]
 
 
@@ -724,40 +774,46 @@ def phase_dense_kernels_vs_plain() -> dict:
 
 # --- phase 6 -----------------------------------------------------------------
 
-def phase_dense_path() -> dict:
+def phase_dense_path(n: int, arch: str, argv, layers: int) -> dict:
+    """A dense-cache main path of a decoder stack at full width and
+    depth: 8 requests complete, none forced over the budget; the flash
+    kernel runs once per layer per prefill call, the dense decode kernel
+    once per layer per decode step and the RMSNorm kernel once per norm
+    per call; no other kernel."""
     from repro_torch.configs import get_config
-    cfg = get_config("qwen3-0.6b")
-    out, counts = serve_counted(MAIN_ARGV + ["--backend", "dense"])
+    cfg = get_config(arch)
+    out, counts = serve_counted(argv)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     summary, backends = out["summary"], out["backends"]
     check_served(out, cfg)
     pre = sum(be.prefill_calls for be in backends)
     dec = sum(be.decode_calls for be in backends)
     fl, de = counts["flash_attention_fwd"], counts["decode_attention_fwd"]
-    L = cfg.num_layers
-    if not (L == 28 and fl == L * pre and de == L * dec and pre > 0
-            and dec > 0):
-        raise AssertionError(f"flash kernel launched {fl} times for {pre} "
-                             f"prefill calls, decode kernel {de} times for "
-                             f"{dec} decode steps, x {L} layers")
-    if counts["paged_attention_fwd"] or counts["ssd_scan_fwd"]:
-        raise AssertionError(f"the dense path launched the paged or ssd "
-                             f"kernel: {counts}")
+    norms = NORMS_PER_CALL[arch]
+    check_launches(counts, {"flash_attention_fwd": layers * pre,
+                            "decode_attention_fwd": layers * dec,
+                            "rmsnorm_fwd": norms * (pre + dec)}, cfg, layers)
+    if pre == 0 or dec == 0 or summary["forced_steps"]:
+        raise AssertionError(f"{pre} prefill calls, {dec} decode steps, "
+                             f"{summary['forced_steps']} steps forced over "
+                             f"the budget")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
-    print(f"phase 6 dense path: qwen3-0.6b full ({L} layers, "
+    print(f"phase {n} dense path: {arch} full ({layers} layers, "
           f"d={cfg.d_model}, {cfg.param_dtype}) served "
           f"{summary['completed']}/8 requests, {tok} tokens in "
           f"{out['wall_s']:.2f}s wall ({tok / out['wall_s']:.1f} tok/s); "
-          f"{pre} prefill calls, flash kernel launched {fl} = {L} x {pre}; "
-          f"{dec} decode steps, mean {1e3 * dec_s / dec:.2f} ms/step, "
-          f"decode kernel launched {de} = {L} x {dec}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    dense_decode_profile(backends[0])
+          f"{pre} prefill calls, flash kernel launched {fl} = {layers} x "
+          f"{pre}; {dec} decode steps, mean {1e3 * dec_s / dec:.2f} "
+          f"ms/step, decode kernel launched {de} = {layers} x {dec}; "
+          f"rmsnorm {counts['rmsnorm_fwd']} = {norms} x ({pre} + {dec}); "
+          f"none forced over budget; peak device memory {peak:.2f} GiB")
+    dense_decode_profile(backends[0], f"phase {n} dense decode-step profile")
     return counts
 
 
-def dense_decode_profile(be, label: str = "phase 6 dense decode-step "
-                         "profile", batch: int = 8, steps: int = 5) -> None:
+def dense_decode_profile(be, label: str, batch: int = 8,
+                         steps: int = 5) -> None:
     """Where a dense-cache decode step's time goes: the backend's weights
     and cache length, every row of the batch at context 128 (or less, to
     leave room for the steps in the cache)."""
@@ -950,12 +1006,15 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
     dec = sum(be.decode_calls for be in backends)
     n_apps = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
               else 0)
-    want = {"paged_attention_fwd": 0, "flash_attention_fwd": apps * pre,
-            "decode_attention_fwd": apps * dec, "ssd_scan_fwd": layers * pre}
-    if not ((cfg.num_layers, n_apps) == (layers, apps) and counts == want
-            and pre > 0 and dec > 0):
-        raise AssertionError(f"launches {counts} for {pre} prefill calls and "
-                             f"{dec} decode steps; want {want}")
+    norms = NORMS_PER_CALL[arch]
+    check_launches(counts, {"flash_attention_fwd": apps * pre,
+                            "decode_attention_fwd": apps * dec,
+                            "ssd_scan_fwd": layers * pre,
+                            "rmsnorm_fwd": norms * (pre + dec)}, cfg, layers)
+    if n_apps != apps or pre == 0 or dec == 0:
+        raise AssertionError(f"{n_apps} shared-attention applications (want "
+                             f"{apps}), {pre} prefill calls, {dec} decode "
+                             f"steps")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
     print(f"phase {n} {cfg.family} path: {arch} full ({layers} layers, "
@@ -965,7 +1024,8 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
           f"({tok / out['wall_s']:.1f} tok/s); {pre} prefill calls, {dec} "
           f"decode steps, mean {1e3 * dec_s / dec:.2f} ms/step; launches "
           f"{counts} = ssd {layers} x {pre}, flash {apps} x {pre}, decode "
-          f"{apps} x {dec}, every SSD launch at phase 8's "
+          f"{apps} x {dec}, rmsnorm {norms} x ({pre} + {dec}), every SSD "
+          f"launch at phase 8's "
           f"{SSD_MAIN[arch]} case; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     dense_decode_profile(backends[0],
@@ -1015,6 +1075,142 @@ def phase_ssm_parity() -> None:
         torch.cuda.empty_cache()
 
 
+# --- phase 12 ----------------------------------------------------------------
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over one bf16 ulp at |b| (8 significant bits)."""
+    b = b.float()
+    e = torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126)))
+    return ((a.float() - b).abs() / torch.exp2(e - 7)).max().item()
+
+
+def phase_rmsnorm_kernel_vs_plain() -> dict:
+    """The RMSNorm kernel against its plain version on the card, every
+    case of ``kernels/rmsnorm/cases.py`` in four (x, w) dtype pairs; then
+    timed in bf16 at the paths' shapes (eight inputs cycled) beside its
+    bound (x and w read once, the output written once), the plain version
+    and ``torch.nn.functional.rms_norm``.  Returns the timing of each
+    shape, by name."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.cases import (RMSNORM_CASES,
+                                                   RMSNORM_DTYPES,
+                                                   RMSNORM_TIMED,
+                                                   rmsnorm_case_on)
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    errs, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for seed, (name, shape, layout) in enumerate(RMSNORM_CASES):
+        for xdt, wdt in RMSNORM_DTYPES:
+            x, w = rmsnorm_case_on(DEVICE, xdt, wdt, shape, layout, seed)
+            got = rms_ops.rmsnorm(x, w, 1e-6)
+            ref = rmsnorm_ref(x, w, 1e-6)
+            torch.cuda.synchronize()
+            if got.shape != x.shape or got.dtype != xdt:
+                raise AssertionError(f"{name}: {got.shape} {got.dtype}")
+            worst[xdt] = max(worst[xdt], _check_close(
+                f"{name}/w{str(wdt)[6:]}", xdt, got, ref, errs))
+    print(f"phase 12 rmsnorm kernel vs plain: {len(errs)} cases ok "
+          f"({len(RMSNORM_CASES)} shapes and layouts x {len(RMSNORM_DTYPES)} "
+          f"(x, w) dtype pairs), max abs err f32 "
+          f"{worst[torch.float32]:.3g} (tol {TOL[torch.float32]}), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (tol {TOL[torch.bfloat16]})")
+    dtype, out = torch.bfloat16, {}
+    lib_fn = torch.nn.functional.rms_norm
+    for k, (label, shape) in enumerate(RMSNORM_TIMED.items()):
+        ins = [rmsnorm_case_on(DEVICE, dtype, dtype, shape, "dense", 50 + j)
+               for j in range(8)]
+        d = shape[-1]
+        ker = timed(lambda i: rms_ops.rmsnorm(*ins[i % 8], 1e-6), 400,
+                    "rmsnorm_kernel")
+        plain = timed(lambda i: rmsnorm_ref(*ins[i % 8], 1e-6), 100)
+        lib = timed(lambda i: lib_fn(ins[i % 8][0], (d,), ins[i % 8][1],
+                                     1e-6), 400)
+        x, w = ins[0]
+        mine = rms_ops.rmsnorm(x, w, 1e-6)
+        ulps = bf16_ulps(lib_fn(x, (d,), w, 1e-6), mine)
+        numel = x.numel()
+        nbytes = 2 * numel * x.element_size() + d * w.element_size()
+        bound_ms, bound_by = bound(nbytes, 4 * numel, dtype)
+        out[label] = dict(ms=ker["ms"], plain_ms=plain["ms"],
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=lib["ms"])
+        print(f"phase 12 rmsnorm {label} bf16 {tuple(shape)}: device time "
+              f"kernel {_us(ker)}, plain {_us(plain)}, F.rms_norm "
+              f"{_us(lib)}, bound {bound_ms * 1e3:.4f} us ({bound_by}: "
+              f"{nbytes / 1e6:.3f} MB); F.rms_norm vs kernel max "
+              f"{ulps:.2f} bf16 ulp: "
+              f"{'the same' if ulps <= 1 else 'not the same'} function to "
+              f"1 ulp")
+        del ins
+    worst_all = max(worst.values())
+    return {label: dict(max_abs_err=worst_all, **t)
+            for label, t in out.items()}
+
+
+# --- phases 13, 14 and 15 ----------------------------------------------------
+
+MOE = "qwen3-moe-30b-a3b"
+#: 8 requests of 64-128 prompt tokens and 16-32 new tokens; the budget is
+#: the estimator's 56.9 GB weight intercept plus room for the 8 requests
+MOE_ARGV = ["--arch", MOE, "--requests", "8", "--prompt-len", "128",
+            "--decode-steps", "32", "--budget-gb", "64", "--device", "cuda"]
+
+
+def phase_moe_parity() -> None:
+    """Card vs CPU in f32 (TF32 off) on both MoE paths: qwen3-moe at full
+    width and 2 of its 48 layers, random weights from one CPU generator,
+    2 rows x 32 tokens (a prefill chunk, or a prefill) and 4 decode
+    steps; greedy tokens equal, logits within ``PARITY_ATOL``.  Prints
+    the smallest gap seen between the k-th and (k+1)-th router
+    probability of any token on either side."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(MOE).replace(param_dtype="float32",
+                                  compute_dtype="float32", num_layers=2)
+    t0 = time.perf_counter()
+    p_cpu = model_lib.init(cfg, torch.Generator().manual_seed(5), "cpu")
+    p_gpu = to_card(p_cpu)
+    t_init = time.perf_counter() - t0
+    r = np.random.default_rng(13)
+    B, C, page, num_pages = 2, 32, 16, 9
+    prompts = r.integers(3, cfg.vocab_size, (B, C)).astype(np.int32)
+    table = np.zeros((B, num_pages - 1), np.int32)
+    table[:, :3] = r.permutation(np.arange(1, num_pages))[:6].reshape(B, 3)
+    runs = {"prefill chunk + 4 paged decode steps": lambda p, dev:
+            _run_parity(cfg, p, dev, prompts, table, num_pages, page),
+            "prefill + 4 dense decode steps": lambda p, dev:
+            _run_dense_parity(cfg, p, dev, prompts, C + 8)}
+    real, gaps = moe_mod.router_topk, []
+
+    def recorded(logits, k):
+        top = torch.topk(torch.softmax(logits.float(), -1), k + 1).values
+        gaps.append((top[:, k - 1] - top[:, k]).min().item())
+        return real(logits, k)
+
+    moe_mod.router_topk = recorded
+    try:
+        for kind, run in runs.items():
+            t0 = time.perf_counter()
+            gpu = run(p_gpu, DEVICE)
+            t1 = time.perf_counter()
+            cpu = run(p_cpu, "cpu")
+            t2 = time.perf_counter()
+            print(f"phase 15 moe card vs CPU: {MOE} full width "
+                  f"(d={cfg.d_model}, {cfg.num_experts} experts, top "
+                  f"{cfg.experts_per_token}), 2 of its 48 layers (depth "
+                  f"cut), f32 (TF32 off), {B}x{C} {kind}: "
+                  f"{check_parity('phase 15', gpu, cpu)}; card "
+                  f"{t1 - t0:.2f}s, cpu {t2 - t1:.2f}s")
+    finally:
+        moe_mod.router_topk = real
+    print(f"phase 15 smallest gap between the k-th and (k+1)-th router "
+          f"probability over {len(gaps)} router calls (card and CPU): "
+          f"{min(gaps):.3g}; weights drawn in {t_init:.2f}s")
+    del p_cpu, p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -1029,6 +1225,9 @@ KERNELS = {
     "ssd_scan_fwd": (
         "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/kernel.py:69"),
+    "rmsnorm_fwd": (
+        "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "src/repro/kernels/rmsnorm/kernel.py:22"),
 }
 
 
@@ -1045,7 +1244,7 @@ def main() -> None:
     done(1)
     timing = {"paged_attention_fwd": phase_kernel_vs_plain()}
     done(2)
-    launches = {"paged_attention_fwd": phase_main_path()}
+    paths = [phase_paged_path(3, "qwen3-0.6b", MAIN_ARGV, 28)]
     done(3)
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
@@ -1058,7 +1257,8 @@ def main() -> None:
     done(4)
     timing.update(phase_dense_kernels_vs_plain())
     done(5)
-    dense = phase_dense_path()
+    paths.append(phase_dense_path(6, "qwen3-0.6b",
+                                  MAIN_ARGV + ["--backend", "dense"], 28))
     done(6)
     phase_dense_parity(f32, p_cpu)
     del p_cpu
@@ -1067,17 +1267,26 @@ def main() -> None:
     # the JSON line carries the SSM path's (mamba2-780m) launch
     timing["ssd_scan_fwd"] = ssd_timing["mamba2-main"]
     done(8)
-    paths = [dense]
     for n, arch, *path in SSM_PATHS:
         paths.append(phase_ssm_path(n, arch, *path, ssd_keys[arch]))
         done(n)
     phase_ssm_parity()
     done(11)
+    rms_timing = phase_rmsnorm_kernel_vs_plain()
+    # the JSON line carries the MoE path's decode-step block norm
+    timing["rmsnorm_fwd"] = rms_timing["qwen3-moe decode"]
+    done(12)
+    paths.append(phase_paged_path(13, MOE, MOE_ARGV, 48))
+    done(13)
+    paths.append(phase_dense_path(14, MOE, MOE_ARGV + ["--backend", "dense"],
+                                  48))
+    done(14)
+    phase_moe_parity()
+    done(15)
     # launches on the main paths: each path's own run, summed over the
-    # paths that run the kernel (flash and dense decode: phases 6 and 10)
-    for name in ("flash_attention_fwd", "decode_attention_fwd",
-                 "ssd_scan_fwd"):
-        launches[name] = sum(counts[name] for counts in paths)
+    # paths (phases 3, 6, 9, 10, 13 and 14)
+    launches = {name: sum(counts[name] for counts in paths)
+                for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **timing[name])

@@ -1,7 +1,8 @@
-// Device code shared by the attention kernels of the port: the masking
-// constant, fp32/bf16 conversions, 16-byte loads, and the one-query-token
-// decode body that the paged kernel (paged_attention.cu) and the dense
-// decode kernel (decode_attention.cu) both run.  ``kernels/build.py``
+// Device code shared by the kernels of the port: the masking constant,
+// fp32/bf16 conversions (which the RMSNorm kernel uses too), 16-byte
+// loads, and the one-query-token decode body that the paged kernel
+// (paged_attention.cu) and the dense decode kernel (decode_attention.cu)
+// both run.  ``kernels/build.py``
 // hashes this header into every library's name, so an edit here rebuilds
 // every kernel.
 #pragma once

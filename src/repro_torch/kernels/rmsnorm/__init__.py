@@ -1,0 +1,3 @@
+"""RMSNorm: CUDA kernel + plain version."""
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: F401
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: F401

@@ -4,14 +4,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to x.dtype. (1+w) convention NOT used."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
+    """RMSNorm in fp32, cast back to x.dtype. (1+w) convention NOT used.
+
+    The device decides, not a flag: a CUDA tensor goes through the CUDA
+    RMSNorm kernel, a CPU tensor through its plain version (the JAX
+    package's formula, ``kernels/rmsnorm/ref.py``)."""
+    return rmsnorm_ops.rmsnorm(x, weight, eps)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

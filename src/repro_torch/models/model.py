@@ -6,11 +6,11 @@ Mirrors the JAX package's ``models/model.py``.  ``param_specs``,
 (dense / moe / encdec / vlm / ssm / hybrid), so the footprint estimator
 sees the same byte counts.  The forward passes here are the ones serving
 runs: the paged pair (``prefill_chunk`` / ``decode_step_paged``) for the
-dense and vlm families, and the dense-cache pair (``prefill`` /
-``decode_step``) for the dense, vlm, ssm and hybrid families.  The rest
-(MoE blocks, training and the remaining families) comes in later slices
-of the port (ROADMAP.md, Queue 1), and raises ``NotImplementedError``
-until then.
+dense, moe and vlm families, and the dense-cache pair (``prefill`` /
+``decode_step``) for the dense, moe, vlm, ssm and hybrid families.  The
+rest (training, expert parallelism and the remaining families) comes in
+later slices of the port (ROADMAP.md, Queue 1), and raises
+``NotImplementedError`` until then.
 
 Design rules:
   * Plain functions over a nested dict of tensors, stacked ``[L, ...]``
@@ -33,6 +33,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import apply_rope, mlp, rms_norm, softcap
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
 
@@ -217,7 +218,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 #: what raises until its slice of the port lands (ROADMAP.md, Queue 1)
 _LATER = {
-    "moe": "the MoE slice of the PyTorch port (MoE blocks)",
     "local_global": "the remaining-families slice of the PyTorch port "
                     "(gemma2 local/global layers)",
     "encdec": "the remaining-families slice of the PyTorch port "
@@ -230,9 +230,7 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 
 
 def _check_paged(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise _not_ported("paged serving of the moe family", "moe")
-    if cfg.family not in ("dense", "vlm") or cfg.local_global:
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.local_global:
         raise NotImplementedError(
             f"paged KV cache supports dense-stack families, got "
             f"{cfg.family} (local_global={cfg.local_global})")
@@ -380,6 +378,38 @@ def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + out
 
 
+def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              shared_mlp: Optional[Params] = None, *,
+              with_aux: bool = False):
+    """Pre-norm MoE FFN with residual (plus a shared dense expert, if
+    given).  Returns (x_out, aux_loss), the loss None unless
+    ``with_aux`` (serving never reads it).  The expert-parallel branch of
+    the JAX version (``moe_ep``) comes with a later slice."""
+    B, S, d = x.shape
+    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    out = moe_ffn(h.reshape(B * S, d), p["w_router"], p["w_gate"],
+                  p["w_up"], p["w_down"], k=cfg.experts_per_token,
+                  capacity_factor=cfg.capacity_factor, act=cfg.act,
+                  with_aux=with_aux)
+    y = out.y.reshape(B, S, d)
+    if shared_mlp is not None:
+        hs = rms_norm(x, shared_mlp["ln_w"], cfg.norm_eps)
+        y = y + mlp(hs, shared_mlp["wi_gate"], shared_mlp["wi_up"],
+                    shared_mlp["wo"], cfg.act)
+    return x + y, out.aux_loss
+
+
+def _ffn_block(pb: Params, cfg: ModelConfig, x: torch.Tensor, *,
+               with_aux: bool = False):
+    """Layer ``pb``'s FFN: the MoE block (and its shared expert) for the
+    moe family, else the dense MLP block.  Returns (x_out, aux_loss or
+    None)."""
+    if "moe" in pb:
+        return moe_block(pb["moe"], cfg, x, pb.get("shared_mlp"),
+                         with_aux=with_aux)
+    return mlp_block(pb["mlp"], cfg, x), None
+
+
 def mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 state: Optional[ssm_mod.SSMState] = None, *,
                 decode: bool = False):
@@ -463,7 +493,7 @@ def _layer(tree, i: int):
 
 def _paged_stack(params, cfg, x, cache, positions, kv_lens, active, *,
                  chunk_attend: bool):
-    """Dense/vlm stack over the page pool, one layer at a time; layer
+    """Dense/moe/vlm stack over the page pool, one layer at a time; layer
     ``l`` reads and writes the pools ``cache["k"][l]`` / ``[l]``."""
     _check_paged(cfg)
     table = cache["table"]
@@ -479,7 +509,7 @@ def _paged_stack(params, cfg, x, cache, positions, kv_lens, active, *,
         pools = (cache["k"][i], cache["v"][i])
         x = _paged_attn_block(pb["attn"], cfg, x, pools, table, write_table,
                               positions, kv_lens, chunk_attend=chunk_attend)
-        x = mlp_block(pb["mlp"], cfg, x)
+        x, _ = _ffn_block(pb, cfg, x)
     return x, {"k": cache["k"], "v": cache["v"], "table": table}
 
 
@@ -548,26 +578,28 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
 
 
 def _dense_stack(params, cfg, x, mode, cache=None):
-    """Dense / vlm decoder stack, one layer at a time. Returns (h,
+    """Dense / moe / vlm decoder stack, one layer at a time. Returns (h,
     new_cache_kv, aux).  Decode writes layer ``l``'s token into
     ``cache["k"][l]`` / ``["v"][l]`` in place; prefill stacks the
-    layers' (k, v) into ``[L, B, S, Hkv, hd]``."""
+    layers' (k, v) into ``[L, B, S, Hkv, hd]``.  ``aux`` sums the MoE
+    load-balancing loss in train mode and stays zero in the serving
+    modes, which never read it."""
     if cfg.local_global:
         raise _not_ported("the local/global dense stack", "local_global")
-    if "moe" in params["blocks"]:
-        raise _not_ported("the dense stack's MoE blocks", "moe")
     pos = None if cache is None else cache["len"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         pb = _layer(params["blocks"], i)
         kv = (cache["k"][i], cache["v"][i]) if cache else None
         x, nkv = attn_block(pb["attn"], cfg, x, mode=mode, layer_kv=kv,
                             pos=pos)
-        x = mlp_block(pb["mlp"], cfg, x)
+        x, a = _ffn_block(pb, cfg, x, with_aux=mode == "train")
+        if a is not None:
+            aux = aux + a
         if mode == "prefill":
             ks.append(nkv[0])
             vs.append(nkv[1])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
         return x, None, aux
     if mode == "prefill":

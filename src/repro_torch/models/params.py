@@ -65,9 +65,19 @@ def _init_leaf(spec: P, generator: torch.Generator, dtype,
         fan_in = shape[fan_axis] if shape else 1
         std = ((spec.scale if spec.scale is not None else 1.0)
                / np.sqrt(max(fan_in, 1)))
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (x * std).to(device=device, dtype=dt)
+    if len(shape) < 3:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (x * std).to(device=device, dtype=dt)
+    # a stacked [L, ...] leaf is drawn one leading slice at a time into a
+    # tensor of the target dtype, so the fp32 draw never exceeds a slice
+    # (qwen3-moe's w_gate whole would be 38.7 GB of fp32)
+    out = torch.empty(shape, dtype=dt, device=device)
+    for i in range(shape[0]):
+        x = torch.randn(shape[1:], generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        out[i] = x * std
+    return out
 
 
 def abstract_params(spec_tree, dtype: str):
@@ -82,7 +92,8 @@ def init_params(spec_tree, generator: torch.Generator, dtype: str,
                 device) -> dict:
     """Spec tree -> initialized tensor tree on ``device``.  The numbers
     come from ``generator`` (drawn on its own device), leaf by leaf in
-    sorted-key order."""
+    sorted-key order, a leaf of three or more dims one leading slice at a
+    time (peak fp32 scratch: one layer's slice of the largest weight)."""
     return _map_specs(
         lambda s: _init_leaf(s, generator, dtype, device), spec_tree)
 

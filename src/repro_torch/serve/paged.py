@@ -430,9 +430,10 @@ class TorchPagedBackend(_PagedScheduler, Backend):
     entries are rebuilt from them before every call.  The model steps
     update the pools in place.
 
-    ``decode_calls`` counts decode steps and ``decode_seconds`` sums
-    their host-clock time (each ends reading the sampled tokens back, so
-    the device work is included).
+    ``prefill_calls`` counts prefill-chunk calls, ``decode_calls``
+    decode steps, and ``decode_seconds`` sums the decode steps' host-clock
+    time (each ends reading the sampled tokens back, so the device work
+    is included).
     """
 
     join_stride = 1
@@ -469,6 +470,7 @@ class TorchPagedBackend(_PagedScheduler, Backend):
         self._last: Dict[int, int] = {}     # rid -> last sampled token
         self._maxp = self.alloc.usable_pages
         self._table_np = np.zeros((0, self._maxp), np.int32)
+        self.prefill_calls = 0
         self.decode_calls = 0
         self.decode_seconds = 0.0
 
@@ -551,6 +553,7 @@ class TorchPagedBackend(_PagedScheduler, Backend):
             self.params, self._cache, self._to_device(tokens).long(),
             self._to_device(start), self._to_device(chunk_lens),
             self._to_device(active))
+        self.prefill_calls += 1
         toks = self._greedy(logits)
         return [int(toks[self._rows[r.rid]]) for r, _, _ in work]
 

@@ -88,21 +88,20 @@ def test_prefill_then_decode_match_jax(arch):
 
 
 def test_dense_path_raises_for_families_not_ported():
-    """ssm and hybrid serve on the dense path now
-    (tests/test_torch_ssm.py); whisper's encdec, MoE blocks and gemma2's
-    local/global layers still raise, naming their slices."""
+    """ssm, hybrid (tests/test_torch_ssm.py) and moe
+    (tests/test_torch_moe.py) serve on the dense path now; whisper's
+    encdec and gemma2's local/global layers still raise, naming their
+    slices."""
     cfg = t_get_config("whisper-large-v3", smoke=True)
     with pytest.raises(NotImplementedError, match="slice"):
         tm.prefill({}, cfg, {"tokens": torch.zeros(1, 4).long()}, 8)
     with pytest.raises(NotImplementedError, match="slice"):
         tm.decode_step({}, cfg, {}, torch.zeros(1, 1).long())
-    for arch, match in (("qwen3-moe-30b-a3b", "MoE slice"),
-                        ("gemma2-27b", "remaining-families slice")):
-        cfg = t_get_config(arch, smoke=True)
-        params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            tm.prefill(params, cfg, {"tokens": torch.zeros(1, 4).long()},
-                       8)
+    cfg = t_get_config("gemma2-27b", smoke=True)
+    params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError,
+                       match="remaining-families slice"):
+        tm.prefill(params, cfg, {"tokens": torch.zeros(1, 4).long()}, 8)
 
 
 def _requests(cls):

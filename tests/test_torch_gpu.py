@@ -4,10 +4,11 @@ so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The CUDA paged-decode, flash-attention and dense decode-attention
-kernels are held against their plain PyTorch versions at the repo's
-tolerances (f32 2e-5, bf16 2e-2), the CUDA SSD-scan kernel at the JAX
-package's SSD tolerances (f32 1e-4, bf16 5e-2).  The attention case
+The CUDA paged-decode, flash-attention, dense decode-attention and
+RMSNorm kernels are held against their plain PyTorch versions at the
+repo's tolerances (f32 2e-5, bf16 2e-2; RMSNorm by x's dtype), the CUDA
+SSD-scan kernel at the JAX package's SSD tolerances (f32 1e-4, bf16
+5e-2).  The attention case
 lists here are shared with the CPU tests, which hold the same plain
 versions against the JAX package."""
 import numpy as np
@@ -21,6 +22,11 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as t_ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref as t_paged_ref
+from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
+from repro_torch.kernels.rmsnorm import ops as t_rms_ops
+from repro_torch.kernels.rmsnorm.cases import (RMSNORM_CASES, RMSNORM_DTYPES,
+                                               rmsnorm_case_on)
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd_scan import ops as t_ssd_ops
 from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_TOL,
                                                 ssd_case_on)
@@ -54,10 +60,12 @@ PAGED_CASES = [
     ((2, 16, 8, 6, 3, 48, [12, 31]), 0, 0.0),    # odd heads, D=48
     ((2, 16, 8, 4, 2, 32, [21, 37]), 16, 0.0),   # window
     ((2, 16, 8, 4, 2, 32, [21, 37]), 8, 50.0),   # window + softcap
+    ((8, 177, 16, 32, 4, 128,                    # qwen3-moe's heads, G=8
+      [161, 160, 151, 140, 129, 97, 64, 17]), 0, 0.0),
 ]
 
 
-#: (B, S, Hq, Hkv, D, causal, window, softcap): GQA with G in {1, 2, 4},
+#: (B, S, Hq, Hkv, D, causal, window, softcap): GQA with G in {1, 2, 4, 8},
 #: S not a multiple of the kernel's tiles (64 x 32 rows x keys), window,
 #: softcap, non-causal, and the D > 128 tiling
 FLASH_CASES = [
@@ -69,10 +77,11 @@ FLASH_CASES = [
     (1, 70, 4, 1, 32, False, 24, 30.0),   # non-causal + window + softcap
     (1, 40, 2, 1, 256, False, 0, 0.0),    # non-causal, D=256 (32 x 32)
     (1, 128, 32, 32, 80, True, 0, 0.0),   # zamba2's shared attention
+    (2, 128, 32, 4, 128, True, 0, 0.0),   # qwen3-moe's heads, G=8
 ]
 
 #: (B, S, Hq, Hkv, D, lens, window, softcap): lens include 1 and S, S not
-#: a multiple of the kernel's 64-token chunk, G in {1, 2, 4}
+#: a multiple of the kernel's 64-token chunk, G in {1, 2, 4, 8}
 DECODE_CASES = [
     (2, 64, 4, 4, 16, [1, 64], 0, 0.0),             # G=1, len 1 and S
     (2, 96, 8, 4, 32, [96, 40], 0, 0.0),            # G=2, ragged chunk
@@ -82,6 +91,8 @@ DECODE_CASES = [
     (2, 100, 4, 2, 32, [100, 65], 24, 50.0),        # window + softcap
     (1, 96, 6, 3, 48, [11], 0, 0.0),                # D=48, odd heads
     (2, 161, 32, 32, 80, [145, 161], 0, 0.0),       # zamba2's shared attn
+    (8, 161, 32, 4, 128, [161, 160, 151, 140, 129, 97, 64, 1], 0,
+     0.0),                                          # qwen3-moe's, G=8
 ]
 
 def flash_case(B, S, Hq, Hkv, D, seed=0):
@@ -192,3 +203,25 @@ def test_ssd_kernel_vs_plain_on_card(case, dtype):
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RMSNORM_CASES,
+                         ids=[c[0] for c in RMSNORM_CASES])
+@pytest.mark.parametrize("dtypes", RMSNORM_DTYPES,
+                         ids=lambda d: f"{str(d[0])[6:]}-{str(d[1])[6:]}")
+def test_rmsnorm_kernel_vs_plain_on_card(case, dtypes):
+    """Every case layout is read in place (one launch, no copy), and the
+    output has x's shape and dtype."""
+    _cuda_or_skip()
+    _, shape, layout = case
+    x, w = rmsnorm_case_on("cuda", *dtypes, shape, layout)
+    before = t_rms_kernel.rmsnorm_fwd.launches
+    out = t_rms_ops.rmsnorm(x, w, 1e-6)
+    ref = rmsnorm_ref(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert t_rms_kernel.rmsnorm_fwd.launches == before + 1
+    assert out.shape == x.shape and out.dtype == x.dtype
+    assert t_rms_ops.row_view(x).data_ptr() == x.data_ptr()
+    tol = TOL[dtypes[0]]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)

@@ -100,9 +100,14 @@ def test_prefill_chunks_then_decode_match_jax():
 
 
 def test_paged_path_rejects_other_families():
+    """moe serves on the paged path now (tests/test_torch_moe.py): its
+    paged cache has the dense family's layout; gemma2's local/global
+    layers and the ssm/hybrid families still raise."""
     cfg = t_get_config("qwen3-moe-30b-a3b", smoke=True)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        tm.init_paged_cache(cfg, 1, 4, 4, device="cpu")
+    cache = tm.init_paged_cache(cfg, 1, 4, 4, device="cpu")
+    assert tuple(cache["k"].shape) == (cfg.num_layers, 4, 4,
+                                       cfg.num_kv_heads, cfg.head_dim)
+    assert tuple(cache["table"].shape) == (1, 3)
     for arch in ("gemma2-27b", "mamba2-780m", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError):
             tm.init_paged_cache(t_get_config(arch, smoke=True), 1, 4, 4,

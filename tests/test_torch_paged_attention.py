@@ -132,9 +132,10 @@ def test_kernel_build_helpers(tmp_path, monkeypatch):
     srcs = build.sources()
     assert [s.name for s in srcs] == ["decode_attention.cu",
                                       "flash_attention.cu",
-                                      "paged_attention.cu", "ssd_scan.cu"]
+                                      "paged_attention.cu", "rmsnorm.cu",
+                                      "ssd_scan.cu"]
     assert [h.name for h in build.headers()] == ["attention_common.cuh"]
-    for s in srcs[:3]:      # the attention kernels share the header
+    for s in srcs[:4]:      # the attention kernels and RMSNorm share it
         assert '#include "attention_common.cuh"' in s.read_text()
     a = tmp_path / "k.cu"
     a.write_text("// one")

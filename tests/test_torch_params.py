@@ -96,3 +96,32 @@ def test_native_init_scales():
     wq_std = p["blocks"]["attn"]["wq"].std().item()
     assert abs(emb_std - 0.02) < 0.002                # "embed", scale 0.02
     assert abs(wq_std - cfg.d_model ** -0.5) < 0.01   # fan_in over d_model
+
+
+def test_native_init_draws_a_stacked_leaf_one_slice_at_a_time(monkeypatch):
+    """A leaf of three or more dims (the stacked ``[L, ...]`` weights) is
+    drawn one leading slice at a time, so no fp32 draw is larger than one
+    layer's slice; the rest is drawn whole, every draw in fp32, and the
+    leaves' scales hold (qwen3-moe's stacked experts and f32 router)."""
+    cfg = t_get_config("qwen3-moe-30b-a3b", smoke=True)
+    draws, real = [], torch.randn
+
+    def spy(shape, **kw):
+        draws.append((tuple(shape), kw["dtype"]))
+        return real(shape, **kw)
+    monkeypatch.setattr(torch, "randn", spy)
+    p = tm.init(cfg, torch.Generator().manual_seed(2), "cpu")
+    want = []
+    for name, spec in _flat(tm.param_specs(cfg)):
+        if spec.init in ("ones", "zeros"):
+            continue
+        s = tuple(spec.shape)
+        want += [s[1:]] * s[0] if len(s) >= 3 else [s]
+    assert [s for s, _ in draws] == want
+    assert {dt for _, dt in draws} == {torch.float32}
+    moe = p["blocks"]["moe"]
+    assert moe["w_gate"].dtype == torch.bfloat16
+    assert moe["w_router"].dtype == torch.float32
+    assert abs(moe["w_router"].std().item() - 0.02) < 0.004
+    assert abs(moe["w_gate"].float().std().item()
+               - cfg.d_model ** -0.5) < 0.02
