@@ -24,11 +24,14 @@ and any failure exits non-zero:
    32-token prefill chunk for 2 rows and 4 decode steps, on the card
    (kernel) and on the CPU (plain): greedy tokens equal, logits within
    ``PARITY_ATOL``;
-5. the dense kernels vs plain: the flash-attention prefill and dense
-   decode-attention kernels against their plain PyTorch versions on the
-   card (f32 2e-5, bf16 2e-2), then timed at the dense path's shapes
-   beside their bounds, the plain versions and
-   ``scaled_dot_product_attention``;
+5. the dense kernels vs plain: the flash-attention prefill (bf16 on the
+   tensor cores, f32 on the CUDA cores) and the dense decode-attention
+   (split over a thread-block cluster) kernels against their plain
+   PyTorch versions on the card on every case (f32 2e-5, bf16 2e-2),
+   then each timed at every served launch shape (qwen3-0.6b, zamba2-2.7b
+   and qwen3-moe-30b-a3b) beside its bound, the share of the bound
+   reached, the plain version and ``scaled_dot_product_attention``,
+   with the decode split plan (splits, cluster, blocks);
 6. the dense main path: ``repro_torch.launch.serve.main`` with
    ``--backend dense`` serves the same 8 requests; the flash kernel must
    have been launched once per layer per prefill call and the decode
@@ -82,6 +85,13 @@ its seconds and the total is printed at the end.
 The last three lines are the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line describing each kernel, and the
 JSON status line.
+
+    python3 chip_smoke.py --kernel-times [SRC]
+
+builds the kernels and runs phase 5's timing alone, with the
+``repro_torch`` package of the checkout whose ``src`` directory is SRC
+(another commit unpacked with ``git archive``, say), so that two versions
+of the attention kernels are timed on one card in one call.
 """
 from __future__ import annotations
 
@@ -222,26 +232,30 @@ def _device_ms(fn, iters: int, kernel: str = "") -> float:
     ``iters`` calls of ``fn`` launch (``torch.profiler``; one stream, so
     they do not overlap), over ``iters``.  With ``kernel``, the mean time
     of the kernels whose name holds it (one per call; the profiler may
-    drop an event, so at least nine tenths of them must be seen).  Unlike
+    drop events, so at least nine tenths of them must be seen, and a
+    window that drops more is profiled again, up to three times).  Unlike
     ``_cuda_ms`` it leaves out the gaps while the host issues the next
     call."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and kernel in e.name]
-    if not kernels or (kernel and not 0.9 * iters <= len(kernels) <= iters):
-        raise AssertionError(f"the profiler saw {len(kernels)} device "
-                             f"events named {kernel!r} for {iters} calls")
-    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return total / (len(kernels) if kernel else iters)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel in e.name]
+        if kernels and (not kernel or 0.9 * iters <= len(kernels) <= iters):
+            total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+            return total / (len(kernels) if kernel else iters)
+        print(f"the profiler saw {len(kernels)} device events named "
+              f"{kernel!r} for {iters} calls; profiling again")
+    raise AssertionError(f"the profiler saw {len(kernels)} device events "
+                         f"named {kernel!r} for {iters} calls, three times")
 
 
 def timed(fn, iters: int, kernel: str = "") -> dict:
@@ -574,9 +588,11 @@ def phase_parity(cfg, p_cpu) -> None:
 # --- phase 5 -----------------------------------------------------------------
 
 #: (name, (B, S, Hq, Hkv, D), causal, window, softcap): causal and not,
-#: window, softcap, S not a multiple of the 64 x 32 tiles, G in {1, 2, 4},
-#: the D > 128 tiling, and the dense main paths' shapes (qwen3-0.6b,
-#: zamba2-2.7b's shared attention: D = 80, Hq = Hkv = 32, and
+#: window, softcap, S not a multiple of the tiles (64 x 64 in bf16, 64 x 32
+#: in f32), G in {1, 2, 4, 8}, the D > 128 tiling, S over five K/V tiles
+#: (the bf16 ring wraps), a window that starts the kv loop past key 0, a D
+#: that is a multiple of 8 but not of 16, and the dense main paths' shapes
+#: (qwen3-0.6b, zamba2-2.7b's shared attention: D = 80, Hq = Hkv = 32, and
 #: qwen3-moe-30b-a3b: Hq 32, Hkv 4, G = 8)
 FLASH_CASES = [
     ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
@@ -590,13 +606,19 @@ FLASH_CASES = [
     ("noncausal-window24-gqa4", (1, 70, 4, 1, 32), False, 24, 0.0),
     ("d256", (1, 40, 2, 1, 256), True, 0, 0.0),
     ("main-window48-softcap50", (8, 100, 16, 8, 128), True, 48, 50.0),
+    ("s320-5tiles-causal", (1, 320, 4, 2, 64), True, 0, 0.0),
+    ("s320-5tiles-noncausal", (1, 320, 4, 2, 32), False, 0, 0.0),
+    ("s320-window100-softcap20", (1, 320, 2, 1, 32), True, 100, 20.0),
+    ("d40-zero-filled", (2, 100, 4, 2, 40), True, 0, 0.0),
     ("zamba2-d80-mha32", (8, 128, 32, 32, 80), True, 0, 0.0),
     ("qwen3-moe-g8", (8, 128, 32, 4, 128), True, 0, 0.0),
 ]
 
 #: (name, (B, S, Hq, Hkv, D, lens), window, softcap): lens include 1 and
-#: S, S not a multiple of the 64-token chunk, G in {1, 2, 4, 8}, a len-0
-#: row, and the dense main paths' shapes (8 rows at the shared position)
+#: S, S not a multiple of the split, G in {1, 2, 4, 8}, a len-0 row, 8
+#: splits of several passes each, a row that leaves most splits empty, a
+#: window that skips whole splits, and the dense main paths' shapes (8
+#: rows at the shared position)
 DECODE_CASES = [
     ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
     ("main-mixed-lens", (8, 161, 16, 8, 128,
@@ -609,9 +631,19 @@ DECODE_CASES = [
     ("window24-softcap50", (2, 100, 4, 2, 32, [100, 65]), 24, 50.0),
     ("d48-odd-heads", (1, 96, 6, 3, 48, [11]), 0, 0.0),
     ("zero-len-row", (2, 64, 4, 2, 16, [0, 9]), 0, 0.0),
+    ("s1100-8splits", (2, 1100, 4, 2, 32, [1100, 731]), 0, 0.0),
+    ("len3-empty-splits", (3, 200, 4, 2, 32, [3, 200, 150]), 0, 0.0),
+    ("window64-skips-splits", (2, 600, 4, 2, 32, [600, 407]), 64, 0.0),
+    ("g8-d64", (2, 161, 8, 1, 64, [145, 161]), 0, 0.0),
     ("zamba2-d80-mha32", (8, 161, 32, 32, 80, [145] * 8), 0, 0.0),
     ("qwen3-moe-g8", (8, 161, 32, 4, 128, [145] * 8), 0, 0.0),
 ]
+
+#: the served launch shapes phase 5 times, by path: the case of that name
+#: in FLASH_CASES and in DECODE_CASES; the first is the main path's, whose
+#: numbers go into the JSON line
+TIMED = [("qwen3", "main"), ("zamba2", "zamba2-d80-mha32"),
+         ("qwen3-moe", "qwen3-moe-g8")]
 
 
 def attended_pairs(S: int, causal: bool, window: int) -> int:
@@ -640,20 +672,99 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=DEVICE, dtype=dtype)
 
 
-def phase_dense_kernels_vs_plain() -> dict:
-    """Both dense kernels against their plain versions, then timed at the
-    dense main path's shapes (bf16; q/k/v or caches of all 28 layers
-    cycled so each launch reads from device memory, as a step does)."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+def _timing_line(label, shape, t, extra) -> str:
+    return (f"phase 5 {label} bf16 {shape}{extra}: device time kernel "
+            f"{_us(t['ker'])}, plain {_us(t['plain'])}, sdpa "
+            f"{_us(t['lib'])} (|sdpa - kernel| {t['lib_err']:.2g}); bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ker']['ms']:.3f} of it reached")
+
+
+def time_flash(B, S, Hq, Hkv, D, L, gen, iters) -> dict:
+    """The flash kernel at one served launch (bf16, causal) beside its
+    bound, the plain version and ``scaled_dot_product_attention`` on
+    [B, Hq, S, D] with K/V repeated to the query heads (made outside the
+    timing); L sets of q/k/v cycled so each launch reads device memory."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    L = get_config("qwen3-0.6b").num_layers
     dtype = torch.bfloat16
     es = torch.empty((), dtype=dtype).element_size()
-    out = {}
+    qs = [_rand(gen, (B, S, Hq, D), dtype) for _ in range(L)]
+    ks = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    vs = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    ker = timed(lambda i: fa_ops.flash_attention(
+        qs[i % L], ks[i % L], vs[i % L]), iters, "flash_fwd")
+    plain = timed(lambda i: attention_ref(
+        qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
+        vs[i % L].transpose(1, 2), scale=D ** -0.5), max(L, iters // 10))
+    G = Hq // Hkv
+    qh = [t.transpose(1, 2).contiguous() for t in qs]
+    kh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in ks]
+    vh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in vs]
+    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L],
+                               is_causal=True), iters)
+    lib_err = (sdpa(qh[0], kh[0], vh[0], is_causal=True).transpose(1, 2)
+               .float() - fa_ops.flash_attention(qs[0], ks[0], vs[0])
+               .float()).abs().max().item()
+    nbytes = B * S * D * es * (2 * Hq + 2 * Hkv)
+    ops = 4 * D * Hq * B * attended_pairs(S, True, 0)
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by,
+                nbytes=nbytes, ops=ops)
+
+
+def time_decode(B, S, Hq, Hkv, D, lens, L, gen, iters) -> dict:
+    """The dense decode kernel at one served launch (bf16, every row at
+    one shared position, as the dense path's cache is) beside its bound,
+    the plain version and ``scaled_dot_product_attention`` of the 1-token
+    query against the live K/V repeated to Hq (made outside the timing)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = torch.bfloat16
+    es = torch.empty((), dtype=dtype).element_size()
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    pos = torch.tensor(lens[0] - 1, dtype=torch.int32, device=DEVICE)
+    qs = [_rand(gen, (B, 1, Hq, D), dtype) for _ in range(L)]
+    kc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    vc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
+    ker = timed(lambda i: da_ops.decode_attention(
+        qs[i % L], kc[i % L], vc[i % L], pos), iters, "dense_decode")
+    plain = timed(lambda i: decode_attention_ref(
+        qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], ln,
+        scale=D ** -0.5), max(L, iters // 10))
+    n = lens[0]
+    qh = [t.transpose(1, 2).contiguous() for t in qs]
+    kh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+          .contiguous() for t in kc]
+    vh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+          .contiguous() for t in vc]
+    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L]), iters)
+    lib_err = (sdpa(qh[0], kh[0], vh[0]).transpose(1, 2).float()
+               - da_ops.decode_attention(qs[0], kc[0], vc[0], pos)
+               .float()).abs().max().item()
+    live = int(sum(lens))
+    nbytes = live * Hkv * D * 2 * es + 2 * B * Hq * D * es + B * 4
+    ops = 4 * Hq * D * live
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, ops=ops)
+
+
+def phase_dense_kernels_vs_plain() -> dict:
+    """Both dense kernels against their plain versions on every case (f32
+    and bf16), then timed at every served launch shape (bf16; 28 sets of
+    inputs cycled so each launch reads from device memory, as a step
+    does)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.kernel import split_plan
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    L = get_config("qwen3-0.6b").num_layers
 
     # flash prefill: correctness
     errs, worst = [], 0.0
@@ -671,42 +782,9 @@ def phase_dense_kernels_vs_plain() -> dict:
                                 window=window, softcap=cap).transpose(1, 2)
             torch.cuda.synchronize()
             worst = max(worst, _check_close(name, dt, got, ref, errs))
-    # flash prefill: timing at the main path's shapes
-    _, (B, S, Hq, Hkv, D), _, _, _ = FLASH_CASES[0]
-    gen = torch.Generator(device=DEVICE).manual_seed(99)
-    qs = [_rand(gen, (B, S, Hq, D), dtype) for _ in range(L)]
-    ks = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    vs = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    ker = timed(lambda i: fa_ops.flash_attention(
-        qs[i % L], ks[i % L], vs[i % L]), 20 * L, "flash_fwd_kernel")
-    plain = timed(lambda i: attention_ref(
-        qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
-        vs[i % L].transpose(1, 2), scale=D ** -0.5), 2 * L)
-    # the yardstick: one library call on [B, Hq, S, D] with K/V repeated
-    # to the query heads (made outside the timing)
-    G = Hq // Hkv
-    qh = [t.transpose(1, 2).contiguous() for t in qs]
-    kh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in ks]
-    vh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in vs]
-    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L],
-                               is_causal=True), 20 * L)
-    lib_err = (sdpa(qh[0], kh[0], vh[0], is_causal=True).transpose(1, 2)
-               .float() - fa_ops.flash_attention(qs[0], ks[0], vs[0])
-               .float()).abs().max().item()
-    nbytes = B * S * D * es * (2 * Hq + 2 * Hkv)
-    ops = 4 * D * Hq * B * attended_pairs(S, True, 0)
-    bound_ms, bound_by = bound(nbytes, ops, dtype)
-    out["flash_attention_fwd"] = dict(
-        max_abs_err=worst, ms=ker["ms"], plain_ms=plain["ms"],
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib["ms"])
     print(f"phase 5 flash kernel vs plain: {len(errs)} cases ok, max abs "
-          f"err {worst:.3g} [{' '.join(errs)}]; main shapes bf16 (B={B}, "
-          f"S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, causal), device time: kernel "
-          f"{_us(ker)}, plain {_us(plain)}, sdpa {_us(lib)} (|sdpa - "
-          f"kernel| {lib_err:.2g}), "
-          f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.2f} "
-          f"MB, {ops / 1e9:.3f} GFLOP)")
-    del qs, ks, vs, qh, kh, vh
+          f"err {worst:.3g} [{' '.join(errs)}]")
+    flash_err = worst
 
     # dense decode: correctness
     errs, worst = [], 0.0
@@ -730,45 +808,49 @@ def phase_dense_kernels_vs_plain() -> dict:
                 raise AssertionError(f"{name}: a len == 0 row is not zero")
             worst = max(worst, _check_close(name, dt, got[live], ref[live],
                                             errs))
-    # dense decode: timing at the main path's shapes
-    _, (B, S, Hq, Hkv, D, lens), _, _ = DECODE_CASES[0]
-    ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-    # every row at one shared position, as the dense path's cache is
-    pos = torch.tensor(lens[0] - 1, dtype=torch.int32, device=DEVICE)
-    qs = [_rand(gen, (B, 1, Hq, D), dtype) for _ in range(L)]
-    kc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    vc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    ker = timed(lambda i: da_ops.decode_attention(
-        qs[i % L], kc[i % L], vc[i % L], pos), 20 * L, "dense_decode_kernel")
-    plain = timed(lambda i: decode_attention_ref(
-        qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], ln,
-        scale=D ** -0.5), 2 * L)
-    # the yardstick: one library call, the 1-token query against the live
-    # K/V (every row has the same length here), heads repeated to Hq
-    n = lens[0]
-    qh = [t.transpose(1, 2).contiguous() for t in qs]
-    kh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-          .contiguous() for t in kc]
-    vh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-          .contiguous() for t in vc]
-    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L]), 20 * L)
-    lib_err = (sdpa(qh[0], kh[0], vh[0]).transpose(1, 2).float()
-               - da_ops.decode_attention(qs[0], kc[0], vc[0], pos)
-               .float()).abs().max().item()
-    live = int(sum(lens))
-    nbytes = live * Hkv * D * 2 * es + 2 * B * Hq * D * es + B * 4
-    ops = 4 * Hq * D * live
-    bound_ms, bound_by = bound(nbytes, ops, dtype)
-    out["decode_attention_fwd"] = dict(
-        max_abs_err=worst, ms=ker["ms"], plain_ms=plain["ms"],
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib["ms"])
     print(f"phase 5 decode kernel vs plain: {len(errs)} cases ok, max abs "
-          f"err {worst:.3g} [{' '.join(errs)}]; main shapes bf16 (B={B}, "
-          f"S={S}, Hq={Hq}, Hkv={Hkv}, D={D}, lens={n}), device time: "
-          f"kernel {_us(ker)}, plain {_us(plain)}, sdpa {_us(lib)} (|sdpa - "
-          f"kernel| {lib_err:.2g}), "
-          f"bound {bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.2f} "
-          f"MB)")
+          f"err {worst:.3g} [{' '.join(errs)}]")
+    timing = time_served_shapes(L)
+    cases = {name: shape for name, shape, *_ in DECODE_CASES}
+    plans = []
+    for path, name in TIMED:
+        B, S, Hq, Hkv, D, _ = cases[name]
+        p = split_plan(S, B, Hkv)
+        plans.append(f"{path} (S {S}, Hkv {Hkv}): {p.splits} splits of "
+                     f"{p.tokens} slots, cluster {p.cluster}, {p.blocks} "
+                     f"blocks")
+    print(f"phase 5 decode split plan: {'; '.join(plans)}")
+    timing["flash_attention_fwd"]["max_abs_err"] = flash_err
+    timing["decode_attention_fwd"]["max_abs_err"] = worst
+    return timing
+
+
+def time_served_shapes(L: int) -> dict:
+    """Both attention kernels timed at every served launch shape (bf16;
+    L sets of inputs cycled so each launch reads from device memory, as a
+    step does), one line each; returns the main shapes' numbers for the
+    JSON line (every key but ``max_abs_err``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(99)
+    out = {}
+    for kernel, cases, fn in (("flash", FLASH_CASES, time_flash),
+                              ("decode", DECODE_CASES, time_decode)):
+        shapes = {name: shape for name, shape, *_ in cases}
+        for n, (path, name) in enumerate(TIMED):
+            shape = shapes[name]
+            t = fn(*shape, L, gen, (20 if n == 0 else 10) * L)
+            extra = (f" causal, {t['nbytes'] / 1e6:.2f} MB, "
+                     f"{t['ops'] / 1e9:.3f} GFLOP" if kernel == "flash" else
+                     f" lens {shape[-1][0]}, {t['nbytes'] / 1e6:.2f} MB")
+            print(_timing_line(f"{kernel} {path}", tuple(shape[:5]), t,
+                               extra))
+            if n == 0:
+                out[f"{kernel}_attention_fwd"] = dict(
+                    ms=t["ker"]["ms"], plain_ms=t["plain"]["ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["lib"]["ms"])
+            del t
+            gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1298,5 +1380,24 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def kernel_times(src: str) -> None:
+    """``--kernel-times [SRC]``: build the kernels and time both attention
+    kernels at every served launch shape (phase 5's timing), taking the
+    ``repro_torch`` package from the ``src`` directory SRC of another
+    checkout (default: this one), so that two versions are timed on one
+    card in one call; prints no JSON."""
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    card = phase_device_and_build()
+    import repro_torch
+    from repro_torch.configs import get_config
+    print(f"kernel times of {Path(repro_torch.__file__).parent}")
+    time_served_shapes(get_config("qwen3-0.6b").num_layers)
+    print(card)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--kernel-times"]:
+        kernel_times(sys.argv[2] if len(sys.argv) > 2 else "")
+    else:
+        main()

@@ -11,82 +11,118 @@
 //
 // Bound: memory.  A call must read the live K and V rows, sum_b lens[b]
 // * Hkv * D * 2 * sizeof(T) bytes, and does about 4 * Hq * D flops per
-// live token, far below the card's flops-per-byte ridge.  The design
-// reads each live row once: one thread block per (kv head, row) serves
-// all G = Hq / Hkv query heads of that kv head (the Pallas grid (B, Hq,
-// chunks) fetches every chunk G times), and walks the cache in chunks of
-// kChunk tokens up to lens[b], skipping chunks wholly below the window.
-// The cache is not padded to the chunk: the last chunk's rows past S
-// are zero-filled in shared memory and never read (the JAX wrapper pads
-// the whole cache with jnp.pad, a copy per layer per step).  The block
-// body is attn::decode_block (include/attention_common.cuh), shared with
-// the paged kernel.  Like it, this first version leaves most of the card
-// idle at serving shapes (B * Hkv blocks, chunks walked in turn); a split
-// over the cache with a log-sum-exp merge is the known next step.
+// live token, far below the card's flops-per-byte ridge.  At qwen3-0.6b's
+// decode (B 8, S 161, lens 145, Hkv 8, D 128, bf16) that is 4.82 MB with
+// q and the output: 1.44 us at 3.35 TB/s (chip_smoke.py phase 5 prints
+// it per served shape).  So the design reads each live row once and puts
+// enough blocks and bytes in flight to fill the card.
+//
+// Design.  The Pallas grid (B, Hq, chunks) walks one row's chunks in
+// order on one core for each query head.  Here one thread-block cluster
+// per (kv head, row) splits the row's S token slots over ``splits``
+// blocks (grid (splits, Hkv, B), cluster dims (splits, 1, 1), launched
+// with cudaLaunchKernelEx); splits = min(8, ceil(S / 32)) comes from the
+// wrapper and depends on S alone, because reading lens back to the host
+// would cost a sync per layer.  That is 8 * 8 * 6 = 384 blocks for qwen3
+// (S 161), 192 for qwen3-moe (Hkv 4) and 1,536 for zamba2 (Hkv 32),
+// where one block per (kv head, row) gave 64, 32 and 256.  Each block
+// reads its tokens' K and V rows straight from device memory with 16-byte
+// loads into registers (no staging in shared memory) and computes the
+// fp32 partial (m, l, acc[G, D]) for all G query heads of its kv head, so
+// every K/V byte is read once; the cluster merges the partials through
+// distributed shared memory with a log-sum-exp rescale, each block
+// writes its slice of the [G, D] output, and a last cluster barrier keeps
+// each block's shared memory alive until its peers have read it.  Still
+// one launch per call, with no scratch in device memory.  The cache is
+// not padded (the JAX wrapper pads it with jnp.pad, a copy per layer per
+// step).  The body is attn::decode_split (include/attention_common.cuh),
+// which takes any token layout, so the paged kernel can move onto it.
 //
 // C interface (bound with ctypes): decode_attention_fwd returns the
 // cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16.  The
-// pointers must be 16-byte aligned, D a multiple of 8 and lens[b] <= S
-// (the wrapper checks what it can without reading lens back).
+// pointers must be 16-byte aligned, D a multiple of 8, D <= 256, lens[b]
+// <= S and 1 <= splits <= 8 (the wrapper checks what it can without
+// reading lens back).
 #include "attention_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kChunk = 64;  // kernel.py CHUNK mirrors it
 
-// where row b's tokens lie: chunk c is tokens [c * chunk, (c + 1) * chunk)
-// of the row, of which the ones below S exist
-struct DenseSrc {
-  size_t row0;  // element offset of (b, 0, h, 0)
-  int S, chunk, Hkv, D;
-  __device__ int count(int len) const {
-    return (min(max(len, 0), S) + chunk - 1) / chunk;
-  }
-  __device__ size_t base(int c) const {
-    return row0 + (size_t)c * chunk * Hkv * D;
-  }
-  __device__ int rows(int c) const { return min(chunk, S - c * chunk); }
+// a row's tokens lie tok_stride elements apart from (b, 0, h, 0)
+struct DenseTokens {
+  size_t row0;
+  size_t tok_stride;
+  __device__ size_t at(int t) const { return row0 + (size_t)t * tok_stride; }
 };
 
-template <typename T>
+template <typename T, int GT, int CPT>
 __global__ void __launch_bounds__(kThreads)
-dense_decode_kernel(const T* __restrict__ q,       // [B, Hq, D]
-                    const T* __restrict__ k,       // [B, S, Hkv, D]
-                    const T* __restrict__ v,       // [B, S, Hkv, D]
-                    const int* __restrict__ lens,  // [B]
-                    T* __restrict__ out,           // [B, Hq, D]
-                    int S, int Hkv, int G, int D, float scale, int window,
-                    float softcap) {
-  const int h = blockIdx.x;  // kv head
-  const int b = blockIdx.y;  // row
+dense_decode_split_kernel(const T* __restrict__ q,       // [B, Hq, D]
+                          const T* __restrict__ k,       // [B, S, Hkv, D]
+                          const T* __restrict__ v,       // [B, S, Hkv, D]
+                          const int* __restrict__ lens,  // [B]
+                          T* __restrict__ out,           // [B, Hq, D]
+                          int S, int Hkv, int G, int D, float scale,
+                          int window, float softcap) {
+  const int h = blockIdx.y;  // kv head
+  const int b = blockIdx.z;  // row
   // the G query heads of kv head h are contiguous: heads h*G .. h*G+G-1
-  const size_t head0 = (size_t)b * Hkv * G + (size_t)h * G;
-  const DenseSrc src{((size_t)b * S * Hkv + h) * D, S, kChunk, Hkv, D};
-  attn::decode_block<T, kThreads>(q + head0 * D, k, v, src, (size_t)Hkv * D,
-                                  out + head0 * D, lens[b], G, D, scale,
-                                  window, softcap);
+  const size_t head0 = ((size_t)b * Hkv + h) * G;
+  const DenseTokens src{((size_t)b * S * Hkv + h) * D, (size_t)Hkv * D};
+  attn::decode_split<T, GT, CPT>(q + head0 * D, k, v, src, out + head0 * D,
+                                 lens + b, S, G, D, scale, window, softcap);
 }
 
-template <typename T>
+template <typename T, int GT, int CPT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lens, void* out, int B, int S, int Hq,
                    int Hkv, int D, float scale, int window, float softcap,
-                   cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * attn::decode_smem_floats(G, D, kChunk);
-  auto kern = dense_decode_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(Hkv, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lens),
-      static_cast<T*>(out), S, Hkv, G, D, scale, window, softcap);
+                   int splits, cudaStream_t stream) {
+  // at most 41 KB (GT 8, D 256): under the 48 KB a launch may take
+  // without raising the limit
+  const size_t smem = sizeof(float) * attn::split_smem_floats(GT, D);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, dense_decode_split_kernel<T, GT, CPT>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(lens), static_cast<T*>(out), S, Hkv, Hq / Hkv,
+      D, scale, window, softcap);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// GT: the heads one block holds at a time (G rounded up to 1, 2, 4 or 8;
+// a larger G takes several passes); CPT: 16-byte chunks per thread (2 only
+// for an fp32 row of more than 32 chunks, D > 128)
+template <typename T, int CPT>
+cudaError_t by_heads(const void* q, const void* k, const void* v,
+                     const void* lens, void* out, int B, int S, int Hq,
+                     int Hkv, int D, float scale, int window, float softcap,
+                     int splits, cudaStream_t st) {
+  const int G = Hq / Hkv;
+  if (G == 1)
+    return launch<T, 1, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
+                             window, softcap, splits, st);
+  if (G == 2)
+    return launch<T, 2, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
+                             window, softcap, splits, st);
+  if (G <= 4)
+    return launch<T, 4, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
+                             window, softcap, splits, st);
+  return launch<T, 8, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
+                           window, softcap, splits, st);
 }
 
 }  // namespace
@@ -95,15 +131,21 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lens,
                                     void* out, int B, int S, int Hq, int Hkv,
                                     int D, float scale, int window,
-                                    float softcap, int dtype, void* stream) {
+                                    float softcap, int splits, int dtype,
+                                    void* stream) {
   if (B == 0) return cudaSuccess;
+  if (D > 256 || splits < 1 || splits > 8) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale, window,
-                         softcap, st);
+  if (dtype == 0) {
+    if (D / 4 > 32)
+      return by_heads<float, 2>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
+                                window, softcap, splits, st);
+    return by_heads<float, 1>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
+                              window, softcap, splits, st);
+  }
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                                 window, softcap, st);
+    return by_heads<__nv_bfloat16, 1>(q, k, v, lens, out, B, S, Hq, Hkv, D,
+                                      scale, window, softcap, splits, st);
   return cudaErrorInvalidValue;
 }
 

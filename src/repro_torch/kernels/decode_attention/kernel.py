@@ -4,10 +4,13 @@
 Replaces ``decode_attention_fwd`` of the JAX package's
 ``kernels/decode_attention/kernel.py`` (the Pallas ``_decode_kernel``).
 The kernel is memory-bound: it must read the live K and V rows,
-``sum_b lens[b] * Hkv * D * 2`` elements, once; one thread block per
-(kv head, row) serves all query heads of the group so each row is read
-once (see the source for the design).  The cache is not padded to the
-kernel's chunk: the kernel masks and zero-fills the ragged last chunk.
+``sum_b lens[b] * Hkv * D * 2`` elements, once.  One thread-block
+cluster per (kv head, row) splits the row's S token slots over
+``split_plan(S).splits`` blocks, each serving all query heads of the
+group so each row is read once, and merges the partials through
+distributed shared memory (see the source for the design).  The plan
+depends on S alone: the wrapper never reads ``lens`` back.  The cache
+is not padded.
 
 The library is compiled with ``nvcc`` on first use and bound with
 ``ctypes``; this module imports nothing CUDA-specific until then.
@@ -17,14 +20,15 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-#: tokens per chunk (``kChunk`` in the source)
-CHUNK = 64
-#: shared memory one block may use on Hopper (bytes)
-MAX_SMEM = 232_448
+#: most blocks in one cluster (the portable cluster size), and the fewest
+#: token slots per split
+MAX_SPLITS = 8
+MIN_SPLIT_TOKENS = 32
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,17 +39,42 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention_fwd.argtypes = (
-        [vp] * 5 + [i32] * 5 + [f32, i32, f32, i32, vp])
+        [vp] * 5 + [i32] * 5 + [f32, i32, f32, i32, i32, vp])
     lib.decode_attention_fwd.restype = i32
     lib.decode_attention_error_string.argtypes = [i32]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
+class SplitPlan(NamedTuple):
+    """How one call splits the cache: ``splits`` blocks per (kv head, row)
+    form one cluster of ``cluster`` blocks, each taking ``tokens``
+    consecutive token slots; ``blocks`` in the grid."""
+    splits: int
+    cluster: int
+    tokens: int
+    blocks: int
+
+
+def split_plan(S: int, B: int = 1, Hkv: int = 1) -> SplitPlan:
+    """The launch's split of S cache slots: ``min(8, ceil(S / 32))`` blocks
+    per (kv head, row), from S alone (``lens`` stays on the device)."""
+    splits = max(1, min(MAX_SPLITS, -(-S // MIN_SPLIT_TOKENS)))
+    return SplitPlan(splits, splits, -(-S // splits), splits * Hkv * B)
+
+
+def head_tile(G: int) -> int:
+    """Query heads one block holds at a time: G rounded up to 1, 2, 4 or
+    8 (a larger G takes several passes)."""
+    return next(t for t in (1, 2, 4, 8) if t >= min(G, 8))
+
+
 def smem_bytes(G: int, D: int) -> int:
-    """Dynamic shared memory of one block: fp32 K and V chunks, q and acc
-    for the G heads, the G x chunk scores and (m, l, alpha)."""
-    return 4 * (2 * CHUNK * D + 2 * G * D + G * CHUNK + 3 * G)
+    """Dynamic shared memory of one block (fp32): the 4 warps' partial
+    (acc, max, sum) for a head tile, then the block's partial, which the
+    cluster reads."""
+    GT = head_tile(G)
+    return 4 * (4 * GT * D + 2 * 4 * GT + GT * D + 2 * GT)
 
 
 def _check(q, k_cache, v_cache, lens):
@@ -82,10 +111,6 @@ def _check(q, k_cache, v_cache, lens):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              f"reads rows with 16-byte loads)")
-    smem = smem_bytes(Hq // Hkv, D)
-    if smem > MAX_SMEM:
-        raise ValueError(f"D={D}, G={Hq // Hkv} needs {smem} bytes of "
-                         f"shared memory (> {MAX_SMEM})")
 
 
 def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
@@ -102,13 +127,15 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, _, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    splits = split_plan(S).splits
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D, float(scale),
-            int(window), float(softcap), _DTYPE_CODES[q.dtype], stream)
+            int(window), float(softcap), splits, _DTYPE_CODES[q.dtype],
+            stream)
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention_fwd launch failed: {msg} "

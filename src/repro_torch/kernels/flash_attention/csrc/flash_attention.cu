@@ -11,32 +11,58 @@
 //
 // Bound: at the serving shapes, memory.  A call reads q, k and v once
 // and writes o once, and does 4 * D flops per (query, key) pair that the
-// masks keep: at S = 128 that is about 40 flops per byte, below the
-// card's ridge (~295 in bf16), so the bytes set the bound; at long S the
-// flops do.  This first version computes in fp32 on the CUDA cores (no
-// tensor cores) and is simple rather than fast.
+// masks keep.  At qwen3-0.6b's prefill (B 8, S 128, Hq 16, Hkv 8, D 128,
+// causal) that is 12.58 MB and 0.541 GFLOP: 3.76 us of bytes at 3.35 TB/s
+// and 0.55 us of bf16 tensor-core flops at 989 TFLOP/s, so the bytes set
+// the bound (chip_smoke.py phase 5 prints it per served shape; the same
+// flops on the CUDA cores in fp32 take at least 8.1 us, which is why the
+// bf16 route runs on the tensor cores).
 //
-// Design.  The Pallas grid (B, Hq, q_blocks, kv_blocks) runs in order on
-// one core and carries (acc, m, l) in VMEM across the kv steps.  On
-// Hopper blocks run in parallel, so the kv loop moves inside the block:
-// one thread block per (q tile of BQ rows, query head, row b), heaviest
-// (last) q tiles first.  The loop runs from the window's lower edge
-// max(0, q_start - window + 1) to the causal edge min(S, q_start + BQ):
-// the Pallas block skip (kernel.py:71-82) written as loop bounds.  Q and
-// each K tile are staged in shared memory as fp32, transposed ([D][rows
-// + 1], conflict-free column reads), V as [BK][D]; the BQ x BK score tile
-// and the BQ x D accumulator live in registers, 16 x 16 threads each
-// owning BQ/16 rows and strided columns; a row's max and sum reduce over
-// the 16 lanes that own it.  The kernel reads [B, S, H, D] (the model's
-// layout) or [B, H, S, D] through its strides and masks the ragged tail
-// itself, so the wrapper neither transposes nor pads (the JAX wrapper
-// does both, for the TPU's tiling).  Tensor cores (wgmma), TMA and a
-// pipelined K/V ring are the known next steps.
+// Two routes, one per dtype, with the same grid: one thread block per (q
+// tile, query head, row b), heaviest (last) q tiles first.  The Pallas
+// grid (B, Hq, q_blocks, kv_blocks) runs in order on one core and carries
+// (acc, m, l) in VMEM across the kv steps; on Hopper blocks run in
+// parallel, so the kv loop moves inside the block.  The loop runs from
+// the window's lower edge max(0, q_start - window + 1) to the causal edge
+// min(S, q_start + rows): the Pallas block skip (kernel.py:71-82) written
+// as loop bounds.  Both read [B, S, H, D] (the model's layout) or [B, H,
+// S, D] through their strides and mask the ragged tail themselves, so the
+// wrapper neither transposes nor pads (the JAX wrapper does both, for the
+// TPU's tiling).
+//
+// bf16: tensor cores (flash_fwd_wgmma_kernel).  One warpgroup (128
+// threads) per 64-row q tile.  Q is copied once into shared memory; K and
+// V tiles of 64 keys go through a two-stage ring filled with cp.async, so
+// the next tile's copy runs under this tile's products.  Every tile is
+// stored as 128-byte swizzled panels of 64 columns ([rows][64] bf16, the
+// 16-byte chunk c of row r at chunk c ^ (r % 8)), the layout wgmma's
+// 128B-swizzle descriptors read without bank conflicts; a D that is a
+// multiple of 8 but not of 16 is zero-filled to 16, and keys past S are
+// zero-filled.  S = Q K^T is wgmma m64n64k16 with both operands from
+// shared memory, K-major ([keys][D] is already K-major for B).  Scale,
+// softcap and the masks are applied to the fp32 accumulator fragment,
+// then the online softmax: a row's max reduces over the 4 lanes that hold
+// it, its sum stays per lane until the end.  P is rounded to bf16 in
+// registers, where the accumulator fragment of S is already the A
+// fragment of O += P V (m64n64k16 per 64-column panel of V), and V is
+// read as B through the descriptor's transpose bit, since it is stored
+// [keys][D].  O accumulates in fp32 registers and is divided by max(l,
+// 1e-30) at the end.  One deliberate difference: the Pallas kernel
+// multiplies an fp32 P by V; this route rounds P to bf16 first (held to
+// the bf16 tolerance, 2e-2).
+//
+// f32: CUDA cores (flash_fwd_kernel), kept so the f32 route stays within
+// 2e-5 of the plain version (TF32 would not).  Q and each K tile are
+// staged in shared memory as fp32, transposed ([D][rows + 1]), V as
+// [BK][D]; the BQ x BK score tile and the BQ x D accumulator live in
+// registers, 16 x 16 threads each owning BQ/16 rows and strided columns.
 //
 // C interface (bound with ctypes): flash_attention_fwd returns the
 // cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16.  Strides
 // are in elements; the last dim is contiguous, rows 16-byte aligned and
 // D a multiple of 8, D <= 256 (the wrapper checks all of it).
+#include <cstdint>
+
 #include "attention_common.cuh"
 
 namespace {
@@ -247,8 +273,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// D <= 128: 64-row q tiles against 32-key tiles (75 KB of shared memory at
-// D = 128, so three blocks fit on an SM); D <= 256: 32 x 32 tiles
+// f32, D <= 128: 64-row q tiles against 32-key tiles (75 KB of shared
+// memory at D = 128, so three blocks fit on an SM); D <= 256: 32 x 32
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      const Strides& qs, const Strides& ks, const Strides& vs,
@@ -261,6 +287,344 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   return launch<T, 32, 32, 256>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv,
                                 D, scale, causal, window, softcap, st);
 }
+
+
+// --- bf16: the tensor-core route ---------------------------------------------
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;              // q rows per block (wgmma M)
+constexpr int kKeys = 64;              // keys per K/V tile (wgmma N of S)
+constexpr int kThreads = 128;          // one warpgroup
+constexpr int kPanelBytes = 64 * 128;  // 64 rows of one 128-byte panel
+
+// dynamic shared memory for head dim D: 1024 bytes of slack to align the
+// swizzle atoms, then Q and two stages of (K, V), each ceil(D / 64) panels
+__host__ __device__ inline size_t smem_bytes(int D) {
+  return 1024 + (size_t)5 * ((D + 63) / 64) * kPanelBytes;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of swizzled panels
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * kPanelBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rows [r0, r0 + 64) of an [S, D] slice (row stride ld) into the swizzled
+// panels at dst; rows >= S and columns in [D, D16) are zero-filled
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long ld, int r0, int S, int D,
+                                          int D16) {
+  const int nc = D16 / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kRows * nc; i += kThreads) {
+    const int r = i / nc;
+    const int c = i - r * nc;
+    const bool ok = r0 + r < S && c * 8 < D;
+    cp_async16(dst + swizzled(r, c),
+               ok ? src + (long long)(r0 + r) * ld + c * 8 : src, ok);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of d across the async window
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, m64n64k16, A in registers, B MN-major in shared memory
+// (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// NP panels of 64 columns: D <= 64 * NP
+template <int NP>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ out,
+                       Strides qs, Strides ks, Strides vs, Strides os, int S,
+                       int G, int D, float scale, int causal, int window,
+                       float softcap) {
+  constexpr uint32_t kTile = NP * kPanelBytes;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * kRows;
+  const int h = blockIdx.y;  // query head
+  const int b = blockIdx.z;  // row
+  const int hk = h / G;      // its kv head
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int D16 = (D + 15) & ~15;
+  const int ksteps = D16 / 16;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  // stage s holds K at q_s + kTile (1 + 2 s) and V at q_s + kTile (2 + 2 s)
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  const int k_lo = window > 0 ? max(0, q_start - window + 1) : 0;
+  const int k_hi = causal ? min(S, q_start + kRows) : S;
+  const int n_tiles = (k_hi - k_lo + kKeys - 1) / kKeys;  // >= 1
+
+  // groups 0 (Q and tile 0) and 1 (tile 1, or empty) in flight
+  load_tile(q_s, qb, qs.s, q_start, S, D, D16);
+  load_tile(q_s + kTile, kb, ks.s, k_lo, S, D, D16);
+  load_tile(q_s + 2 * kTile, vb, vs.s, k_lo, S, D, D16);
+  cp_async_commit();
+  if (n_tiles > 1) {
+    load_tile(q_s + 3 * kTile, kb, ks.s, k_lo + kKeys, S, D, D16);
+    load_tile(q_s + 4 * kTile, vb, vs.s, k_lo + kKeys, S, D, D16);
+  }
+  cp_async_commit();
+
+  // the accumulator fragment: this thread holds rows r0 and r0 + 8 of the
+  // tile (d[4i], d[4i+1] and d[4i+2], d[4i+3]) at columns 8i + 2(lane % 4)
+  // and the next one
+  const int r0 = q_start + warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float o[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.f;
+  float m[2] = {attn::kNegInf, attn::kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_lo + t * kKeys;
+    const uint32_t k_s = q_s + kTile * (1 + 2 * (t & 1));
+    const uint32_t v_s = k_s + kTile;
+    cp_async_wait_1();  // tile t has landed (tile t + 1 may be in flight)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S = Q K^T over D16 / 16 steps of 16 columns
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    pin(s);
+    wgmma_fence();
+    for (int kk = 0; kk < ksteps; ++kk) {
+      const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+      wgmma_ss(s, desc(q_s + off, 16, 1024), desc(k_s + off, 16, 1024),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
+    // scale, softcap, mask; the new row max over the 4 lanes of a row
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = r0 + ((i >> 1) & 1) * 8;
+      const int key = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      float x = s[i] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      bool ok = key < S;
+      if (causal) ok = ok && key <= row;
+      if (window > 0) ok = ok && key > row - window;
+      x = ok ? x : attn::kNegInf;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f((m[r] - mx[r]) * kLog2e);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f((s[i] - mx[r]) * kLog2e);
+      l[r] += s[i];
+    }
+    // the S fragment of keys 16 kk .. 16 kk + 15 is the A fragment of
+    // step kk of P V
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+
+    // O = O * alpha + P V, one 64-column panel of V at a time
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i >> 1) & 1];
+      pin(o[p]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o[p], pa[kk],
+                 desc(v_s + p * kPanelBytes + kk * 2048, 1024, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) pin(o[p]);
+
+    __syncthreads();  // every warp is done reading this stage
+    if (t + 2 < n_tiles) {
+      load_tile(k_s, kb, ks.s, k0 + 2 * kKeys, S, D, D16);
+      load_tile(v_s, vb, vs.s, k0 + 2 * kKeys, S, D, D16);
+    }
+    cp_async_commit();
+  }
+
+  bf16* ob = out + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = r0 + ((i >> 1) & 1) * 8;
+      const int col = p * 64 + 8 * (i >> 2) + c0;
+      if (row < S && col < D)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row * os.s + col) =
+            __floats2bfloat162_rn(o[p][i] * l[(i >> 1) & 1],
+                                  o[p][i + 1] * l[(i >> 1) & 1]);
+    }
+}
+
+template <int NP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const Strides& qs, const Strides& ks, const Strides& vs,
+                   const Strides& os, int B, int S, int Hq, int Hkv, int D,
+                   float scale, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(D);
+  auto kern = flash_fwd_wgmma_kernel<NP>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((S + kRows - 1) / kRows, Hq, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), qs, ks, vs, os,
+      S, Hq / Hkv, D, scale, causal, window, softcap);
+  return cudaGetLastError();
+}
+
+// one instantiation per count of 64-column panels
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+                     const Strides& qs, const Strides& ks, const Strides& vs,
+                     const Strides& os, int B, int S, int Hq, int Hkv, int D,
+                     float scale, int causal, int window, float softcap,
+                     cudaStream_t st) {
+  switch ((D + 63) / 64) {
+    case 1:
+      return launch<1>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
+                       causal, window, softcap, st);
+    case 2:
+      return launch<2>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
+                       causal, window, softcap, st);
+    case 3:
+      return launch<3>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
+                       causal, window, softcap, st);
+    default:
+      return launch<4>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
+                       causal, window, softcap, st);
+  }
+}
+
+}  // namespace wg
 
 }  // namespace
 
@@ -282,8 +646,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return dispatch<float>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D,
                            scale, causal, window, softcap, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, qs, ks, vs, os, B, S, Hq,
-                                   Hkv, D, scale, causal, window, softcap, st);
+    return wg::dispatch(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
+                        causal, window, softcap, st);
   return cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,9 @@
 Replaces ``flash_attention_fwd`` of the JAX package's
 ``kernels/flash_attention/kernel.py`` (the Pallas ``_flash_kernel``).
 At serving shapes the kernel is memory-bound: it must read q, k and v
-and write o once; see the source for the design.  It reads its inputs
+and write o once.  bf16 runs on the tensor cores (``wgmma``, with a
+two-stage cp.async ring of K/V tiles), f32 on the CUDA cores; see the
+source for the design.  It reads its inputs
 through their strides, so a ``[B, S, H, D]`` tensor viewed as
 ``[B, H, S, D]`` is taken as it is, with no copy.
 
@@ -40,16 +42,28 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def tiles(D: int):
+#: bytes of one 128-byte swizzled panel of 64 rows (the bf16 route's
+#: unit of shared memory: 64 bf16 columns of a 64-row tile)
+PANEL_BYTES = 64 * 128
+
+
+def tiles(D: int, dtype: torch.dtype = torch.float32):
     """(q rows, keys) of one block's tile for head dim D (the kernel's
-    dispatch)."""
+    dispatch): 64 x 64 on the bf16 route (wgmma's M and N), 64 x 32 or
+    32 x 32 on the f32 route."""
+    if dtype == torch.bfloat16:
+        return (64, 64)
     return (64, 32) if D <= 128 else (32, 32)
 
 
-def smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one block: fp32 Q and K tiles transposed
-    with one column of padding, the V tile and the probability tile."""
-    BQ, BK = tiles(D)
+def smem_bytes(D: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one block.  bf16: 1 KB to align the
+    swizzle atoms, then the Q tile and two ring stages of K and V tiles,
+    each ceil(D / 64) panels.  f32: Q and K tiles transposed with one
+    column of padding, the V tile and the probability tile."""
+    if dtype == torch.bfloat16:
+        return 1024 + 5 * -(-D // 64) * PANEL_BYTES
+    BQ, BK = tiles(D, dtype)
     return 4 * (D * (BQ + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1))
 
 
@@ -83,9 +97,9 @@ def _check(q, k, v):
                              f"16-byte aligned rows (the kernel reads them "
                              f"with 16-byte loads), got strides "
                              f"{t.stride()}")
-    if smem_bytes(D) > MAX_SMEM:
-        raise ValueError(f"D={D} needs {smem_bytes(D)} bytes of shared "
-                         f"memory (> {MAX_SMEM})")
+    if smem_bytes(D, q.dtype) > MAX_SMEM:
+        raise ValueError(f"D={D} needs {smem_bytes(D, q.dtype)} bytes of "
+                         f"shared memory (> {MAX_SMEM})")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,7 +14,7 @@ from repro.kernels.decode_attention.ref import \
 from repro.models import attention as ja
 from repro_torch.kernels.decode_attention import ops as t_ops
 from repro_torch.kernels.decode_attention.kernel import (
-    CHUNK, decode_attention_fwd, smem_bytes)
+    MAX_SPLITS, decode_attention_fwd, head_tile, smem_bytes, split_plan)
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_ref as t_ref
 from repro_torch.models import attention as ta
@@ -115,11 +115,38 @@ def test_decode_kernel_launcher_rejects_what_it_does_not_take(bad, exc,
 
 
 def test_decode_kernel_shared_memory():
-    """fp32 K and V chunks of 64 tokens, q and acc for the group, scores
-    and (m, l, alpha): 68 KB at the main path's G=2, D=128 (above the
-    48 KB default, so the launcher raises the limit), under 227 KB up to
-    D=256 at G=8."""
-    assert CHUNK == 64
-    assert smem_bytes(2, 128) == 4 * (2 * 64 * 128 + 2 * 2 * 128
-                                      + 2 * 64 + 3 * 2)
-    assert smem_bytes(8, 256) < 232_448
+    """Per block, in fp32: the 4 warps' partial (acc, max, sum) for a head
+    tile of 1, 2, 4 or 8 heads, then the block's partial, which the
+    cluster reads.  K and V are never staged in shared memory, so the main
+    path's G=2, D=128 takes 5.2 KB and the largest (G >= 5, D=256) 40.3
+    KB, under the 48 KB default in every case."""
+    assert [head_tile(g) for g in (1, 2, 3, 4, 5, 8, 16)] == \
+        [1, 2, 4, 4, 8, 8, 8]
+    assert smem_bytes(2, 128) == 4 * (4 * 2 * 128 + 2 * 4 * 2 + 2 * 128
+                                      + 2 * 2) == 5200
+    assert smem_bytes(16, 256) == smem_bytes(8, 256) == 41_280
+    assert max(smem_bytes(g, d) for g in range(1, 17)
+               for d in range(8, 257, 8)) < 48 * 1024
+
+
+@pytest.mark.parametrize("S,splits,tokens", [
+    (1, 1, 1), (32, 1, 32), (33, 2, 17), (64, 2, 32), (161, 6, 27),
+    (256, 8, 32), (1100, 8, 138), (4096, 8, 512)])
+def test_decode_split_plan_depends_only_on_S(S, splits, tokens):
+    """``min(8, ceil(S / 32))`` blocks per (kv head, row), one cluster of
+    as many blocks, each over ceil(S / splits) slots: the same for any B,
+    Hkv or G, since the launcher never reads ``lens`` back."""
+    plans = {split_plan(S, B, Hkv)[:3] for B in (1, 3, 8) for Hkv in (1, 4)}
+    assert plans == {(splits, splits, tokens)}
+    assert 1 <= splits <= MAX_SPLITS
+    assert splits * tokens >= S > (splits - 1) * tokens
+
+
+def test_decode_split_plan_fills_the_card_at_the_served_shapes():
+    """At least one block per SM (132 on an H100) at the dense paths'
+    decode: qwen3 (B 8, Hkv 8) 384, qwen3-moe (Hkv 4, G 8) 192, zamba2's
+    shared attention (Hkv 32) 1,536, all with a 161-slot cache."""
+    blocks = {name: split_plan(161, 8, hkv).blocks for name, hkv in
+              (("qwen3", 8), ("qwen3-moe", 4), ("zamba2", 32))}
+    assert blocks == {"qwen3": 384, "qwen3-moe": 192, "zamba2": 1536}
+    assert min(blocks.values()) >= 132

@@ -111,10 +111,21 @@ def test_flash_kernel_launcher_rejects_what_it_does_not_take(bad, exc,
 
 
 def test_flash_kernel_shared_memory():
-    """fp32 Q and K tiles transposed with a padding column, the V tile and
-    the probability tile: 64 x 32 tiles at D <= 128 (75 KB at D = 128,
-    three blocks per SM), 32 x 32 above, always under the 227 KB limit."""
+    """bf16 (the wgmma route): 64 x 64 tiles, 1 KB to align the 128-byte
+    swizzle atoms, then Q and two ring stages of K and V, each ceil(D/64)
+    panels of 64 rows x 128 bytes: 81 KB at D = 128 (two blocks per SM),
+    161 KB at D = 256.  f32 (CUDA cores): Q and K tiles transposed with a
+    padding column, the V tile and the probability tile, 64 x 32 tiles at
+    D <= 128 (75 KB at D = 128, three blocks per SM), 32 x 32 above.
+    Always under the 227 KB limit."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert tiles(128, bf16) == tiles(256, bf16) == (64, 64)
+    assert smem_bytes(128, bf16) == 1024 + 5 * 2 * 64 * 128 == 82_944
+    assert smem_bytes(80, bf16) == smem_bytes(128, bf16)
+    assert smem_bytes(40, bf16) == 1024 + 5 * 64 * 128
+    assert 2 * smem_bytes(128, bf16) < 228 * 1024
+    assert smem_bytes(256, bf16) == 1024 + 5 * 4 * 64 * 128 < 232_448
     assert tiles(128) == (64, 32) and tiles(256) == (32, 32)
     assert smem_bytes(128) == 4 * (128 * 65 + 128 * 33 + 32 * 128 + 64 * 33)
-    assert 3 * smem_bytes(128) < 228 * 1024
+    assert 3 * smem_bytes(128, f32) < 228 * 1024
     assert smem_bytes(256) < 232_448

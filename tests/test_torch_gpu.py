@@ -66,8 +66,11 @@ PAGED_CASES = [
 
 
 #: (B, S, Hq, Hkv, D, causal, window, softcap): GQA with G in {1, 2, 4, 8},
-#: S not a multiple of the kernel's tiles (64 x 32 rows x keys), window,
-#: softcap, non-causal, and the D > 128 tiling
+#: S not a multiple of the kernels' tiles (64 x 64 rows x keys in bf16,
+#: 64 x 32 in f32), window, softcap, non-causal, the D > 128 tiling, S
+#: over five K/V tiles (the bf16 ring of two stages wraps), a window that
+#: starts the kv loop past key 0, and a D that is a multiple of 8 but not
+#: of 16
 FLASH_CASES = [
     (2, 80, 4, 4, 16, True, 0, 0.0),      # G=1, ragged S
     (2, 96, 4, 2, 32, True, 0, 0.0),      # G=2, S = 1.5 q tiles
@@ -78,10 +81,17 @@ FLASH_CASES = [
     (1, 40, 2, 1, 256, False, 0, 0.0),    # non-causal, D=256 (32 x 32)
     (1, 128, 32, 32, 80, True, 0, 0.0),   # zamba2's shared attention
     (2, 128, 32, 4, 128, True, 0, 0.0),   # qwen3-moe's heads, G=8
+    (1, 320, 4, 2, 64, True, 0, 0.0),     # 5 K/V tiles, causal
+    (1, 320, 4, 2, 32, False, 0, 0.0),    # 5 K/V tiles, non-causal
+    (1, 320, 2, 1, 32, True, 100, 20.0),  # window: loop starts mid-row
+    (2, 100, 4, 2, 40, True, 0, 0.0),     # D=40, zero-filled to 48
 ]
 
 #: (B, S, Hq, Hkv, D, lens, window, softcap): lens include 1 and S, S not
-#: a multiple of the kernel's 64-token chunk, G in {1, 2, 4, 8}
+#: a multiple of the kernel's split (min(8, ceil(S / 32)) blocks of
+#: ceil(S / splits) slots), G in {1, 2, 4, 8}, 8 splits of several passes
+#: each, a row whose tokens leave most splits empty, a window that skips
+#: whole splits
 DECODE_CASES = [
     (2, 64, 4, 4, 16, [1, 64], 0, 0.0),             # G=1, len 1 and S
     (2, 96, 8, 4, 32, [96, 40], 0, 0.0),            # G=2, ragged chunk
@@ -93,6 +103,10 @@ DECODE_CASES = [
     (2, 161, 32, 32, 80, [145, 161], 0, 0.0),       # zamba2's shared attn
     (8, 161, 32, 4, 128, [161, 160, 151, 140, 129, 97, 64, 1], 0,
      0.0),                                          # qwen3-moe's, G=8
+    (2, 1100, 4, 2, 32, [1100, 731], 0, 0.0),       # 8 splits of 138
+    (3, 200, 4, 2, 32, [3, 200, 150], 0, 0.0),      # len 3: 6 of 7 empty
+    (2, 600, 4, 2, 32, [600, 407], 64, 0.0),        # window skips splits
+    (2, 161, 8, 1, 64, [145, 161], 0, 0.0),         # G=8 at D=64
 ]
 
 def flash_case(B, S, Hq, Hkv, D, seed=0):
