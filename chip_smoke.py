@@ -9,13 +9,18 @@ and any failure exits non-zero:
 
 1. device and build: the hand-written CUDA kernels are compiled from the
    checkout's sources with ``nvcc`` into ``build/kernels/``;
-2. kernel vs plain: the paged-decode kernel against its plain PyTorch
-   version on the card (f32 atol/rtol 2e-5, bf16 2e-2), then timed at
-   the main path's shapes beside its bound, the plain version and
-   ``scaled_dot_product_attention`` on the gathered K/V: device time
-   from ``torch.profiler`` (the kernels' own time; the JSON line's
-   numbers) and time per call between CUDA events (which also holds the
-   host's time to issue each call where that is longer);
+2. kernel vs plain: the paged-decode kernel (each row's attended range
+   split over a thread-block cluster) against its plain PyTorch version
+   on the card on every case (f32 atol/rtol 2e-5, bf16 2e-2, a len == 0
+   row exactly zero), then timed at both paged paths' launches (qwen3-0.6b,
+   G = 2, and qwen3-moe-30b-a3b, G = 8), and at G = 8 with every row at
+   128 and at 129 tokens (either side of the split's pass boundary),
+   beside its bound, the plain version and
+   ``scaled_dot_product_attention`` on the gathered K/V:
+   device time from ``torch.profiler`` (the kernels' own time; the JSON
+   line's numbers are the qwen3 launch's) and time per call between CUDA
+   events (which also holds the host's time to issue each call where that
+   is longer);
 3. the main path: ``repro_torch.launch.serve.main`` serves 8 requests
    with the full-width, full-depth qwen3-0.6b (bf16, random weights from
    a seed); every request must complete and the kernel must have been
@@ -41,18 +46,22 @@ and any failure exits non-zero:
    tokens equal, logits within ``PARITY_ATOL``;
 8. the SSD-scan kernel vs plain: the Mamba2 chunked-scan kernel against
    its plain PyTorch version on the card, y and the final state (f32
-   1e-4, bf16 5e-2), then timed at both SSM main paths' shapes beside
-   its bound and the plain version (no single PyTorch call computes the
-   scan, so there is no library time);
+   1e-4, bf16 5e-2), with each bf16 case's max error against the plain
+   version in f32; both served launches must take the tensor-core route
+   (``kernel.py::route``); then timed at both SSM main paths' shapes
+   beside its bound and the plain version (no single PyTorch call
+   computes the scan, so there is no library time);
 9. the SSM main path: ``repro_torch.launch.serve.main`` with
    ``--arch mamba2-780m --backend dense`` serves 8 requests of 192-384
    prompt tokens with the full-width, full-depth model; the SSD kernel
    must have been launched once per layer per prefill call and no
-   attention kernel at all;
+   attention kernel at all; then a decode step and a served prefill
+   (8 x 384 tokens) are profiled (device busy, the SSD kernel's share,
+   kernels per call);
 10. the hybrid main path: the same with zamba2-2.7b (phase 6's load);
     the SSD kernel once per mamba layer per prefill call, the flash and
     dense-decode kernels once per application of the shared attention
-    per prefill call and decode step;
+    per prefill call and decode step; the same profiles (8 x 128);
 11. card vs CPU on the SSM and hybrid paths in f32: mamba2-780m at full
     width and depth and zamba2-2.7b at full width and 12 of its 54
     layers, a ``prefill`` of 2 rows x 160 tokens and 4 ``decode_step``s;
@@ -88,10 +97,18 @@ JSON status line.
 
     python3 chip_smoke.py --kernel-times [SRC]
 
-builds the kernels and runs phase 5's timing alone, with the
-``repro_torch`` package of the checkout whose ``src`` directory is SRC
-(another commit unpacked with ``git archive``, say), so that two versions
-of the attention kernels are timed on one card in one call.
+builds the kernels and runs the timing of phases 2, 5 and 8 alone (the
+paged kernel at G = 2 and 8, flash and dense decode at every served
+shape, the SSD scan at both SSM launches), with the ``repro_torch``
+package of the checkout whose ``src`` directory is SRC (another commit
+unpacked with ``git archive``, say), so that two versions of the kernels
+are timed on one card in one call.
+
+    python3 chip_smoke.py --prefill-profiles [SRC]
+
+builds the kernels and profiles one served prefill of mamba2-780m and of
+zamba2-2.7b (phases 9 and 10's prefill profiles) with the package of SRC
+in the same way.
 """
 from __future__ import annotations
 
@@ -201,7 +218,21 @@ CASES = [
     ("zero-len-row", (3, 16, 16, 16, 8, 128, [0, 7, 40]), 0, 0.0),
     ("qwen3-moe-g8", (8, 177, 16, 32, 4, 128,
                       [161, 160, 151, 140, 129, 97, 64, 17]), 0, 0.0),
+    ("full-table", (1, 20, 16, 16, 8, 128, [304]), 0, 0.0),
+    ("window64-g8", (2, 177, 16, 32, 4, 128, [161, 100]), 64, 0.0),
+    ("len1-main", (8, 177, 16, 16, 8, 128, [1] * 8), 0, 0.0),
+    ("table-past-256", (1, 280, 4, 4, 2, 32, [1100]), 0, 0.0),
+    ("g8-rows128", (8, 177, 16, 32, 4, 128, [128] * 8), 0, 0.0),
+    ("g8-rows129", (8, 177, 16, 32, 4, 128, [129] * 8), 0, 0.0),
 ]
+#: the launches phase 2 times: (path, case name, layers).  The first is
+#: the main path's, whose numbers go into the JSON line; the last two are
+#: the qwen3-moe decode-step profile's rows (context 128, then 129 after
+#: a step), on either side of the split's pass boundary: 8 blocks of 16
+#: tokens a pass hold 128 tokens, so a row of 129 takes a second pass
+PAGED_TIMED = [("qwen3", "main", 28), ("qwen3-moe", "qwen3-moe-g8", 48),
+               ("qwen3-moe rows 128", "g8-rows128", 48),
+               ("qwen3-moe rows 129", "g8-rows129", 48)]
 
 
 def _to(arrs, dtype):
@@ -227,15 +258,49 @@ def _cuda_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def _queued_ms(fn, iters: int) -> float:
+    """Device time per call between CUDA events around ``iters`` calls
+    that the host issues while a sleep kernel holds the stream, so that
+    the calls run back to back on the device and the host's time to issue
+    them stays out (a window in which the first event had already passed
+    when the host was done is timed again behind a longer sleep)."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    # clock cycles: four times the synchronised loop's wall time at 2 GHz
+    cycles = int(8e9 * (time.perf_counter() - t0)) + 10**6
+    for _ in range(4):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        for i in range(iters):
+            fn(i)
+        e1.record()
+        held = not e0.query()
+        e1.synchronize()
+        if held:
+            return e0.elapsed_time(e1) / iters
+        cycles *= 4
+    raise AssertionError(f"the host issued {iters} calls slower than a "
+                         f"sleep of {cycles // 4} cycles held the stream")
+
+
 def _device_ms(fn, iters: int, kernel: str = "") -> float:
     """Device time per call: the summed times of the kernels that
     ``iters`` calls of ``fn`` launch (``torch.profiler``; one stream, so
     they do not overlap), over ``iters``.  With ``kernel``, the mean time
     of the kernels whose name holds it (one per call; the profiler may
     drop events, so at least nine tenths of them must be seen, and a
-    window that drops more is profiled again, up to three times).  Unlike
-    ``_cuda_ms`` it leaves out the gaps while the host issues the next
-    call."""
+    window that drops more is profiled again, up to three times; after a
+    third such window the calls are timed by ``_queued_ms`` instead, which
+    also counts any other kernel of a call and the device's gaps between
+    launches).  Unlike ``_cuda_ms`` it leaves out the gaps while the host
+    issues the next call."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
@@ -253,9 +318,12 @@ def _device_ms(fn, iters: int, kernel: str = "") -> float:
             total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
             return total / (len(kernels) if kernel else iters)
         print(f"the profiler saw {len(kernels)} device events named "
-              f"{kernel!r} for {iters} calls; profiling again")
-    raise AssertionError(f"the profiler saw {len(kernels)} device events "
-                         f"named {kernel!r} for {iters} calls, three times")
+              f"{kernel!r} for {iters} calls")
+    ms = _queued_ms(fn, iters)
+    print(f"the profiler dropped device events named {kernel!r} in three "
+          f"windows of {iters} calls: timed on CUDA events behind a sleep "
+          f"kernel instead, {ms * 1e3:.2f} us per call")
+    return ms
 
 
 def timed(fn, iters: int, kernel: str = "") -> dict:
@@ -291,10 +359,11 @@ def paged_bound_ms(q, page, Hkv, lens, dtype):
 
 
 def phase_kernel_vs_plain() -> dict:
-    from repro_torch.configs import get_config
+    """The paged kernel against its plain version on every case (f32 and
+    bf16; a len == 0 row must be exactly zero), then timed at every
+    launch of PAGED_TIMED."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import (gather_pages,
-                                                         paged_attention_ref)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     errs, worst = [], 0.0
     for seed, (name, (B, P, page, Hq, Hkv, D, lens), window, cap) in \
             enumerate(CASES):
@@ -320,20 +389,45 @@ def phase_kernel_vs_plain() -> dict:
             worst = max(worst, err)
             errs.append(f"{name}/{str(dtype)[6:]}={err:.2g}")
 
-    # timing at the main path's shapes, pools of all 28 layers cycled so
-    # each launch reads its pages from device memory as a decode step does
-    _, (B, P, page, Hq, Hkv, D, lens), _, _ = CASES[0]
-    L, dtype = get_config("qwen3-0.6b").num_layers, torch.bfloat16
+    print(f"phase 2 kernel vs plain: {len(errs)} cases ok, max abs err "
+          f"{worst:.3g} [{' '.join(errs)}]")
+    t = time_paged_launches("phase 2")
+    return {"max_abs_err": worst, "ms": t["ker"]["ms"],
+            "plain_ms": t["plain"]["ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["lib"]["ms"]}
+
+
+def time_paged_launches(label: str) -> dict:
+    """The paged kernel timed at every launch of PAGED_TIMED, one line
+    each; returns the main path's timing."""
+    timings = []
+    for path, name, layers in PAGED_TIMED:
+        timings.append(time_paged(name, layers, 20 * layers))
+        print(f"{label} paged {path} {_paged_line(timings[-1])}")
+    return timings[0]
+
+
+def time_paged(name: str, L: int, iters: int) -> dict:
+    """The paged kernel at one served launch (bf16, the case ``name`` of
+    CASES, L layers' pools cycled so each launch reads its pages from
+    device memory as a decode step does) beside its bound, the plain
+    version and ``scaled_dot_product_attention`` on K/V already gathered
+    (the live pages only) and repeated to the query heads."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         paged_attention_ref)
+    cases = {n: shape for n, shape, *_ in CASES}
+    B, P, page, Hq, Hkv, D, lens = cases[name]
+    dtype = torch.bfloat16
     q, kp, vp, table, ln = _to(paged_case(B, P, page, Hq, Hkv, D, lens,
                                           seed=99, L=L), dtype)
     scale = D ** -0.5
+    # "paged_decode" names the kernel of this tree and of earlier ones
     ker = timed(lambda i: pa_ops.paged_attention(
-        q, kp[i % L], vp[i % L], table, ln), 20 * L, "paged_decode_kernel")
+        q, kp[i % L], vp[i % L], table, ln), iters, "paged_decode")
     plain = timed(lambda i: paged_attention_ref(
         q.transpose(1, 2), kp[i % L], vp[i % L], table, ln, scale=scale),
         2 * L)
-    # the yardstick: one library call on K/V already gathered (the live
-    # pages only) and repeated to the query heads
     npg = -(-max(lens) // page)
     S = npg * page
     kd = [gather_pages(kp[i], table[:, :npg]).movedim(2, 1)
@@ -345,21 +439,28 @@ def phase_kernel_vs_plain() -> dict:
     qs = q.transpose(1, 2)                           # [B, Hq, 1, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = timed(lambda i: sdpa(qs, kd[i % L], vd[i % L], attn_mask=mask,
-                               scale=scale), 20 * L)
+                               scale=scale), iters)
     lib_err = (sdpa(qs, kd[0], vd[0], attn_mask=mask, scale=scale)
                .transpose(1, 2).float()
                - pa_ops.paged_attention(q, kp[0], vp[0], table, ln).float()
                ).abs().max().item()
     bound_ms, bound_by = paged_bound_ms(q, page, Hkv, lens, dtype)
-    print(f"phase 2 kernel vs plain: {len(errs)} cases ok, max abs err "
-          f"{worst:.3g} [{' '.join(errs)}]; main shapes bf16 (B={B}, "
-          f"Hq={Hq}, Hkv={Hkv}, D={D}, page={page}, maxp={P - 1}, "
-          f"lens<={max(lens)}), device time: kernel {_us(ker)}, plain "
-          f"{_us(plain)}, sdpa {_us(lib)} (|sdpa - kernel| {lib_err:.2g}), "
-          f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
-    return {"max_abs_err": worst, "ms": ker["ms"], "plain_ms": plain["ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib["ms"]}
+    del kd, vd, kp, vp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by,
+                shape=(B, Hq, Hkv, D, page, P - 1, max(lens)))
+
+
+def _paged_line(t: dict) -> str:
+    B, Hq, Hkv, D, page, maxp, top = t["shape"]
+    return (f"bf16 (B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, page={page}, "
+            f"maxp={maxp}, lens<={top}), device time: kernel {_us(t['ker'])}, "
+            f"plain {_us(t['plain'])}, sdpa {_us(t['lib'])} (|sdpa - kernel| "
+            f"{t['lib_err']:.2g}), bound {t['bound_ms'] * 1e3:.3f} us "
+            f"({t['bound_by']}), {t['bound_ms'] / t['ker']['ms']:.3f} of it "
+            f"reached")
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -479,12 +580,14 @@ def decode_step_profile(be, label: str, batch: int = 8,
 
 
 def profile_steps(label: str, step, batch: int, ctx: int,
-                  steps: int = 5) -> None:
+                  steps: int = 5, unit: str = "step",
+                  share: str = "") -> None:
     """``torch.profiler`` over ``steps`` calls of ``step`` (one decode
-    step returning its logits), each ending in the greedy read-back as
-    in serving; timed first without the profiler and then under it.
-    Device busy time is the sum of the kernels' times (one stream, so
-    they do not overlap)."""
+    step, or one prefill, returning its logits), each ending in the greedy
+    read-back as in serving; timed first without the profiler and then
+    under it.  Device busy time is the sum of the kernels' times (one
+    stream, so they do not overlap).  With ``share``, also the time and
+    share of busy of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -499,7 +602,7 @@ def profile_steps(label: str, step, batch: int, ctx: int,
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"{label}: {1e3 * plain_wall:.2f} ms per step (host clock, "
+        print(f"{label}: {1e3 * plain_wall:.2f} ms per {unit} (host clock, "
               f"batch {batch}); the profiler saw no device time: busy and "
               f"idle share not measured")
         return
@@ -509,14 +612,36 @@ def profile_steps(label: str, step, batch: int, ctx: int,
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    named = ""
+    if share:
+        ms = sum(t for n, t in by_name.items() if share in n)
+        named = (f"; {share!r} kernels {ms:.3f} ms per {unit}, "
+                 f"{ms / (1e3 * busy / steps):.3f} of busy")
     print(f"{label}: batch {batch}, context {ctx}: "
-          f"{1e3 * plain_wall:.2f} ms per step (host clock; "
+          f"{1e3 * plain_wall:.2f} ms per {unit} (host clock; "
           f"{1e3 * wall / steps:.2f} under the profiler), device busy "
-          f"{1e3 * busy / steps:.3f} ms per step ({len(kernels) // steps} "
+          f"{1e3 * busy / steps:.3f} ms per {unit} ({len(kernels) // steps} "
           f"kernels): idle share {1 - busy / steps / plain_wall:.3f} of an "
-          f"unprofiled step, {1 - busy / wall:.3f} of the profiled window; "
-          f"top kernels ms/step: "
+          f"unprofiled {unit}, {1 - busy / wall:.3f} of the profiled "
+          f"window{named}; top kernels ms/{unit}: "
           + "; ".join(f"{n[:100]} {t:.3f}" for n, t in top))
+
+
+def prefill_profile(be, label: str, prompt: int, batch: int = 8,
+                    steps: int = 3) -> None:
+    """Where a dense-cache prefill's time goes: the backend's weights and
+    cache length, ``batch`` rows of ``prompt`` tokens (the served prefill's
+    padded length), with the SSD kernels' share of device busy time."""
+    from repro_torch.train.step import build_prefill_step
+    prefill = build_prefill_step(be.cfg, be.max_len)
+    tokens = torch.full((batch, prompt), 7, dtype=torch.long,
+                        device=be.device)
+
+    def step():
+        return prefill(be.params, {"tokens": tokens})[0]
+    step().argmax(-1).cpu()  # a fresh process's set-up stays out of it
+    profile_steps(label, step, batch, prompt, steps, unit="prefill",
+                  share="ssd_scan")
 
 
 # --- phase 4 -----------------------------------------------------------------
@@ -977,16 +1102,19 @@ def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init):
 def phase_ssd_kernel_vs_plain() -> dict:
     """The SSD-scan kernel against its plain version on the card (y and
     the final state), every case with B and C as views into one
-    projection as the model passes them; then timed at both SSM main
-    paths' launches (bf16; eight sets of inputs cycled, over 300 MB
-    against the 50 MB L2, so each launch reads from device memory as a
-    prefill's layers do).  Returns the timing of each main case, by name,
-    and the launch keys (``ssd_key``) the main paths must match."""
+    projection as the model passes them, with each case's route
+    (``kernel.py::route``) and, for bf16, its max error against the plain
+    version in f32 on the same inputs (the cost of the tensor-core
+    route's bf16 roundings); both served launches must take the tensor
+    cores.  Then timed at both SSM main paths' launches.  Returns the
+    timing of each main case, by name, and the launch keys (``ssd_key``)
+    the main paths must match."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_MAIN,
                                                     SSD_TOL, ssd_case_on)
+    from repro_torch.kernels.ssd_scan.kernel import TENSOR_CORES, route
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    errs, worst = [], 0.0
+    errs, worst, vs32 = [], 0.0, []
     for seed, (name, (B, S, H, P, G, N, chunk), init) in \
             enumerate(SSD_CASES):
         for dt in (torch.float32, torch.bfloat16):
@@ -1008,36 +1136,84 @@ def phase_ssd_kernel_vs_plain() -> dict:
                                          f"plain max abs err {err:.3g} > "
                                          f"{tol}")
                 worst = max(worst, err)
-            errs.append(f"{name}/{str(dt)[6:]}="
+            path = route(dt, chunk, P, N)
+            errs.append(f"{name}/{str(dt)[6:]}"
+                        f"{'/tc' if path == TENSOR_CORES else ''}="
                         f"{(y.float() - yr.float()).abs().max().item():.2g}")
+            if dt == torch.bfloat16:
+                # the same bf16 inputs through the plain version in f32
+                # (no rounding of y): the tensor-core route's own roundings
+                # (L, the scaled xb, the state's copy, y) must stay inside
+                # the bf16 tolerance, |err| <= tol + tol * |ref|
+                y32, s32 = ssd_scan_ref(xb.float(), a, Bm.float(),
+                                        Cm.float(), chunk=chunk,
+                                        initial_state=s0)
+                used = []
+                for what, got, ref in (("y", y.float(), y32),
+                                       ("state", st, s32)):
+                    diff = (got - ref).abs()
+                    frac = (diff / (tol + tol * ref.abs())).max().item()
+                    if frac > 1:
+                        raise AssertionError(f"{name} bf16 {what}: kernel "
+                                             f"vs the f32 plain version "
+                                             f"past the tolerance {tol}")
+                    used.append(f"{what} {diff.max().item():.3g} "
+                                f"({frac:.2f} of tol)")
+                vs32.append(f"{name} {', '.join(used)}")
     print(f"phase 8 ssd kernel vs plain: {len(errs)} cases ok (y and final "
-          f"state), max abs err {worst:.3g} [{' '.join(errs)}]")
-    dtype, out, keys = torch.bfloat16, {}, {}
+          f"state; /tc = tensor-core route), max abs err {worst:.3g} "
+          f"[{' '.join(errs)}]")
+    print(f"phase 8 ssd bf16 kernel vs the f32 plain version, max abs err "
+          f"and the largest share used of the tolerance (atol = rtol = "
+          f"{SSD_TOL[torch.bfloat16]}): {'; '.join(vs32)}")
+    out, keys = {}, {}
     cases = {name: (shape, init) for name, shape, init in SSD_CASES}
     for arch, name in SSD_MAIN.items():
         (B, S, H, P, G, N, chunk), init = cases[name]
-        ins = [ssd_case_on(DEVICE, dtype, B, S, H, P, G, N, init, 99 + k)
-               for k in range(8)]
-        keys[arch] = ssd_key(ins[0][0], ins[0][2], chunk, ins[0][4])
-        ker = timed(lambda i: ssd_ops.ssd_scan(
-            *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]),
-            80, "ssd_scan_kernel")
-        plain = timed(lambda i: ssd_scan_ref(
-            *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]), 16)
-        bound_ms, bound_by, nbytes, ops = ssd_bound_ms(B, S, H, P, G, N,
-                                                       chunk, dtype, init)
-        out[name] = dict(max_abs_err=worst, ms=ker["ms"],
-                         plain_ms=plain["ms"], bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
-        print(f"phase 8 ssd {name} bf16 (B={B}, S={S}, H={H}, P={P}, G={G}, "
-              f"N={N}, chunk={chunk}, initial state "
-              f"{init or 'none'}, B/C strides {tuple(ins[0][2].stride())}), "
-              f"device time: kernel {_us(ker)}, plain {_us(plain)}, bound "
-              f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes / 1e6:.2f} MB, "
-              f"{ops / 1e9:.3f} GFLOP); library: none (no single PyTorch "
-              f"call computes the chunked scan)")
-        del ins
+        if route(torch.bfloat16, chunk, P, N) != TENSOR_CORES:
+            raise AssertionError(f"{arch}'s SSD launch {name} does not take "
+                                 f"the tensor cores")
+        t = time_ssd(name)
+        keys[arch] = t.pop("key")
+        out[name] = dict(max_abs_err=worst, **t)
     return out, keys
+
+
+def time_ssd(name: str) -> dict:
+    """The SSD kernel at one served launch (bf16, the case ``name`` of
+    ``cases.py``; eight sets of inputs cycled, over 300 MB against the 50
+    MB L2, so each launch reads from device memory as a prefill's layers
+    do) beside its bound and the plain version; prints one line.  No
+    single PyTorch call computes the scan, so there is no library time."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.cases import SSD_CASES, ssd_case_on
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    cases = {n: (shape, init) for n, shape, init in SSD_CASES}
+    (B, S, H, P, G, N, chunk), init = cases[name]
+    dtype = torch.bfloat16
+    ins = [ssd_case_on(DEVICE, dtype, B, S, H, P, G, N, init, 99 + k)
+           for k in range(8)]
+    key = ssd_key(ins[0][0], ins[0][2], chunk, ins[0][4])
+    # "ssd_scan" names the kernels of this tree and of earlier ones
+    ker = timed(lambda i: ssd_ops.ssd_scan(
+        *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]),
+        80, "ssd_scan")
+    plain = timed(lambda i: ssd_scan_ref(
+        *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]), 16)
+    bound_ms, bound_by, nbytes, ops = ssd_bound_ms(B, S, H, P, G, N, chunk,
+                                                   dtype, init)
+    print(f"phase 8 ssd {name} bf16 (B={B}, S={S}, H={H}, P={P}, G={G}, "
+          f"N={N}, chunk={chunk}, initial state {init or 'none'}, B/C "
+          f"strides {tuple(ins[0][2].stride())}), device time: kernel "
+          f"{_us(ker)}, plain {_us(plain)}, bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), "
+          f"{bound_ms / ker['ms']:.3f} of it reached; library: none (no "
+          f"single PyTorch call computes the chunked scan)")
+    del ins
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=ker["ms"], plain_ms=plain["ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, key=key)
 
 
 # --- phases 9 and 10 ----------------------------------------------------------
@@ -1112,6 +1288,8 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     dense_decode_profile(backends[0],
                          f"phase {n} {cfg.family} decode-step profile")
+    prefill_profile(backends[0], f"phase {n} {cfg.family} prefill profile",
+                    ssd_key_want[0][1])
     return counts
 
 
@@ -1381,8 +1559,10 @@ def main() -> None:
 
 
 def kernel_times(src: str) -> None:
-    """``--kernel-times [SRC]``: build the kernels and time both attention
-    kernels at every served launch shape (phase 5's timing), taking the
+    """``--kernel-times [SRC]``: build the kernels and time the paged
+    kernel at both paged paths' launches (phase 2's timing), both dense
+    attention kernels at every served launch shape (phase 5's) and the SSD
+    kernel at both SSM paths' launches (phase 8's), taking the
     ``repro_torch`` package from the ``src`` directory SRC of another
     checkout (default: this one), so that two versions are timed on one
     card in one call; prints no JSON."""
@@ -1391,13 +1571,49 @@ def kernel_times(src: str) -> None:
     card = phase_device_and_build()
     import repro_torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.cases import SSD_MAIN
     print(f"kernel times of {Path(repro_torch.__file__).parent}")
+    time_paged_launches("kernel times")
     time_served_shapes(get_config("qwen3-0.6b").num_layers)
+    for name in SSD_MAIN.values():
+        time_ssd(name)
+    print(card)
+
+
+#: the SSM paths' served prefills, as phases 9 and 10 serve them: (arch,
+#: the backend's cache length); the prompt is the SSD main case's S
+PREFILL_PROFILED = [("mamba2-780m", 417), ("zamba2-2.7b", 161)]
+
+
+def prefill_profiles(src: str) -> None:
+    """``--prefill-profiles [SRC]``: build the kernels and profile one
+    served prefill of each SSM path (full width and depth, bf16, random
+    weights from a seed; phases 9 and 10's prefill profiles), taking the
+    ``repro_torch`` package from the ``src`` directory SRC of another
+    checkout (default: this one); prints no JSON."""
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    card = phase_device_and_build()
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan.cases import SSD_CASES, SSD_MAIN
+    from repro_torch.serve.backends import TorchBackend
+    print(f"prefill profiles of {Path(repro_torch.__file__).parent}")
+    cases = {name: shape for name, shape, _ in SSD_CASES}
+    for arch, max_len in PREFILL_PROFILED:
+        be = TorchBackend(get_config(arch), max_len=max_len, device=DEVICE)
+        prefill_profile(be, f"{arch} prefill profile",
+                        cases[SSD_MAIN[arch]][1])
+        del be
+        gc.collect()
+        torch.cuda.empty_cache()
     print(card)
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kernel-times"]:
         kernel_times(sys.argv[2] if len(sys.argv) > 2 else "")
+    elif sys.argv[1:2] == ["--prefill-profiles"]:
+        prefill_profiles(sys.argv[2] if len(sys.argv) > 2 else "")
     else:
         main()

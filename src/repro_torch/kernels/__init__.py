@@ -9,3 +9,18 @@ Each kernel ships, mirroring the JAX package's kernel layout:
                CPU tests and against the kernel on the card
 ``build.py`` compiles the sources with nvcc at first use.
 """
+import torch
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would record a call of ``kernel``.  The kernels
+    have no backward: their outputs are filled through ``ctypes`` and
+    carry no ``grad_fn``, so a backward through one would drop the
+    gradient without a word.  Every launcher calls this first, before it
+    looks at shapes or the device."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: an input requires grad while grad "
+            f"is enabled (run it under torch.no_grad() or "
+            f"torch.inference_mode(), or take the plain version)")

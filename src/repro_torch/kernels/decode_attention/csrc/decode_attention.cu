@@ -35,8 +35,10 @@
 // each block's shared memory alive until its peers have read it.  Still
 // one launch per call, with no scratch in device memory.  The cache is
 // not padded (the JAX wrapper pads it with jnp.pad, a copy per layer per
-// step).  The body is attn::decode_split (include/attention_common.cuh),
-// which takes any token layout, so the paged kernel can move onto it.
+// step).  The body is attn::decode_split (include/attention_common.cuh)
+// cutting the row's S slots (SplitOver::kSlots), so the first pass's
+// loads are issued before lens[b] is read; the paged kernel runs the same
+// body over each row's attended range instead.
 //
 // C interface (bound with ctypes): decode_attention_fwd returns the
 // cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16.  The
@@ -70,8 +72,9 @@ dense_decode_split_kernel(const T* __restrict__ q,       // [B, Hq, D]
   // the G query heads of kv head h are contiguous: heads h*G .. h*G+G-1
   const size_t head0 = ((size_t)b * Hkv + h) * G;
   const DenseTokens src{((size_t)b * S * Hkv + h) * D, (size_t)Hkv * D};
-  attn::decode_split<T, GT, CPT>(q + head0 * D, k, v, src, out + head0 * D,
-                                 lens + b, S, G, D, scale, window, softcap);
+  attn::decode_split<T, GT, CPT, attn::SplitOver::kSlots>(
+      q + head0 * D, k, v, src, out + head0 * D, lens + b, S, G, D, scale,
+      window, softcap);
 }
 
 template <typename T, int GT, int CPT>

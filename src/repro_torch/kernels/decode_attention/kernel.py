@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 #: most blocks in one cluster (the portable cluster size), and the fewest
 #: token slots per split
@@ -121,8 +123,11 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     entries incl. the current token, each <= S).  All on one CUDA
     device.  -> [B, Hq, 1, D] in q's dtype.
 
-    Launches on the current stream and does not synchronise.  Adds one
-    to ``decode_attention_fwd.launches`` per launch."""
+    Launches on the current stream and does not synchronise.  Raises
+    ``RuntimeError`` when grad is enabled and an input requires grad
+    (the kernel has no backward).  Adds one to
+    ``decode_attention_fwd.launches`` per launch."""
+    refuse_grad("decode_attention_fwd", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lens)
     B, Hq, _, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]

@@ -64,6 +64,7 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -291,9 +292,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 // --- bf16: the tensor-core route ---------------------------------------------
 
-namespace wg {
+// the tensor-core helpers (cp.async, swizzled panels, wgmma) come from
+// include/wgmma.cuh, shared with the SSD scan's bf16 route
+namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace wg;
 
 constexpr int kRows = 64;              // q rows per block (wgmma M)
 constexpr int kKeys = 64;              // keys per K/V tile (wgmma N of S)
@@ -305,118 +308,6 @@ constexpr int kPanelBytes = 64 * 128;  // 64 rows of one 128-byte panel
 __host__ __device__ inline size_t smem_bytes(int D) {
   return 1024 + (size_t)5 * ((D + 63) / 64) * kPanelBytes;
 }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk c of row r in a tile of swizzled panels
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return (c >> 3) * kPanelBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// rows [r0, r0 + 64) of an [S, D] slice (row stride ld) into the swizzled
-// panels at dst; rows >= S and columns in [D, D16) are zero-filled
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long ld, int r0, int S, int D,
-                                          int D16) {
-  const int nc = D16 / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kRows * nc; i += kThreads) {
-    const int r = i / nc;
-    const int c = i - r * nc;
-    const bool ok = r0 + r < S && c * 8 < D;
-    cp_async16(dst + swizzled(r, c),
-               ok ? src + (long long)(r0 + r) * ld + c * 8 : src, ok);
-  }
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accesses of d across the async window
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A B, m64n64k16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B, m64n64k16, A in registers, B MN-major in shared memory
-// (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // NP panels of 64 columns: D <= 64 * NP
 template <int NP>
@@ -449,13 +340,16 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (k_hi - k_lo + kKeys - 1) / kKeys;  // >= 1
 
   // groups 0 (Q and tile 0) and 1 (tile 1, or empty) in flight
-  load_tile(q_s, qb, qs.s, q_start, S, D, D16);
-  load_tile(q_s + kTile, kb, ks.s, k_lo, S, D, D16);
-  load_tile(q_s + 2 * kTile, vb, vs.s, k_lo, S, D, D16);
+  load_tile<kRows, kThreads>(q_s, qb, qs.s, q_start, S, D, D16);
+  load_tile<kRows, kThreads>(q_s + kTile, kb, ks.s, k_lo, S, D, D16);
+  load_tile<kRows, kThreads>(q_s + 2 * kTile, vb, vs.s, k_lo, S, D,
+                             D16);
   cp_async_commit();
   if (n_tiles > 1) {
-    load_tile(q_s + 3 * kTile, kb, ks.s, k_lo + kKeys, S, D, D16);
-    load_tile(q_s + 4 * kTile, vb, vs.s, k_lo + kKeys, S, D, D16);
+    load_tile<kRows, kThreads>(q_s + 3 * kTile, kb, ks.s, k_lo + kKeys, S,
+                               D, D16);
+    load_tile<kRows, kThreads>(q_s + 4 * kTile, vb, vs.s, k_lo + kKeys, S,
+                               D, D16);
   }
   cp_async_commit();
 
@@ -555,8 +449,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     __syncthreads();  // every warp is done reading this stage
     if (t + 2 < n_tiles) {
-      load_tile(k_s, kb, ks.s, k0 + 2 * kKeys, S, D, D16);
-      load_tile(v_s, vb, vs.s, k0 + 2 * kKeys, S, D, D16);
+      load_tile<kRows, kThreads>(k_s, kb, ks.s, k0 + 2 * kKeys, S, D, D16);
+      load_tile<kRows, kThreads>(v_s, vb, vs.s, k0 + 2 * kKeys, S, D, D16);
     }
     cp_async_commit();
   }
@@ -624,7 +518,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-}  // namespace wg
+}  // namespace tc
 
 }  // namespace
 
@@ -646,7 +540,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return dispatch<float>(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D,
                            scale, causal, window, softcap, st);
   if (dtype == 1)
-    return wg::dispatch(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
+    return tc::dispatch(q, k, v, out, qs, ks, vs, os, B, S, Hq, Hkv, D, scale,
                         causal, window, softcap, st);
   return cudaErrorInvalidValue;
 }

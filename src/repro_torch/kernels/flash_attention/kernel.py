@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: shared memory one block may use on Hopper (bytes)
 MAX_SMEM = 232_448
@@ -110,8 +112,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last dim; all on one CUDA device.  -> [B, Hq, S, D] in q's dtype and
     with q's strides.
 
-    Launches on the current stream and does not synchronise.  Adds one
-    to ``flash_attention_fwd.launches`` per launch."""
+    Launches on the current stream and does not synchronise.  Raises
+    ``RuntimeError`` when grad is enabled and an input requires grad
+    (the kernel has no backward).  Adds one to
+    ``flash_attention_fwd.launches`` per launch."""
+    refuse_grad("flash_attention_fwd", q, k, v)
     _check(q, k, v)
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]

@@ -1,11 +1,12 @@
 // Device code shared by the kernels of the port: the masking constant,
 // fp32/bf16 conversions (which the RMSNorm kernel uses too), 16-byte
-// loads, and two one-query-token decode bodies: decode_block, which the
-// paged kernel (paged_attention.cu) runs, and decode_split, the cluster
-// split that the dense decode kernel (decode_attention.cu) runs and that
-// takes any token layout through its Src.  ``kernels/build.py``
-// hashes this header into every library's name, so an edit here rebuilds
-// every kernel.
+// loads, and the one-query-token decode body decode_split, a split of a
+// row over the blocks of a thread-block cluster that the dense decode
+// kernel (decode_attention.cu) and the paged decode kernel
+// (paged_attention.cu) both run, each with its own token layout (Src)
+// and its own way of cutting the row (SplitOver).  ``kernels/build.py``
+// hashes every header into every library's name, so an edit here
+// rebuilds every kernel.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -62,155 +63,30 @@ __device__ __forceinline__ void load16_or_zero(const T* src, float* dst,
         make_float4(r[e], r[e + 1], r[e + 2], r[e + 3]);
 }
 
-// Dynamic shared memory of one decode block (floats): fp32 K and V
-// chunks, q and acc for the G heads, the G x chunk scores and (m, l,
-// alpha).
-__host__ __device__ inline size_t decode_smem_floats(int G, int D,
-                                                     int chunk) {
-  return (size_t)2 * chunk * D + 2 * G * D + G * chunk + 3 * G;
-}
-
-// One query token of one row against that row's K/V, for the G query
-// heads of one kv head, walked in chunks of ``Src::chunk`` tokens.
-//
-// Src tells where the row's tokens lie:
-//   int count(int len)  chunks to walk for ``len`` valid tokens
-//   size_t base(int c)  element offset of (first token of chunk c, kv
-//                       head, d = 0) in the K and V arrays
-//   int rows(int c)     tokens of chunk c that exist in memory (the rest
-//                       of the chunk is zero-filled, never read)
-//   int chunk           tokens per chunk
-// Consecutive tokens of a chunk are ``tok_stride`` elements apart.
-//
-// Masks positions >= len and, with a window, positions <= len - 1 -
-// window; skips whole chunks below the window (a test that is the same
-// for every thread, so the barriers stay uniform).  Online softmax in
-// fp32 with the finite kNegInf, softcap cap * tanh(s / cap) before the
-// mask, and the running sum floored at 1e-30, so len == 0 writes zeros.
-template <typename T, int kThreads, typename Src>
-__device__ __forceinline__ void decode_block(
-    const T* __restrict__ qb,  // [G, D]: the G heads of this kv head
-    const T* __restrict__ k, const T* __restrict__ v, const Src& src,
-    size_t tok_stride, T* __restrict__ ob,  // [G, D]
-    int len, int G, int D, float scale, int window, float softcap) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kWarps = kThreads / 32;
-  const int chunk = src.chunk;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* k_s = smem;              // [chunk, D]
-  float* v_s = k_s + chunk * D;   // [chunk, D]
-  float* q_s = v_s + chunk * D;   // [G, D]
-  float* acc = q_s + G * D;       // [G, D]
-  float* s_s = acc + G * D;       // [G, chunk]: scores, then probabilities
-  float* m_s = s_s + G * chunk;   // [G] running max
-  float* l_s = m_s + G;           // [G] running sum
-  float* a_s = l_s + G;           // [G] rescale factor for this chunk
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_f32(qb[i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-
-  const int n_chunks = src.count(len);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int k_start = c * chunk;
-    // the whole chunk lies below the window: nothing in it is attended
-    if (window > 0 && k_start + chunk - 1 <= len - 1 - window) continue;
-    const size_t base = src.base(c);
-    const int rows = src.rows(c);
-
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid * kVec; i < chunk * D; i += kThreads * kVec) {
-      const int t = i / D;
-      const size_t off = base + (size_t)t * tok_stride + (i - t * D);
-      load16_or_zero(k + off, k_s + i, t < rows);
-      load16_or_zero(v + off, v_s + i, t < rows);
-    }
-    __syncthreads();
-
-    // scores: one warp per (head, token), lanes across D
-    for (int j = warp; j < G * chunk; j += kWarps) {
-      const int g = j / chunk;
-      const int t = j - g * chunk;
-      float dot = 0.f;
-      for (int d = lane; d < D; d += 32) dot += q_s[g * D + d] * k_s[t * D + d];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (lane == 0) {
-        float s = dot * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const int pos = k_start + t;
-        bool ok = pos < len;
-        if (window > 0) ok = ok && pos > len - 1 - window;
-        s_s[j] = ok ? s : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query head, lanes across the chunk
-    for (int g = warp; g < G; g += kWarps) {
-      float* sg = s_s + g * chunk;
-      const float m_prev = m_s[g];
-      float mx = m_prev;
-      for (int t = lane; t < chunk; t += 32) mx = fmaxf(mx, sg[t]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float sum = 0.f;
-      for (int t = lane; t < chunk; t += 32) {
-        const float p = expf(sg[t] - mx);
-        sg[t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - mx);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = mx;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P @ V
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const float* pg = s_s + g * chunk;
-      float a = acc[i] * a_s[g];
-      for (int t = 0; t < chunk; ++t) a += pg[t] * v_s[t * D + d];
-      acc[i] = a;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < G * D; i += kThreads)
-    store(ob + i, acc[i] / fmaxf(l_s[i / D], 1e-30f));
-}
-
 // --- the split decode --------------------------------------------------------
 //
 // One query token of one row against that row's K/V, for the G query
-// heads of one kv head, with the row's S token slots split over the
-// blocks of one thread-block cluster (cluster dims (splits, 1, 1)): block
-// r of the cluster takes tokens [r * chunk, (r + 1) * chunk), chunk =
-// ceil(S / splits), and computes the fp32 partial (m, l, acc[G, D]) of
-// its tokens for all G heads, so every K/V byte is read once.  The
-// cluster then merges the partials through distributed shared memory
-// with a log-sum-exp rescale, and each block writes its slice of the
-// [G, D] output.  Heads are taken GT at a time (GT >= G unless G > 8).
+// heads of one kv head, with the row split over the blocks of one
+// thread-block cluster (cluster dims (splits, 1, 1)).  Block r of the
+// cluster computes the fp32 partial (m, l, acc[G, D]) of its tokens for
+// all G heads, so every K/V byte is read once.  The cluster then merges
+// the partials through distributed shared memory with a log-sum-exp
+// rescale, and each block writes its slice of the [G, D] output.  Heads
+// are taken GT at a time (GT >= G unless G > 8).
+//
+// How the row is cut (SplitOver):
+//   kSlots     the S token slots: block r takes [r * c, (r + 1) * c), c =
+//              ceil(S / splits).  Its first pass of loads depends on S
+//              and r only, so it is issued before len is read and the two
+//              loads overlap.  Right where the slots are about as many as
+//              the live tokens (the dense cache).
+//   kAttended  the row's attended range [lo, hi), hi = min(len, S), lo =
+//              window > 0 ? max(0, len - window) : 0: block r takes [lo +
+//              r * c, min(lo + (r + 1) * c, hi)), c = ceil((hi - lo) /
+//              splits).  The loads wait for len, but every block holds an
+//              equal share of the live tokens however many slots the row
+//              has (the paged pool, whose S = maxp * page is far above
+//              any row's length).
 //
 // Src tells where the row's tokens lie:
 //   size_t at(int t)  element offset of (token t, kv head, d = 0) in the
@@ -219,17 +95,16 @@ __device__ __forceinline__ void decode_block(
 // Within a block, each token's row of D elements is read by tpt threads
 // (a power of two; CPT 16-byte chunks each) straight into registers, kept
 // there as raw 16-byte words until used, and the block's 128 / tpt thread
-// groups walk the block's tokens kU at a time.  The first pass's loads
-// depend on S and the block's rank only, so they are issued before len is
-// read and the two loads overlap; later passes run only up to len.  A
-// token at or past min(len, S), or at or below len - 1 - window, adds
-// nothing (p = 0), so a split wholly outside the attended range keeps the
-// partial (kNegInf, 0, 0) and a len == 0 row writes zeros; the barriers
-// stay uniform because every block walks the same code.  Softcap cap *
-// tanh(s / cap) comes before the mask, as in decode_block.  The thread
-// groups of a warp merge by shuffles, the 4 warps through shared memory
-// (one barrier), and each output of the cluster merge reads all blocks'
-// partials at once.
+// groups walk the block's tokens kU at a time.  A token at or past
+// min(len, S), or at or below len - 1 - window, adds nothing (p = 0), so
+// a split wholly outside the attended range keeps the partial (kNegInf,
+// 0, 0) and a len == 0 row writes zeros; the barriers stay uniform
+// because every block walks the same code.  Softcap cap * tanh(s / cap)
+// comes before the mask.  The thread groups of a warp merge by shuffles,
+// the 4 warps through shared memory (one barrier), and each output of
+// the cluster merge reads all blocks' partials at once.
+
+enum class SplitOver { kSlots, kAttended };
 
 // threads that read one token row of D elements of T, CPT chunks each
 __device__ __forceinline__ int split_threads_per_token(int D, int elem_bytes,
@@ -266,7 +141,7 @@ __device__ __forceinline__ void unpack_raw(const uint4& raw, float* r) {
   }
 }
 
-template <typename T, int GT, int CPT, typename Src>
+template <typename T, int GT, int CPT, SplitOver kOver, typename Src>
 __device__ __forceinline__ void decode_split(
     const T* __restrict__ qb,  // [G, D]: the G heads of this kv head
     const T* __restrict__ k, const T* __restrict__ v, const Src& src,
@@ -290,11 +165,6 @@ __device__ __forceinline__ void decode_split(
   const int gl = tid & (tpt - 1);  // lane in the token's thread group
   const int gi = tid / tpt;        // thread group
 
-  // this block's token slots [t0, t_end)
-  const int chunk = (S + splits - 1) / splits;
-  const int t0 = rank * chunk;
-  const int t_end = min(t0 + chunk, S);
-
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* part = smem;                   // [kWarps, GT, D] warp partial acc
@@ -304,8 +174,10 @@ __device__ __forceinline__ void decode_split(
   float* bm = bacc + GT * D;            // [GT] block partial max
   float* bl = bm + GT;                  // [GT] block partial sum
 
+  int t0, t_end, len;  // this block's tokens [t0, t_end), set below
+
   // one pass's K/V words: token base + gi + groups * u, clamped into the
-  // block's slots (a chunk past the row reads chunk 0: its q is zero and
+  // block's tokens (a chunk past the row reads chunk 0: its q is zero and
   // its acc never written)
   uint4 kr[kU][CPT], vr[kU][CPT];
   auto load_pass = [&](int base) {
@@ -322,9 +194,21 @@ __device__ __forceinline__ void decode_split(
       }
     }
   };
-  if (t0 < t_end) load_pass(t0);  // before len is read
-
-  const int len = *lenp;
+  if constexpr (kOver == SplitOver::kSlots) {
+    const int chunk = (S + splits - 1) / splits;
+    t0 = rank * chunk;
+    t_end = min(t0 + chunk, S);
+    if (t0 < t_end) load_pass(t0);  // before len is read
+    len = *lenp;
+  } else {
+    len = *lenp;
+    const int row_hi = min(max(len, 0), S);
+    const int row_lo = window > 0 ? max(0, len - window) : 0;
+    const int chunk = (max(row_hi - row_lo, 0) + splits - 1) / splits;
+    t0 = row_lo + rank * chunk;
+    t_end = min(t0 + chunk, row_hi);
+    if (t0 < t_end) load_pass(t0);
+  }
   const int hi = min(t_end, max(len, 0));  // attended: [lo, hi)
   const int lo = max(t0, window > 0 ? len - window : 0);
 

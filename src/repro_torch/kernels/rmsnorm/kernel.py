@@ -17,6 +17,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import refuse_grad
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 #: rows up to this width are one warp's work (``kWarpRowMaxD``)
 WARP_ROW_MAX_D = 1024
@@ -77,8 +79,11 @@ def rmsnorm_fwd(x2d: torch.Tensor, w: torch.Tensor, *,
     """x2d [rows, d] (rows contiguous, any row stride); w [d]; both on
     one CUDA device.  -> contiguous [rows, d] in x's dtype.
 
-    Launches on the current stream and does not synchronise.  Adds one
-    to ``rmsnorm_fwd.launches`` per launch (none for zero rows)."""
+    Launches on the current stream and does not synchronise.  Raises
+    ``RuntimeError`` when grad is enabled and an input requires grad
+    (the kernel has no backward).  Adds one to
+    ``rmsnorm_fwd.launches`` per launch (none for zero rows)."""
+    refuse_grad("rmsnorm_fwd", x2d, w)
     _check(x2d, w)
     rows, d = x2d.shape
     out = torch.empty((rows, d), dtype=x2d.dtype, device=x2d.device)

@@ -8,9 +8,12 @@ The CUDA paged-decode, flash-attention, dense decode-attention and
 RMSNorm kernels are held against their plain PyTorch versions at the
 repo's tolerances (f32 2e-5, bf16 2e-2; RMSNorm by x's dtype), the CUDA
 SSD-scan kernel at the JAX package's SSD tolerances (f32 1e-4, bf16
-5e-2).  The attention case
-lists here are shared with the CPU tests, which hold the same plain
-versions against the JAX package."""
+5e-2; every bf16 case takes the tensor-core route).  The paged kernel
+is also held on rows cut by their attended range with a table wider
+than the rows (a full table, windows, len 0 and 1), and every launcher
+must refuse an input that requires grad.  The attention case lists here
+are shared with the CPU tests, which hold the same plain versions
+against the JAX package."""
 import numpy as np
 import pytest
 import torch
@@ -35,16 +38,17 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-def paged_case(B, P, page, Hq, Hkv, D, lens, seed=0):
+def paged_case(B, P, page, Hq, Hkv, D, lens, seed=0, maxp=None):
     """Random pool + a page table whose live entries are distinct pages
     (shuffled, so physical order != logical order) and whose parked
     slots point at scratch page 0 (the generator of the JAX kernel
-    tests), as numpy arrays."""
+    tests), as numpy arrays.  The table is ``maxp`` pages wide, by
+    default just wide enough for the longest row."""
     r = np.random.default_rng(seed)
     q = r.normal(0, 1, (B, 1, Hq, D)).astype(np.float32)
     kp = r.normal(0, 1, (P, page, Hkv, D)).astype(np.float32)
     vp = r.normal(0, 1, (P, page, Hkv, D)).astype(np.float32)
-    maxp = -(-max(lens) // page)
+    maxp = -(-max(lens) // page) if maxp is None else maxp
     perm = list(r.permutation(np.arange(1, P)))
     table = np.zeros((B, maxp), np.int32)
     for b, ln in enumerate(lens):
@@ -63,6 +67,24 @@ PAGED_CASES = [
     ((8, 177, 16, 32, 4, 128,                    # qwen3-moe's heads, G=8
       [161, 160, 151, 140, 129, 97, 64, 17]), 0, 0.0),
 ]
+
+#: the paged kernel's split of each row's attended range over a cluster
+#: (kernel.py::split_ranges), with the table wider than the rows as the
+#: served pool is: (B, P, page, Hq, Hkv, D, lens, maxp, window, softcap)
+PAGED_SPLIT_CASES = [
+    (1, 20, 16, 16, 8, 128, [304], 19, 0, 0.0),           # full table
+    (2, 40, 16, 16, 8, 128, [304, 17], 19, 0, 0.0),       # full + short
+    (2, 30, 16, 32, 4, 128, [161, 100], 176, 64, 0.0),    # window, G=8
+    (2, 30, 16, 32, 4, 128, [161, 40], 176, 64, 30.0),    # + softcap
+    (8, 20, 16, 16, 8, 128, [1] * 8, 176, 0, 0.0),        # len 1, main
+    (4, 20, 16, 16, 8, 128, [1, 0, 2, 161], 176, 8, 0.0),  # 1, 0, window
+    (2, 10, 16, 4, 2, 64, [7, 9], 1, 0, 0.0),             # one split
+    (1, 280, 4, 4, 2, 32, [1100], 300, 0, 0.0),     # 275 pages: 19 past
+    (1, 280, 4, 4, 2, 32, [1100], 300, 200, 0.0),   # the 256 ids cached
+]
+PAGED_SPLIT_IDS = ["full-table", "full-and-short", "window64-g8",
+                   "window64-g8-softcap30", "len1-main", "lens-0-1-2-win8",
+                   "one-split", "table-past-256", "table-past-256-win200"]
 
 
 #: (B, S, Hq, Hkv, D, causal, window, softcap): GQA with G in {1, 2, 4, 8},
@@ -163,6 +185,74 @@ def test_paged_kernel_zero_length_row_is_zero():
     ref = t_paged_ref(q.transpose(1, 2), kp, vp, table, ln,
                       scale=16 ** -0.5).transpose(1, 2)
     torch.testing.assert_close(out[1], ref[1], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES, ids=PAGED_SPLIT_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_split_vs_plain_on_card(case, dtype):
+    """Rows cut by their attended range, not by the table's width: a full
+    table, windows that leave the early pages out, len 1 at the main
+    shape (one block of eight holds the token), and len 0 (zeros)."""
+    _cuda_or_skip()
+    B, P, page, Hq, Hkv, D, lens, maxp, window, cap = case
+    arrs = paged_case(B, P, page, Hq, Hkv, D, lens, maxp=maxp)
+    q, kp, vp = (torch.from_numpy(a).to("cuda", dtype) for a in arrs[:3])
+    table, ln = (torch.from_numpy(a).cuda() for a in arrs[3:])
+    assert table.shape[1] == maxp
+    out = t_ops.paged_attention(q, kp, vp, table, ln, window=window,
+                                attn_softcap=cap)
+    ref = t_paged_ref(q.transpose(1, 2).cpu(), kp.cpu(), vp.cpu(),
+                      table.cpu(), ln.cpu(), scale=D ** -0.5,
+                      window=window, softcap=cap).transpose(1, 2)
+    torch.cuda.synchronize()
+    live = ln.cpu() >= 1
+    assert torch.count_nonzero(out.cpu()[~live]).item() == 0
+    torch.testing.assert_close(out.cpu()[live].float(), ref[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_grad_on_card():
+    """On the card too, every launcher refuses an input that requires
+    grad while grad is enabled, and launches nothing; under
+    ``torch.no_grad()`` the same call launches its kernel."""
+    _cuda_or_skip()
+
+    def grad(t):
+        return t.detach().clone().requires_grad_(True)
+
+    pq, pk, pv, table, ln = (torch.from_numpy(a).cuda() for a in
+                             paged_case(2, 8, 4, 4, 2, 16, [3, 7]))
+    dq, dk, dv, dl = (torch.from_numpy(a).cuda() for a in
+                      decode_case(2, 16, 4, 2, 16, [3, 7]))
+    fq, fk, fv = (torch.from_numpy(a).cuda() for a in
+                  flash_case(1, 64, 2, 1, 16))
+    xb, a, Bm, Cm, _ = ssd_case_on("cuda", torch.float32, 1, 8, 2, 4, 1, 4)
+    x, w = rmsnorm_case_on("cuda", torch.float32, torch.float32, (4, 64),
+                           "dense")
+    calls = [
+        (t_ops.paged_attention_fwd,
+         lambda: t_ops.paged_attention(grad(pq), pk, pv, table, ln)),
+        (t_da_ops.decode_attention_fwd,
+         lambda: t_da_ops.decode_attention(grad(dq), dk, dv, dl - 1)),
+        (t_fa_ops.flash_attention_fwd,
+         lambda: t_fa_ops.flash_attention(grad(fq), fk, fv)),
+        (t_ssd_ops.ssd_scan_fwd,
+         lambda: t_ssd_ops.ssd_scan(grad(xb), a, Bm, Cm, chunk=4)),
+        (t_rms_kernel.rmsnorm_fwd,
+         lambda: t_rms_ops.rmsnorm(x, grad(w), 1e-6)),
+    ]
+    for fn, call in calls:
+        before = fn.launches
+        with pytest.raises(RuntimeError,
+                           match=f"{fn.__name__} has no backward"):
+            call()
+        assert fn.launches == before
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
 
 
 @pytest.mark.gpu

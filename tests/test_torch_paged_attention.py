@@ -2,7 +2,9 @@
 including the JAX Pallas paged kernel in interpret mode (f32, CPU, atol
 2e-5 as in the JAX kernel tests: both sides accumulate in f32 in a
 different order).  The CUDA kernel is held against the plain version by
-tests/test_torch_gpu.py (run on a card) and by chip_smoke.py."""
+tests/test_torch_gpu.py (run on a card) and by chip_smoke.py; here its
+split of each row over a cluster is checked through the launcher's
+Python mirror of it (``split_ranges``, ``split_plan``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,12 +118,78 @@ def test_paged_kernel_launcher_rejects_what_it_does_not_take(bad, exc, match):
 
 
 def test_paged_kernel_shared_memory_fits_the_main_path():
-    """fp32 K and V pages, q and acc for the group, scores and (m, l, a):
-    the main path (G=2, D=128, page=16) stays under the 48 KB default."""
+    """The split's partials for a head tile (the dense decode kernel's
+    layout): the 4 warps' (acc, max, sum), then the block's.  Every
+    supported shape, G = 8 at D 256 the largest, stays under the 48 KB a
+    launch may take without raising its limit, beside the 1 KB of static
+    page ids and the length."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        smem_bytes as dense_smem_bytes
     from repro_torch.kernels.paged_attention.kernel import smem_bytes
-    assert smem_bytes(2, 128, 16) == 4 * (2 * 16 * 128 + 2 * 2 * 128
-                                          + 2 * 16 + 3 * 2)
-    assert smem_bytes(2, 128, 16) < 48 * 1024
+    assert smem_bytes(2, 128) == 4 * (4 * 2 * 128 + 2 * 4 * 2 + 2 * 128
+                                      + 2 * 2)
+    for G in (1, 2, 3, 8, 16):
+        for D in (16, 128, 256):
+            assert smem_bytes(G, D) == dense_smem_bytes(G, D)
+            assert smem_bytes(G, D) + 4 * 257 <= 48 * 1024
+
+
+#: (maxp, page): the served pool (177 pages, one of them scratch), a
+#: short pool and one of a single split
+POOLS = [(176, 16), (8, 8), (3, 4)]
+
+
+@pytest.mark.parametrize("window", [0, 8, 64])
+@pytest.mark.parametrize("maxp,page", POOLS)
+def test_paged_split_covers_each_attended_token_once(maxp, page, window):
+    """For every length from 0 to the row's full table, the blocks'
+    ranges hold every attended token exactly once (the kernel's mask then
+    drops nothing and counts nothing twice), and none reaches min(len,
+    maxp * page)."""
+    from repro_torch.kernels.paged_attention.kernel import (split_plan,
+                                                            split_ranges)
+    slots = maxp * page
+    splits = split_plan(maxp, page)
+    pos = np.arange(slots)
+    for length in range(slots + 1):
+        ranges = split_ranges(length, slots, window, splits)
+        assert len(ranges) == splits
+        hits = np.zeros(slots, np.int64)
+        for t0, t_end in ranges:
+            assert t0 >= 0
+            if t_end > t0:
+                assert t_end <= min(length, slots)
+                hits[t0:t_end] += 1
+        want = pos < length
+        if window > 0:
+            want &= pos > length - 1 - window
+        np.testing.assert_array_equal(hits, want.astype(np.int64))
+
+
+def test_paged_split_shares_the_live_tokens_evenly():
+    """At the main path's pool a row of 161 tokens is cut into 8 shares
+    of 21 (the last 14), not into slots of 352 that would leave 7 of 8
+    blocks idle."""
+    from repro_torch.kernels.paged_attention.kernel import (split_plan,
+                                                            split_ranges)
+    ranges = split_ranges(161, 176 * 16, 0, split_plan(176, 16))
+    assert [t_end - t0 for t0, t_end in ranges] == [21] * 7 + [14]
+    assert split_ranges(1, 2816, 0, 8)[0] == (0, 1)
+    assert all(e <= s for s, e in split_ranges(1, 2816, 0, 8)[1:])
+    assert all(e <= s for s, e in split_ranges(0, 2816, 64, 8))
+
+
+@pytest.mark.parametrize("maxp,page,want", [
+    (176, 16, 8),    # qwen3-0.6b and qwen3-moe's pools: 2,816 slots
+    (8, 16, 4),      # 128 slots
+    (3, 4, 1),       # 12 slots
+    (2, 16, 1),      # 32 slots: one split
+    (3, 16, 2),      # 48 slots
+    (10_000, 16, 8),
+])
+def test_paged_split_plan_from_shapes(maxp, page, want):
+    from repro_torch.kernels.paged_attention.kernel import split_plan
+    assert split_plan(maxp, page) == want
 
 
 def test_kernel_build_helpers(tmp_path, monkeypatch):
@@ -134,9 +202,14 @@ def test_kernel_build_helpers(tmp_path, monkeypatch):
                                       "flash_attention.cu",
                                       "paged_attention.cu", "rmsnorm.cu",
                                       "ssd_scan.cu"]
-    assert [h.name for h in build.headers()] == ["attention_common.cuh"]
+    assert [h.name for h in build.headers()] == ["attention_common.cuh",
+                                                 "wgmma.cuh"]
     for s in srcs[:4]:      # the attention kernels and RMSNorm share it
         assert '#include "attention_common.cuh"' in s.read_text()
+    # flash prefill and the SSD scan share one copy of the wgmma helpers
+    for s in (srcs[1], srcs[4]):
+        assert '#include "wgmma.cuh"' in s.read_text()
+        assert "wgmma.mma_async" not in s.read_text()
     a = tmp_path / "k.cu"
     a.write_text("// one")
     first = build.library_path(a)

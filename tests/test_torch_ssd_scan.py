@@ -14,7 +14,8 @@ import torch
 from repro.kernels.ssd_scan.ops import ssd_scan as j_pallas
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as j_ref
 from repro_torch.kernels.ssd_scan import ops as t_ops
-from repro_torch.kernels.ssd_scan.cases import ssd_case
+from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, ssd_case,
+                                                ssd_case_on)
 from repro_torch.kernels.ssd_scan.kernel import (MAX_SMEM, ROWS, smem_bytes,
                                                  ssd_scan_fwd)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref as t_ref
@@ -173,3 +174,57 @@ def test_ssd_kernel_shared_memory():
     assert m == 4 * (64 * 129 + 128 * 129 + 128 * 64 + 32 * 129 + 32 * 128
                      + 2 * 128)
     assert 48 * 1024 < smem_bytes(128, 64, 64) < m < MAX_SMEM
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: c[0])
+def test_ssd_route_takes_the_tensor_cores_for_every_bf16_case(case):
+    """The route is a rule on dtype and shape alone: every bf16 case of
+    the card's case list (both served launches among them) takes the
+    tensor cores, every f32 case the CUDA cores; the tensor-core layout
+    fits in shared memory with room to spare."""
+    from repro_torch.kernels.ssd_scan.kernel import (CUDA_CORES,
+                                                     TENSOR_CORES, route)
+    _, (B, S, H, P, G, N, chunk), _ = case
+    assert route(torch.bfloat16, chunk, P, N) == TENSOR_CORES
+    assert route(torch.float32, chunk, P, N) == CUDA_CORES
+    assert smem_bytes(chunk, P, N, TENSOR_CORES) <= MAX_SMEM
+
+
+@pytest.mark.parametrize("chunk,P,N", [(256, 64, 128), (128, 80, 64),
+                                       (64, 64, 256)])
+def test_ssd_route_past_the_tensor_core_limits(chunk, P, N):
+    """A bf16 launch past a tile of 128 chunk rows, a panel of 64 P
+    columns or two of N takes the CUDA cores."""
+    from repro_torch.kernels.ssd_scan.kernel import CUDA_CORES, route
+    assert route(torch.bfloat16, chunk, P, N) == CUDA_CORES
+
+
+def test_ssd_tensor_core_shared_memory():
+    """1 KB of alignment slack, two ring stages of bf16 C and B (128 x N
+    rounded up to 64 or 128) and xb (128 x 64), the scaled xb, the
+    state's bf16 copy (64 x Np), a and its cumsum: 194 KB at mamba2-780m's
+    N 128, 121 KB at zamba2-2.7b's N 64, so one block per SM either way."""
+    from repro_torch.kernels.ssd_scan.kernel import TENSOR_CORES
+    m = smem_bytes(128, 64, 128, TENSOR_CORES)
+    assert m == 1024 + 2 * (2 * 128 * 128 * 2 + 128 * 128) + 128 * 128 \
+        + 64 * 128 * 2 + 2 * 128 * 4
+    z = smem_bytes(128, 64, 64, TENSOR_CORES)
+    assert z == 1024 + 2 * (2 * 128 * 64 * 2 + 128 * 128) + 128 * 128 \
+        + 64 * 64 * 2 + 2 * 128 * 4
+    assert MAX_SMEM // 2 < z < m < MAX_SMEM
+    assert smem_bytes(8, 8, 8, TENSOR_CORES) == z   # N 8 rounds up to 64
+
+
+@pytest.mark.parametrize("name,want", [
+    ("mamba2-main", True), ("zamba2-main", True), ("groups2", True),
+    ("g-equals-h", True), ("p24-n12", False)])
+def test_ssd_tensor_core_tiles_by_cp_async_where_rows_align(name, want):
+    """The tiles are filled by 16-byte cp.async only where every row of
+    xb, B and C starts on 16 bytes; the served views of the conv output
+    do, and N = 12 does not (its tiles are filled element by element)."""
+    from repro_torch.kernels.ssd_scan.kernel import vectorized
+    _, (B, S, H, P, G, N, chunk), init = next(c for c in SSD_CASES
+                                              if c[0] == name)
+    xb, _, Bm, Cm, _ = ssd_case_on("cpu", torch.bfloat16, B, S, H, P, G, N,
+                                   init)
+    assert vectorized(xb, Bm, Cm) is want
