@@ -65,13 +65,22 @@ and any failure exits non-zero:
 11. card vs CPU on the SSM and hybrid paths in f32: mamba2-780m at full
     width and depth and zamba2-2.7b at full width and 12 of its 54
     layers, a ``prefill`` of 2 rows x 160 tokens and 4 ``decode_step``s;
-12. the RMSNorm kernel vs plain: every case of
-    ``kernels/rmsnorm/cases.py`` (widths 16 to 5120, d not a multiple of
-    the 16-byte vector, 1 to 1024 rows, one to three leading axes, strided
-    row views) in four (x, w) dtype pairs (tolerance by x's dtype: f32
-    2e-5, bf16 2e-2), then timed at the paths' shapes beside its bound,
-    the plain version and ``torch.nn.functional.rms_norm`` (and whether
-    that call gives the same bf16 values to 1 ulp);
+12. the RMSNorm kernels vs plain: ``rmsnorm_fwd`` and the two fused row
+    kernels (``add_rmsnorm_fwd``: the residual add and the next norm;
+    ``gated_rmsnorm_fwd``: Mamba2's ``y * silu(z)`` and its norm) on every
+    case of ``kernels/rmsnorm/cases.py`` (widths 16 to 5120, d not a
+    multiple of the 16-byte vector, 1 to 1024 rows, one to three leading
+    axes, strided row views), the fused ``qk_norm_rope_fwd`` (qk-norm and
+    RoPE of q and k) on every case of its list (every path's heads and
+    positions, D 128 and 80, strided heads, no rows), in four (x, w) dtype
+    pairs (tolerance by x's dtype: f32 2e-5, bf16 2e-2); each fused
+    kernel must also equal the unfused card sequence it replaces (the
+    RMSNorm kernel beside torch's eager ops) in every element.  Then each
+    is timed at the paths' shapes beside its bound, the plain version, the
+    unfused card sequence (with the count of elements that differ from
+    it, which must be 0) and, for ``rmsnorm_fwd``,
+    ``torch.nn.functional.rms_norm`` (and whether that call gives the same
+    bf16 values to 1 ulp);
 13. the MoE paged main path: ``repro_torch.launch.serve.main`` serves 8
     requests with the full-width, full-depth qwen3-moe-30b-a3b (48
     layers, 128 experts, bf16, random weights from a seed) inside a
@@ -83,13 +92,16 @@ and any failure exits non-zero:
     printed (a routing flip would show as a greedy-token or logit
     mismatch, never hidden by a looser bound).
 
-Every path (phases 3, 6, 9, 10, 13 and 14) runs the RMSNorm kernel for
-every norm, and each runs with every kernel's launch count set to 0 just
-before it and read just after: each kernel of the path must have been
-launched exactly its per-call count times the path's calls, and no other
-kernel at all.  The attention cases of phases 2 and 5 include
-qwen3-moe's heads (G = 8) before any MoE path runs.  Each phase prints
-its seconds and the total is printed at the end.
+Every path (phases 3, 6, 9, 10, 13 and 14) runs an RMSNorm kernel for
+every norm (the fused ones wherever a neighbour is absorbed), and each
+runs with every kernel's launch count set to 0 just before it and read
+just after: each kernel of the path must have been launched exactly its
+per-call count times the path's calls, and no other kernel at all.  Each
+path's decode-step profile must show no ``cos`` or ``sin`` kernel, and
+the paths without Mamba2 layers no ``cat`` kernel (RoPE's eager ops).
+The attention cases of phases 2 and 5 include qwen3-moe's heads (G = 8)
+before any MoE path runs.  Each phase prints its seconds and the total
+is printed at the end.
 
 The last three lines are the card's name and power limit as
 ``nvidia-smi`` gives them, a JSON line describing each kernel, and the
@@ -97,9 +109,10 @@ JSON status line.
 
     python3 chip_smoke.py --kernel-times [SRC]
 
-builds the kernels and runs the timing of phases 2, 5 and 8 alone (the
-paged kernel at G = 2 and 8, flash and dense decode at every served
-shape, the SSD scan at both SSM launches), with the ``repro_torch``
+builds the kernels and runs the timing of phases 2, 5, 8 and 12 alone
+(the paged kernel at G = 2 and 8, flash and dense decode at every served
+shape, the SSD scan at both SSM launches, the RMSNorm kernels and the
+unfused sequences at the paths' shapes), with the ``repro_torch``
 package of the checkout whose ``src`` directory is SRC (another commit
 unpacked with ``git archive``, say), so that two versions of the kernels
 are timed on one card in one call.
@@ -145,14 +158,34 @@ DEVICE = "cuda"
 MAIN_ARGV = ["--arch", "qwen3-0.6b", "--requests", "8", "--prompt-len",
              "128", "--decode-steps", "32", "--budget-gb", "8",
              "--device", "cuda"]
-#: RMSNorm launches per model call (a prefill, prefill chunk or decode
-#: step) of each served arch: per layer the block norms (two) and the
-#: qk-norm (two, the qwen3 archs), or Mamba2's pre-norm and gated norm;
-#: zamba2's two block norms per shared-attention application; the final
-#: norm (tests/test_torch_rmsnorm.py counts them on the CPU)
-NORMS_PER_CALL = {"qwen3-0.6b": 28 * 4 + 1, "mamba2-780m": 48 * 2 + 1,
-                  "zamba2-2.7b": 54 * 2 + 9 * 2 + 1,
-                  "qwen3-moe-30b-a3b": 48 * 4 + 1}
+#: RMSNorm kernel launches per model call (a prefill, prefill chunk or
+#: decode step) of each served arch, by kernel: the stack's first pre-norm
+#: (rmsnorm_fwd); every later pre-norm and the final norm, each adding the
+#: previous block's output (add_rmsnorm_fwd: two per attention layer or
+#: shared-attention application, one per Mamba2 layer); each attention
+#: layer's qk-norm and RoPE (qk_norm_rope_fwd); each Mamba2 layer's gated
+#: norm (gated_rmsnorm_fwd).  tests/test_torch_rmsnorm.py counts them on
+#: the CPU.
+NORMS_PER_CALL = {
+    "qwen3-0.6b": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 28 * 2,
+                   "qk_norm_rope_fwd": 28},
+    "mamba2-780m": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 48,
+                    "gated_rmsnorm_fwd": 48},
+    "zamba2-2.7b": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 9 * 2 + 54,
+                    "qk_norm_rope_fwd": 9, "gated_rmsnorm_fwd": 54},
+    "qwen3-moe-30b-a3b": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 48 * 2,
+                          "qk_norm_rope_fwd": 48},
+}
+
+
+def norm_launches(arch: str, calls: int) -> dict:
+    """Each RMSNorm kernel's launches over ``calls`` model calls."""
+    return {k: n * calls for k, n in NORMS_PER_CALL[arch].items()}
+
+
+def norms_line(counts: dict, arch: str, pre: int, dec: int) -> str:
+    return ", ".join(f"{k[:-4]} {counts[k]} = {n} x ({pre} + {dec})"
+                     for k, n in NORMS_PER_CALL[arch].items())
 
 
 def card_line() -> str:
@@ -474,11 +507,15 @@ def launchers() -> dict:
         flash_attention_fwd
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_fwd
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
+    from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_fwd,
+                                                    gated_rmsnorm_fwd,
+                                                    qk_norm_rope_fwd,
+                                                    rmsnorm_fwd)
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     return {f.__name__: f for f in (paged_attention_fwd, flash_attention_fwd,
                                     decode_attention_fwd, ssd_scan_fwd,
-                                    rmsnorm_fwd)}
+                                    rmsnorm_fwd, add_rmsnorm_fwd,
+                                    qk_norm_rope_fwd, gated_rmsnorm_fwd)}
 
 
 def serve_counted(argv):
@@ -529,9 +566,8 @@ def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
     check_served(out, cfg)
     pre = sum(be.prefill_calls for be in backends)
     dec = sum(be.decode_calls for be in backends)
-    norms = NORMS_PER_CALL[arch]
     check_launches(counts, {"paged_attention_fwd": layers * dec,
-                            "rmsnorm_fwd": norms * (pre + dec)}, cfg, layers)
+                            **norm_launches(arch, pre + dec)}, cfg, layers)
     if dec == 0 or summary["forced_steps"]:
         raise AssertionError(f"{dec} decode steps, {summary['forced_steps']} "
                              f"steps forced over the budget")
@@ -543,9 +579,9 @@ def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
           f"{out['wall_s']:.2f}s wall ({tok / out['wall_s']:.1f} tok/s); "
           f"{pre} prefill-chunk calls, {dec} decode steps, mean "
           f"{1e3 * dec_s / dec:.2f} ms/step; paged-decode kernel launched "
-          f"{counts['paged_attention_fwd']} = {layers} x {dec}, rmsnorm "
-          f"{counts['rmsnorm_fwd']} = {norms} x ({pre} + {dec}); none "
-          f"forced over budget; peak device memory {peak:.2f} GiB")
+          f"{counts['paged_attention_fwd']} = {layers} x {dec}, "
+          f"{norms_line(counts, arch, pre, dec)}; none forced over budget; "
+          f"peak device memory {peak:.2f} GiB")
     decode_step_profile(backends[0], f"phase {n} decode-step profile")
     return counts
 
@@ -576,18 +612,30 @@ def decode_step_profile(be, label: str, batch: int = 8,
         logits, state["cache"] = decode(be.params, state["cache"], token,
                                         active)
         return logits
-    profile_steps(label, step, batch, ctx, steps)
+    profile_steps(label, step, batch, ctx, steps, absent=rope_kernels(cfg))
+
+
+def rope_kernels(cfg) -> tuple:
+    """Names (substrings) of the eager kernels RoPE launched before the
+    fusion, which a decode step of ``cfg`` must not run: ``cos`` and
+    ``sin``, and ``cat`` where no Mamba2 layer runs one (its conv step
+    concatenates the window)."""
+    names = ("cos_kernel", "sin_kernel")
+    if cfg.family not in ("ssm", "hybrid"):
+        names += ("CatArrayBatchedCopy",)
+    return names
 
 
 def profile_steps(label: str, step, batch: int, ctx: int,
                   steps: int = 5, unit: str = "step",
-                  share: str = "") -> None:
+                  share: str = "", absent: tuple = ()) -> None:
     """``torch.profiler`` over ``steps`` calls of ``step`` (one decode
     step, or one prefill, returning its logits), each ending in the greedy
     read-back as in serving; timed first without the profiler and then
     under it.  Device busy time is the sum of the kernels' times (one
     stream, so they do not overlap).  With ``share``, also the time and
-    share of busy of the kernels whose name holds it."""
+    share of busy of the kernels whose name holds it.  No kernel's name
+    may hold any of ``absent``."""
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -606,6 +654,10 @@ def profile_steps(label: str, step, batch: int, ctx: int,
               f"batch {batch}); the profiler saw no device time: busy and "
               f"idle share not measured")
         return
+    found = sorted({e.name[:80] for e in kernels
+                    if any(a in e.name for a in absent)})
+    if found:
+        raise AssertionError(f"{label}: kernels that must not run: {found}")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
     by_name = {}
     for e in kernels:
@@ -623,7 +675,8 @@ def profile_steps(label: str, step, batch: int, ctx: int,
           f"{1e3 * busy / steps:.3f} ms per {unit} ({len(kernels) // steps} "
           f"kernels): idle share {1 - busy / steps / plain_wall:.3f} of an "
           f"unprofiled {unit}, {1 - busy / wall:.3f} of the profiled "
-          f"window{named}; top kernels ms/{unit}: "
+          f"window{named}{'; none named ' if absent else ''}"
+          f"{'/'.join(absent)}; top kernels ms/{unit}: "
           + "; ".join(f"{n[:100]} {t:.3f}" for n, t in top))
 
 
@@ -996,10 +1049,9 @@ def phase_dense_path(n: int, arch: str, argv, layers: int) -> dict:
     pre = sum(be.prefill_calls for be in backends)
     dec = sum(be.decode_calls for be in backends)
     fl, de = counts["flash_attention_fwd"], counts["decode_attention_fwd"]
-    norms = NORMS_PER_CALL[arch]
     check_launches(counts, {"flash_attention_fwd": layers * pre,
                             "decode_attention_fwd": layers * dec,
-                            "rmsnorm_fwd": norms * (pre + dec)}, cfg, layers)
+                            **norm_launches(arch, pre + dec)}, cfg, layers)
     if pre == 0 or dec == 0 or summary["forced_steps"]:
         raise AssertionError(f"{pre} prefill calls, {dec} decode steps, "
                              f"{summary['forced_steps']} steps forced over "
@@ -1013,8 +1065,8 @@ def phase_dense_path(n: int, arch: str, argv, layers: int) -> dict:
           f"{pre} prefill calls, flash kernel launched {fl} = {layers} x "
           f"{pre}; {dec} decode steps, mean {1e3 * dec_s / dec:.2f} "
           f"ms/step, decode kernel launched {de} = {layers} x {dec}; "
-          f"rmsnorm {counts['rmsnorm_fwd']} = {norms} x ({pre} + {dec}); "
-          f"none forced over budget; peak device memory {peak:.2f} GiB")
+          f"{norms_line(counts, arch, pre, dec)}; none forced over budget; "
+          f"peak device memory {peak:.2f} GiB")
     dense_decode_profile(backends[0], f"phase {n} dense decode-step profile")
     return counts
 
@@ -1036,7 +1088,8 @@ def dense_decode_profile(be, label: str, batch: int = 8,
     def step():
         logits, state["cache"] = decode(be.params, state["cache"], token)
         return logits
-    profile_steps(label, step, batch, ctx, steps)
+    profile_steps(label, step, batch, ctx, steps,
+                  absent=rope_kernels(be.cfg))
 
 
 # --- phase 7 -----------------------------------------------------------------
@@ -1264,11 +1317,10 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
     dec = sum(be.decode_calls for be in backends)
     n_apps = (cfg.num_layers // cfg.attn_every if cfg.family == "hybrid"
               else 0)
-    norms = NORMS_PER_CALL[arch]
     check_launches(counts, {"flash_attention_fwd": apps * pre,
                             "decode_attention_fwd": apps * dec,
                             "ssd_scan_fwd": layers * pre,
-                            "rmsnorm_fwd": norms * (pre + dec)}, cfg, layers)
+                            **norm_launches(arch, pre + dec)}, cfg, layers)
     if n_apps != apps or pre == 0 or dec == 0:
         raise AssertionError(f"{n_apps} shared-attention applications (want "
                              f"{apps}), {pre} prefill calls, {dec} decode "
@@ -1282,8 +1334,8 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
           f"({tok / out['wall_s']:.1f} tok/s); {pre} prefill calls, {dec} "
           f"decode steps, mean {1e3 * dec_s / dec:.2f} ms/step; launches "
           f"{counts} = ssd {layers} x {pre}, flash {apps} x {pre}, decode "
-          f"{apps} x {dec}, rmsnorm {norms} x ({pre} + {dec}), every SSD "
-          f"launch at phase 8's "
+          f"{apps} x {dec}, {norms_line(counts, arch, pre, dec)}, every "
+          f"SSD launch at phase 8's "
           f"{SSD_MAIN[arch]} case; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     dense_decode_profile(backends[0],
@@ -1344,56 +1396,190 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b).abs() / torch.exp2(e - 7)).max().item()
 
 
+#: the RMSNorm kernels, and the timed shape of each (``cases.py``'s
+#: RMSNORM_TIMED or FUSED_TIMED) whose numbers go into the JSON line: the
+#: MoE path's decode step, and zamba2's prefill for the gated norm
+NORM_JSON = {"rmsnorm_fwd": "qwen3-moe decode",
+             "add_rmsnorm_fwd": "qwen3-moe decode",
+             "qk_norm_rope_fwd": "qwen3-moe paged decode",
+             "gated_rmsnorm_fwd": "zamba2 prefill"}
+
+
+def norm_cases():
+    """This checkout's ``kernels/rmsnorm/cases.py``, loaded from its file
+    (it imports the package only inside its functions), so that
+    ``--kernel-times SRC`` times another checkout's package at this
+    tree's shapes and against this tree's unfused sequences."""
+    import importlib.util
+    path = ROOT / "src" / "repro_torch" / "kernels" / "rmsnorm" / "cases.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_norm_cases",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _differ(got, want) -> int:
+    """Elements of ``got`` that differ from ``want`` (outputs of one call:
+    a tensor or a tuple of them)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    n = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{g.shape} {g.dtype} vs {w.shape} "
+                                 f"{w.dtype}")
+        n += int((g != w).sum())
+    return n
+
+
 def phase_rmsnorm_kernel_vs_plain() -> dict:
-    """The RMSNorm kernel against its plain version on the card, every
-    case of ``kernels/rmsnorm/cases.py`` in four (x, w) dtype pairs; then
-    timed in bf16 at the paths' shapes (eight inputs cycled) beside its
-    bound (x and w read once, the output written once), the plain version
-    and ``torch.nn.functional.rms_norm``.  Returns the timing of each
-    shape, by name."""
+    """The RMSNorm kernels against their plain versions on the card, in
+    four (x, w) dtype pairs: ``rmsnorm_fwd``, ``add_rmsnorm_fwd`` and
+    ``gated_rmsnorm_fwd`` on every case of ``RMSNORM_CASES``,
+    ``qk_norm_rope_fwd`` on every case of ``QK_ROPE_CASES``; each fused
+    kernel must also equal the unfused card sequence in every element.
+    Then timed (``time_norm_kernels``).  Returns the JSON numbers of each
+    kernel, by name."""
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.rmsnorm.cases import (RMSNORM_CASES,
-                                                   RMSNORM_DTYPES,
-                                                   RMSNORM_TIMED,
-                                                   rmsnorm_case_on)
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    errs, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for seed, (name, shape, layout) in enumerate(RMSNORM_CASES):
-        for xdt, wdt in RMSNORM_DTYPES:
-            x, w = rmsnorm_case_on(DEVICE, xdt, wdt, shape, layout, seed)
-            got = rms_ops.rmsnorm(x, w, 1e-6)
-            ref = rmsnorm_ref(x, w, 1e-6)
-            torch.cuda.synchronize()
-            if got.shape != x.shape or got.dtype != xdt:
-                raise AssertionError(f"{name}: {got.shape} {got.dtype}")
-            worst[xdt] = max(worst[xdt], _check_close(
-                f"{name}/w{str(wdt)[6:]}", xdt, got, ref, errs))
-    print(f"phase 12 rmsnorm kernel vs plain: {len(errs)} cases ok "
-          f"({len(RMSNORM_CASES)} shapes and layouts x {len(RMSNORM_DTYPES)} "
-          f"(x, w) dtype pairs), max abs err f32 "
-          f"{worst[torch.float32]:.3g} (tol {TOL[torch.float32]}), bf16 "
-          f"{worst[torch.bfloat16]:.3g} (tol {TOL[torch.bfloat16]})")
+    from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
+                                                 gated_rmsnorm_ref,
+                                                 qk_norm_rope_ref,
+                                                 rmsnorm_ref)
+    C = norm_cases()
+    worst = {name: 0.0 for name in NORM_JSON}
+    cases = {name: 0 for name in NORM_JSON}
+    differ = {name: 0 for name in NORM_JSON}
+
+    def check(name, label, xdt, got, ref):
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        for g, r in zip(got, ref, strict=True):
+            if g.shape != r.shape or g.dtype != xdt:
+                raise AssertionError(f"{name} {label}: {g.shape} {g.dtype}")
+            if g.numel():                                 # else no rows
+                worst[name] = max(worst[name], _check_close(
+                    f"{name} {label}", xdt, g, r, []))
+        cases[name] += 1
+
+    for seed, (case, shape, layout) in enumerate(C.RMSNORM_CASES):
+        for xdt, wdt in C.RMSNORM_DTYPES:
+            label = f"{case}/w{str(wdt)[6:]}"
+            x, w = C.rmsnorm_case_on(DEVICE, xdt, wdt, shape, layout, seed)
+            check("rmsnorm_fwd", label, xdt, rms_ops.rmsnorm(x, w, 1e-6),
+                  rmsnorm_ref(x, w, 1e-6))
+            a, b, w = C.pair_case_on(DEVICE, xdt, wdt, shape, layout, seed)
+            got = rms_ops.add_rmsnorm(a, b, w, 1e-6)
+            check("add_rmsnorm_fwd", label, xdt, got,
+                  add_rmsnorm_ref(a, b, w, 1e-6))
+            differ["add_rmsnorm_fwd"] += _differ(
+                got, C.add_rmsnorm_unfused(a, b, w, 1e-6))
+            got = rms_ops.gated_rmsnorm(a, b, w, 1e-6)
+            check("gated_rmsnorm_fwd", label, xdt, got,
+                  gated_rmsnorm_ref(a, b, w, 1e-6))
+            differ["gated_rmsnorm_fwd"] += _differ(
+                got, C.gated_rmsnorm_unfused(a, b, w, 1e-6))
+    theta = C.QK_ROPE_THETA
+    for seed, (case, dims, positions, norm, layout) in \
+            enumerate(C.QK_ROPE_CASES):
+        for xdt, wdt in C.RMSNORM_DTYPES:
+            args = C.qk_rope_case_on(DEVICE, xdt, wdt, dims, positions, norm,
+                                     layout, seed)
+            got = rms_ops.qk_norm_rope(*args, theta, 1e-6)
+            check("qk_norm_rope_fwd", f"{case}/w{str(wdt)[6:]}", xdt, got,
+                  qk_norm_rope_ref(*args, theta, 1e-6))
+            differ["qk_norm_rope_fwd"] += _differ(
+                got, C.qk_norm_rope_unfused(*args, theta, 1e-6))
+    torch.cuda.synchronize()
+    for name in NORM_JSON:
+        unfused = ("" if name == "rmsnorm_fwd" else
+                   f"; {differ[name]} elements differ from the unfused card "
+                   f"sequence")
+        print(f"phase 12 {name} vs plain: {cases[name]} cases ok (shapes, "
+              f"layouts and (x, w) dtype pairs), max abs err "
+              f"{worst[name]:.3g} (tol f32 {TOL[torch.float32]}, bf16 "
+              f"{TOL[torch.bfloat16]}){unfused}")
+    if any(differ.values()):
+        raise AssertionError(f"fused kernels differ from the unfused card "
+                             f"sequences: {differ}")
+    timing = time_norm_kernels("phase 12", C)
+    return {name: dict(max_abs_err=worst[name], **timing[name])
+            for name in NORM_JSON}
+
+
+def fused_inputs(entry: str, arch: str, B: int, S: int, positions, seed):
+    """Inputs of one fused kernel at one of the paths' launches (bf16, the
+    arch's widths; random values from ``seed``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import mamba2_dims
+    cfg, dtype = get_config(arch), torch.bfloat16
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def weight(d):
+        return 1 + 0.1 * _rand(gen, (d,), dtype)
+    if entry == "add_rmsnorm_fwd":
+        d = cfg.d_model
+        return (_rand(gen, (B, S, d), dtype), _rand(gen, (B, S, d), dtype),
+                weight(d))
+    if entry == "gated_rmsnorm_fwd":
+        dm = mamba2_dims(cfg)
+        z = _rand(gen, (B, S, dm["in_dim"]), dtype)[..., :dm["di"]]
+        return _rand(gen, (B, S, dm["di"]), dtype), z, weight(dm["di"])
+    hd = cfg.head_dim
+    q = _rand(gen, (B, S, cfg.num_heads, hd), dtype)
+    k = _rand(gen, (B, S, cfg.num_kv_heads, hd), dtype)
+    wq, wk = ((weight(hd), weight(hd)) if cfg.use_qk_norm else (None, None))
+    pos = {"rows": lambda: torch.randint(128, 161, (B, 1), generator=gen,
+                                         device=DEVICE, dtype=torch.int32),
+           "one": lambda: torch.full((1,), 150, dtype=torch.int32,
+                                     device=DEVICE),
+           "seq": lambda: torch.arange(S, device=DEVICE)}[positions]()
+    return q, k, wq, wk, pos
+
+
+#: operations per element of the normed activations: the norm's 4 (square
+#: and add, scale, times w); the add's 1; the gate's silu (exp, add,
+#: divide) and mul; RoPE's two products and a sum, and per pair the angle,
+#: cos and sin.  All fp32 on the CUDA cores.
+NORM_OPS = {"rmsnorm_fwd": 4, "add_rmsnorm_fwd": 5, "gated_rmsnorm_fwd": 8,
+            "qk_norm_rope_fwd": 4 + 3 + 1.5}
+
+
+def time_norm_kernels(label: str, C) -> dict:
+    """``rmsnorm_fwd`` at ``C.RMSNORM_TIMED`` beside its bound, the plain
+    version and ``torch.nn.functional.rms_norm``; then each fused kernel at
+    ``C.FUSED_TIMED`` beside its bound, its plain version and the unfused
+    card sequence it replaces (device time of all its kernels), with the
+    elements that differ from that sequence (none may), eight inputs
+    cycled.  A package without the fused kernels (an earlier checkout's,
+    with ``--kernel-times SRC``) has only the unfused sequences timed.
+    One line each; returns the JSON numbers at ``NORM_JSON``'s shapes."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.configs import get_config
     dtype, out = torch.bfloat16, {}
     lib_fn = torch.nn.functional.rms_norm
-    for k, (label, shape) in enumerate(RMSNORM_TIMED.items()):
-        ins = [rmsnorm_case_on(DEVICE, dtype, dtype, shape, "dense", 50 + j)
+    for k, (name, shape) in enumerate(C.RMSNORM_TIMED.items()):
+        ins = [C.rmsnorm_case_on(DEVICE, dtype, dtype, shape, "dense", 50 + j)
                for j in range(8)]
         d = shape[-1]
+        # "norm_kernel" names the row kernels of this tree and of earlier ones
         ker = timed(lambda i: rms_ops.rmsnorm(*ins[i % 8], 1e-6), 400,
-                    "rmsnorm_kernel")
-        plain = timed(lambda i: rmsnorm_ref(*ins[i % 8], 1e-6), 100)
+                    "norm_kernel")
+        plain = timed(lambda i: rms_ref.rmsnorm_ref(*ins[i % 8], 1e-6), 100)
         lib = timed(lambda i: lib_fn(ins[i % 8][0], (d,), ins[i % 8][1],
                                      1e-6), 400)
         x, w = ins[0]
-        mine = rms_ops.rmsnorm(x, w, 1e-6)
-        ulps = bf16_ulps(lib_fn(x, (d,), w, 1e-6), mine)
+        ulps = bf16_ulps(lib_fn(x, (d,), w, 1e-6), rms_ops.rmsnorm(x, w, 1e-6))
         numel = x.numel()
         nbytes = 2 * numel * x.element_size() + d * w.element_size()
-        bound_ms, bound_by = bound(nbytes, 4 * numel, dtype)
-        out[label] = dict(ms=ker["ms"], plain_ms=plain["ms"],
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=lib["ms"])
-        print(f"phase 12 rmsnorm {label} bf16 {tuple(shape)}: device time "
+        bound_ms, bound_by = bound(nbytes, NORM_OPS["rmsnorm_fwd"] * numel,
+                                   torch.float32)
+        if name == NORM_JSON["rmsnorm_fwd"]:
+            out["rmsnorm_fwd"] = dict(ms=ker["ms"], plain_ms=plain["ms"],
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=lib["ms"])
+        print(f"{label} rmsnorm {name} bf16 {tuple(shape)}: device time "
               f"kernel {_us(ker)}, plain {_us(plain)}, F.rms_norm "
               f"{_us(lib)}, bound {bound_ms * 1e3:.4f} us ({bound_by}: "
               f"{nbytes / 1e6:.3f} MB); F.rms_norm vs kernel max "
@@ -1401,9 +1587,61 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
               f"{'the same' if ulps <= 1 else 'not the same'} function to "
               f"1 ulp")
         del ins
-    worst_all = max(worst.values())
-    return {label: dict(max_abs_err=worst_all, **t)
-            for label, t in out.items()}
+    fused = hasattr(rms_ops, "add_rmsnorm")
+    for entry, launches in C.FUSED_TIMED.items():
+        op = entry[:-4]
+        for name, arch, B, S, *pos in launches:
+            theta = get_config(arch).rope_theta
+            extra = (theta,) if pos else ()
+            ins = [fused_inputs(entry, arch, B, S, pos[0] if pos else None,
+                                60 + j) for j in range(8)]
+            iters = 400 if S == 1 else 100
+            unfused_fn = getattr(C, f"{op}_unfused")
+            unf = timed(lambda i: unfused_fn(*ins[i % 8], *extra, 1e-6),
+                        iters // 4)
+            shapes = tuple(tuple(t.shape) for t in ins[0] if t is not None
+                           and t.dim() > 1)
+            if not fused:
+                print(f"{label} {op} {name} bf16 {shapes}: device time of "
+                      f"the unfused card sequence {_us(unf)} (this package "
+                      f"has no fused kernel)")
+                continue
+            fn = getattr(rms_ops, op)
+            plain_fn = getattr(rms_ref, f"{op}_ref")
+            ker = timed(lambda i: fn(*ins[i % 8], *extra, 1e-6), iters,
+                        "qk_norm_rope_kernel" if pos else "norm_kernel")
+            plain = timed(lambda i: plain_fn(*ins[i % 8], *extra, 1e-6),
+                          iters // 4)
+            got = fn(*ins[0], *extra, 1e-6)
+            diff = _differ(got, unfused_fn(*ins[0], *extra, 1e-6))
+            if diff:
+                raise AssertionError(f"{op} {name}: {diff} elements differ "
+                                     f"from the unfused card sequence")
+            outs = got if isinstance(got, tuple) else (got,)
+            nbytes = (sum(t.numel() * t.element_size()
+                          for t in list(ins[0]) + list(outs)
+                          if t is not None)
+                      + (4 * ins[0][0].shape[-1] // 2 if pos else 0))
+            numel = sum(t.numel() for t in outs)
+            bound_ms, bound_by = bound(nbytes, NORM_OPS[entry] * numel,
+                                       torch.float32)
+            if name == NORM_JSON[entry]:
+                out[entry] = dict(ms=ker["ms"], plain_ms=plain["ms"],
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=None)
+            print(f"{label} {op} {name} bf16 {shapes}"
+                  f"{' positions ' + pos[0] if pos else ''}: device time "
+                  f"kernel {_us(ker)}, plain {_us(plain)}, unfused card "
+                  f"sequence {_us(unf)} ({unf['ms'] / ker['ms']:.1f}x the "
+                  f"kernel); bound {bound_ms * 1e3:.4f} us ({bound_by}: "
+                  f"{nbytes / 1e6:.3f} MB), {bound_ms / ker['ms']:.3f} of it "
+                  f"reached; {diff} elements differ from the unfused "
+                  f"sequence; library: none (no single PyTorch call "
+                  f"computes it)")
+            del ins
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --- phases 13, 14 and 15 ----------------------------------------------------
@@ -1485,9 +1723,9 @@ KERNELS = {
     "ssd_scan_fwd": (
         "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/kernel.py:69"),
-    "rmsnorm_fwd": (
-        "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-        "src/repro/kernels/rmsnorm/kernel.py:22"),
+    **{name: ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm/kernel.py:22")
+       for name in NORM_JSON},
 }
 
 
@@ -1532,9 +1770,7 @@ def main() -> None:
         done(n)
     phase_ssm_parity()
     done(11)
-    rms_timing = phase_rmsnorm_kernel_vs_plain()
-    # the JSON line carries the MoE path's decode-step block norm
-    timing["rmsnorm_fwd"] = rms_timing["qwen3-moe decode"]
+    timing.update(phase_rmsnorm_kernel_vs_plain())
     done(12)
     paths.append(phase_paged_path(13, MOE, MOE_ARGV, 48))
     done(13)
@@ -1561,8 +1797,9 @@ def main() -> None:
 def kernel_times(src: str) -> None:
     """``--kernel-times [SRC]``: build the kernels and time the paged
     kernel at both paged paths' launches (phase 2's timing), both dense
-    attention kernels at every served launch shape (phase 5's) and the SSD
-    kernel at both SSM paths' launches (phase 8's), taking the
+    attention kernels at every served launch shape (phase 5's), the SSD
+    kernel at both SSM paths' launches (phase 8's) and the RMSNorm kernels
+    and unfused sequences at the paths' shapes (phase 12's), taking the
     ``repro_torch`` package from the ``src`` directory SRC of another
     checkout (default: this one), so that two versions are timed on one
     card in one call; prints no JSON."""
@@ -1577,6 +1814,7 @@ def kernel_times(src: str) -> None:
     time_served_shapes(get_config("qwen3-0.6b").num_layers)
     for name in SSD_MAIN.values():
         time_ssd(name)
+    time_norm_kernels("kernel times", norm_cases())
     print(card)
 
 

@@ -79,3 +79,143 @@ def rmsnorm_case_on(device, x_dtype, w_dtype, shape, layout="dense",
         xt = xt[..., :shape[-1]]
     assert tuple(xt.shape) == tuple(shape)
     return xt, torch.from_numpy(w).to(device, w_dtype)
+
+
+def pair_case_on(device, x_dtype, w_dtype, shape, layout="dense", seed=0):
+    """The fused row kernels' inputs: (a, b, w), a and b two draws of
+    ``rmsnorm_case_on`` in the same layout (x and delta of
+    ``add_rmsnorm``; y and z of ``gated_rmsnorm``, z in the model a slice
+    of Mamba2's input projection, as the row-stride layouts are)."""
+    a, w = rmsnorm_case_on(device, x_dtype, w_dtype, shape, layout, seed)
+    b, _ = rmsnorm_case_on(device, x_dtype, w_dtype, shape, layout,
+                           seed + 1000)
+    return a, b, w
+
+
+#: (name, (B, S, Hq, Hkv, D), positions, qk-norm, layout) of the fused
+#: qk-norm-RoPE kernel: every path's heads (qwen3-0.6b 16/8 of 128,
+#: qwen3-moe 32/4 of 128 with qk-norm; zamba2 32/32 of 80, RoPE only) at
+#: every path's positions ("rows": [B, S] int32, the paged paths' per-row
+#: positions; "seq": [S] int64, a prefill's arange; "one": [1] int32, the
+#: dense decode's shared position; "far": [B, S] int64 past 100,000, where
+#: cos and sin take their slow argument reduction), D not a multiple of
+#: the 16-byte vector (20, 6), q and k as head slices of one fused qkv
+#: projection ("fused-qkv": strided heads and tokens), and no rows at all
+QK_ROPE_CASES = [
+    ("qwen3-paged-decode", (8, 1, 16, 8, 128), "rows", True, "dense"),
+    ("qwen3-dense-decode", (8, 1, 16, 8, 128), "one", True, "dense"),
+    ("qwen3-prefill", (8, 128, 16, 8, 128), "seq", True, "dense"),
+    ("qwen3-paged-chunk", (3, 32, 16, 8, 128), "rows", True, "dense"),
+    ("qwen3-moe-decode", (8, 1, 32, 4, 128), "rows", True, "dense"),
+    ("zamba2-d80-decode", (8, 1, 32, 32, 80), "one", False, "dense"),
+    ("zamba2-d80-prefill", (2, 40, 32, 32, 80), "seq", False, "dense"),
+    ("d80-qk-norm", (2, 5, 4, 2, 80), "rows", True, "dense"),
+    ("d64-fused-qkv", (2, 7, 4, 2, 64), "rows", True, "fused-qkv"),
+    ("d80-fused-qkv-no-norm", (2, 3, 4, 4, 80), "seq", False, "fused-qkv"),
+    ("d20-odd-vec", (3, 4, 2, 1, 20), "seq", True, "dense"),
+    ("d6-tiny", (1, 3, 1, 1, 6), "one", True, "dense"),
+    ("far-positions", (2, 3, 4, 2, 128), "far", True, "dense"),
+    ("zero-rows", (0, 4, 2, 1, 16), "seq", True, "dense"),
+]
+#: RoPE's theta for the cases (qwen3's)
+QK_ROPE_THETA = 1e6
+
+
+def qk_rope_case(dims, positions, norm, seed=0):
+    """Numpy inputs of a qk-norm-RoPE case: (q, k, wq, wk, pos), q and k
+    f32, wq and wk None without qk-norm, pos in the case's form and
+    dtype."""
+    B, S, Hq, Hkv, D = dims
+    r = np.random.default_rng(seed)
+    q = r.normal(0, 2, (B, S, Hq, D)).astype(np.float32)
+    k = r.normal(0, 2, (B, S, Hkv, D)).astype(np.float32)
+    wq = r.normal(1, 0.1, (D,)).astype(np.float32) if norm else None
+    wk = r.normal(1, 0.1, (D,)).astype(np.float32) if norm else None
+    start = r.integers(0, 150, (B, 1))
+    pos = {"rows": (start + np.arange(S)).astype(np.int32),
+           "seq": np.arange(S, dtype=np.int64),
+           "one": np.asarray([r.integers(0, 160)], np.int32),
+           "far": (start + 100_000 + 977 * np.arange(S)).astype(np.int64),
+           }[positions]
+    return q, k, wq, wk, pos
+
+
+def qk_rope_case_on(device, x_dtype, w_dtype, dims, positions, norm,
+                    layout="dense", seed=0):
+    """``qk_rope_case`` as tensors on ``device``: q and k in ``x_dtype``
+    (for "fused-qkv", head views of one [B, S, (Hq + 2 Hkv) * D]
+    projection), the weights in ``w_dtype``."""
+    B, S, Hq, Hkv, D = dims
+    q, k, wq, wk, pos = qk_rope_case(dims, positions, norm, seed)
+    qt = torch.from_numpy(q).to(device, x_dtype)
+    kt = torch.from_numpy(k).to(device, x_dtype)
+    if layout == "fused-qkv":
+        qkv = torch.zeros((B, S, (Hq + 2 * Hkv) * D), dtype=x_dtype,
+                          device=device)
+        qkv[..., :Hq * D] = qt.flatten(2)
+        qkv[..., Hq * D:(Hq + Hkv) * D] = kt.flatten(2)
+        qt = qkv[..., :Hq * D].unflatten(-1, (Hq, D))
+        kt = qkv[..., Hq * D:(Hq + Hkv) * D].unflatten(-1, (Hkv, D))
+    ws = [None if a is None else torch.from_numpy(a).to(device, w_dtype)
+          for a in (wq, wk)]
+    return qt, kt, ws[0], ws[1], torch.from_numpy(pos).to(device)
+
+
+#: the fused kernels at the paths' launches that ``chip_smoke.py`` times, by
+#: entry point: (name, arch, B, S) and, for qk_norm_rope, the positions'
+#: form (as in QK_ROPE_CASES); the widths, heads and qk-norm are the
+#: arch's (gated_rmsnorm's z is the first d_inner columns of the arch's
+#: Mamba2 input projection, as the model passes it)
+FUSED_TIMED = {
+    "add_rmsnorm_fwd": [
+        ("qwen3-0.6b decode", "qwen3-0.6b", 8, 1),
+        ("qwen3-moe decode", "qwen3-moe-30b-a3b", 8, 1),
+        ("mamba2 decode", "mamba2-780m", 8, 1),
+        ("zamba2 decode", "zamba2-2.7b", 8, 1),
+        ("qwen3-0.6b prefill", "qwen3-0.6b", 8, 128),
+        ("mamba2 prefill", "mamba2-780m", 8, 384),
+    ],
+    "qk_norm_rope_fwd": [
+        ("qwen3-0.6b paged decode", "qwen3-0.6b", 8, 1, "rows"),
+        ("qwen3-0.6b dense decode", "qwen3-0.6b", 8, 1, "one"),
+        ("qwen3-moe paged decode", "qwen3-moe-30b-a3b", 8, 1, "rows"),
+        ("zamba2 decode", "zamba2-2.7b", 8, 1, "one"),
+        ("qwen3-0.6b prefill", "qwen3-0.6b", 8, 128, "seq"),
+    ],
+    "gated_rmsnorm_fwd": [
+        ("mamba2 decode", "mamba2-780m", 8, 1),
+        ("zamba2 decode", "zamba2-2.7b", 8, 1),
+        ("zamba2 prefill", "zamba2-2.7b", 8, 128),
+        ("mamba2 prefill", "mamba2-780m", 8, 384),
+    ],
+}
+
+
+# --- the unfused card sequences each fused kernel replaces: what the model
+# ran before the fusion, the RMSNorm op (its kernel on the card) beside
+# torch's own launches.  Each fused kernel must equal its sequence bit for
+# bit on the card.  They import the package lazily and use only what an
+# earlier tree of it has too, so that ``chip_smoke.py --kernel-times SRC``
+# can time them on another checkout's package.
+
+def add_rmsnorm_unfused(x, delta, w, eps=1e-6):
+    """torch's add, then the RMSNorm op: (out, r)."""
+    from repro_torch.kernels.rmsnorm import ops
+    r = x + delta
+    return ops.rmsnorm(r, w, eps), r
+
+
+def gated_rmsnorm_unfused(y, z, w, eps=1e-6):
+    """``F.silu``, torch's mul, then the RMSNorm op."""
+    from repro_torch.kernels.rmsnorm import ops
+    return ops.rmsnorm(y * torch.nn.functional.silu(z), w, eps)
+
+
+def qk_norm_rope_unfused(q, k, wq, wk, positions, theta, eps=1e-6):
+    """The RMSNorm op on q and on k (when weights are given), then
+    ``apply_rope``'s eager ops on each: (q', k')."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.models.layers import apply_rope
+    if wq is not None:
+        q, k = ops.rmsnorm(q, wq, eps), ops.rmsnorm(k, wk, eps)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta)

@@ -1,35 +1,73 @@
-// RMSNorm for Hopper: out = x * rsqrt(mean(x^2) + eps) * w per row, in
-// fp32, cast to x's dtype.
+// RMSNorm for Hopper, and the three fusions that take over its neighbours:
+//
+//   rmsnorm_fwd        out = norm(x) * w
+//   add_rmsnorm_fwd    r = T(x + delta) written out; out = norm(r) * w
+//   gated_rmsnorm_fwd  out = norm(T(y * T(silu(z)))) * w
+//   qk_norm_rope_fwd   per head of q and k: T(norm(x) * w) (when weights
+//                      are given), then the rotary rotation at its position
+//
+// where norm(v) = v * rsqrt(mean(v^2) + eps) in fp32, T is x's dtype and
+// T(.) one rounding to it.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm/kernel.py
 // (rmsnorm_fwd, body _rms_kernel) and computes what it computes, which is
 // also the JAX package's models/layers.py::rms_norm: the mean of squares
-// in fp32, rsqrt, (x * inv) * w in fp32, one rounding to x's dtype.
+// in fp32, rsqrt, (x * inv) * w in fp32, one rounding to x's dtype.  The
+// fused entry points add the work on either side of a norm that the model
+// would otherwise launch on its own: the residual add before a pre-norm,
+// Mamba2's gate before its norm, and RoPE after the qk-norm
+// (kernels/rmsnorm/ref.py::apply_rope).
 //
-// Bound: memory.  A call must read x and w once and write out once, and
-// does about 4 flops per element.  The design reads each row with 16-byte
-// loads in two passes: the first sums the squares in fp32 (warp shuffles,
-// then shared memory across the warps of a block), the second reads the
-// row again (from L1/L2: a row is at most a few KB) with w and writes the
-// output.  A row of d <= 1024 is one warp's work (four rows per block of
-// 128 threads, so the qk-norm's 128-wide rows keep the card busy); a
-// longer row is one block of 256 threads.  The Pallas wrapper pads the
-// rows to its block; here a row is a warp or a block, so nothing is
-// padded.  Rows are read through a row stride, so a 2-D view of a larger
-// tensor is taken as it is; the output is contiguous.  Where d, the
-// stride or a pointer does not allow 16-byte loads, the same kernel runs
-// with one element per load.
+// Bound: memory, and at the decode shapes the launch itself.  A call must
+// read its inputs and w once and write its outputs once, and does a few
+// flops per element (RoPE: a cos and a sin per pair).  A standalone norm
+// at [8, 1024] moves 33 KB, 0.01 us at the memory rate, and no launch
+// takes less than about 1.5 us; so the design takes over the neighbours'
+// launches instead of shaving the norm's own time.
 //
-// C interface (bound with ctypes): rmsnorm_fwd returns the cudaError_t of
-// the launch; dtype 0 = float32, 1 = bfloat16, for x (and out) and w
-// separately; vec = 1 takes 16-byte loads, which the launcher allows
-// only where d, the row stride and every pointer are aligned for them
-// (kernel.py ``vectorized``), else one element per load.
+// Design.  Every entry point runs the same sum of squares (inv_rms) in the
+// same order: a row's d values in groups of kVec (16 bytes of T when d is a
+// multiple of it, else 1), thread t of the row's threads summing groups t,
+// t + kRowThreads, ... with explicit fmas, then warp shuffles, then shared
+// memory across the warps of a block.  The grouping depends on d and T
+// only; whether a group is one 16-byte load or kVec loads of one element
+// (a row stride or pointer that breaks the vector) does not change the
+// values or their order.  So a fused variant's norm is bit-identical to
+// rmsnorm_fwd of the tensor the unfused path would have materialised (r,
+// the gated product, or the qk-norm's input).  A row of d <= 512 (a head
+// of q or k) is one warp's work (four rows per block of 128 threads), a
+// longer row one block of 256 threads: a decode step's norms are 8 rows,
+// and a warp would walk a 1,024-wide row in four dependent steps where a
+// block takes one (1.8 against 3.1 us at [8, 1024] on an H100,
+// chip_smoke.py phase 12).  The split follows d
+// alone, so the fused variants and rmsnorm_fwd always agree on it.  The
+// row's values come from a policy (PlainRow, AddRow,
+// GatedRow) that the reduction and the write-out both call: the second
+// pass recomputes them from the inputs (from L1/L2: a row is a few KB)
+// rather than reading back what the first pass wrote.
+//
+// Bit-exact against the eager PyTorch sequence each fusion replaces:
+// every operation torch runs in its own launch is done here with the
+// rounding intrinsics (__fadd_rn, __fmul_rn, __fsub_rn, __fdiv_rn), so
+// nvcc contracts nothing into an fma that eager torch does not have;
+// silu is z / (1 + expf(-z)) with full-precision expf, as torch's is; the
+// RoPE angle is float(pos) * inv_freq[i] with the inverse frequencies
+// computed on the card by the same torch ops as apply_rope's, and cos and
+// sin are full precision; each value torch would round to T between two
+// launches is rounded here at the same point (round_to).
+//
+// C interface (bound with ctypes): every entry point returns the
+// cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16, for x (and
+// every other activation, and the outputs) and w separately; vec = 1
+// takes 16-byte loads, which the launcher allows only where d, every row
+// stride and every pointer are aligned for them (kernel.py
+// ``vectorized``).  Rows are read through their row stride; every output
+// is contiguous.
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarpRowMaxD = 1024;  // kernel.py WARP_ROW_MAX_D mirrors it
+constexpr int kWarpRowMaxD = 512;  // kernel.py WARP_ROW_MAX_D mirrors it
 constexpr int kWarpModeThreads = 128;
 constexpr int kBlockModeThreads = 256;
 
@@ -38,39 +76,109 @@ struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
-// N elements of T at p (aligned to the whole vector) in one load
-template <int N, typename T>
-__device__ __forceinline__ Vec<T, N> load(const T* p) {
-  return *reinterpret_cast<const Vec<T, N>*>(p);
+// f as torch holds it after a launch writes it in T
+template <typename T>
+__device__ __forceinline__ float round_to(float f) {
+  T t;
+  attn::store(&t, f);
+  return attn::to_f32(t);
 }
 
-// kRowThreads threads per row (32: a warp; else the whole block), kVec
-// elements of x per load
-template <typename T, typename W, int kVec, int kThreads, int kRowThreads>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, long long x_stride,
-               const W* __restrict__ w, T* __restrict__ out, int rows,
-               int d, float eps) {
-  constexpr int kRowsPerBlock = kThreads / kRowThreads;
-  constexpr int kWarps = kRowThreads / 32;
-  const int t = threadIdx.x % kRowThreads;
-  const long long row =
-      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kRowThreads;
-  // with one row per warp, a warp past the last row leaves as a whole
-  // (only warp shuffles follow); with one row per block, every row exists
-  if (row >= rows) return;
-  const T* xr = x + row * x_stride;
-  T* outr = out + row * (long long)d;
-  const int nv = d / kVec;
+// kVec values of T at p as floats: one 16-byte load when kVecLoad (p
+// aligned to the whole vector), else kVec loads of one element
+template <int kVec, bool kVecLoad, typename T>
+__device__ __forceinline__ void load_group(const T* p, float (&v)[kVec]) {
+  if constexpr (kVecLoad) {
+    const Vec<T, kVec> a = *reinterpret_cast<const Vec<T, kVec>*>(p);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = attn::to_f32(a.v[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = attn::to_f32(p[k]);
+  }
+}
 
-  float ss = 0.f;
-  for (int i = t; i < nv; i += kRowThreads) {
-    const Vec<T, kVec> a = load<kVec>(xr + i * kVec);
+template <int kVec, bool kVecLoad, typename T>
+__device__ __forceinline__ void store_group(T* p, const float (&v)[kVec]) {
+  if constexpr (kVecLoad) {
+    Vec<T, kVec> o;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) attn::store(&o.v[k], v[k]);
+    *reinterpret_cast<Vec<T, kVec>*>(p) = o;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) attn::store(p + k, v[k]);
+  }
+}
+
+// --- the row's values: first() in the reduction pass, again() in the
+// write-out pass; both give the same values --------------------------------
+
+template <typename T, int kVec, bool kVecLoad>
+struct PlainRow {
+  const T* x;
+  __device__ __forceinline__ void again(int g, float (&v)[kVec]) const {
+    load_group<kVec, kVecLoad>(x + g * kVec, v);
+  }
+  __device__ __forceinline__ void first(int g, float (&v)[kVec]) const {
+    again(g, v);
+  }
+};
+
+// r = T(x + delta): torch's add, one launch, then the norm of r
+template <typename T, int kVec, bool kVecLoad>
+struct AddRow {
+  const T* x;
+  const T* delta;
+  T* r;
+  __device__ __forceinline__ void again(int g, float (&v)[kVec]) const {
+    float a[kVec], b[kVec];
+    load_group<kVec, kVecLoad>(x + g * kVec, a);
+    load_group<kVec, kVecLoad>(delta + g * kVec, b);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = round_to<T>(__fadd_rn(a[k], b[k]));
+  }
+  __device__ __forceinline__ void first(int g, float (&v)[kVec]) const {
+    again(g, v);
+    store_group<kVec, kVecLoad>(r + g * kVec, v);
+  }
+};
+
+// T(y * T(silu(z))): torch's F.silu (z / (1 + exp(-z)) in fp32, rounded
+// to T), then its mul (rounded to T), then the norm of the product
+template <typename T, int kVec, bool kVecLoad>
+struct GatedRow {
+  const T* y;
+  const T* z;
+  __device__ __forceinline__ void again(int g, float (&v)[kVec]) const {
+    float a[kVec], b[kVec];
+    load_group<kVec, kVecLoad>(y + g * kVec, a);
+    load_group<kVec, kVecLoad>(z + g * kVec, b);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const float f = attn::to_f32(a.v[k]);
-      ss += f * f;
+      const float e = __fadd_rn(1.f, expf(-b[k]));
+      const float s = round_to<T>(__fdiv_rn(b[k], e));
+      v[k] = round_to<T>(__fmul_rn(a[k], s));
     }
+  }
+  __device__ __forceinline__ void first(int g, float (&v)[kVec]) const {
+    again(g, v);
+  }
+};
+
+// The one reduction: rsqrt(mean(v^2) + eps) of the row, kRowThreads
+// threads per row (32: a warp; else the whole block).  Thread t sums
+// groups t, t + kRowThreads, ... in that order.
+template <int kVec, int kRowThreads, class Row>
+__device__ __forceinline__ float inv_rms(const Row& row, int d, float eps) {
+  constexpr int kWarps = kRowThreads / 32;
+  const int t = threadIdx.x % kRowThreads;
+  float ss = 0.f;
+  for (int g = t; g < d / kVec; g += kRowThreads) {
+    float v[kVec];
+    row.first(g, v);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) ss = __fmaf_rn(v[k], v[k], ss);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
@@ -89,49 +197,177 @@ rmsnorm_kernel(const T* __restrict__ x, long long x_stride,
     __syncthreads();
     ss = total;
   }
-  const float inv = rsqrtf(ss / (float)d + eps);
+  return rsqrtf(ss / (float)d + eps);
+}
 
-  for (int i = t; i < nv; i += kRowThreads) {
-    const Vec<T, kVec> a = load<kVec>(xr + i * kVec);
-    const Vec<W, kVec> b = load<kVec>(w + i * kVec);
-    Vec<T, kVec> o;
+// --- rmsnorm_fwd, add_rmsnorm_fwd, gated_rmsnorm_fwd -----------------------
+
+enum class Op { kNorm, kAdd, kGated };
+
+struct RowArgs {
+  const void* a;  // x (kNorm, kAdd) or y (kGated)
+  long long a_stride;
+  const void* b;  // delta (kAdd) or z (kGated); unused by kNorm
+  long long b_stride;
+  const void* w;
+  void* out;
+  void* r;  // kAdd: the residual x + delta
+  int rows, d;
+  float eps;
+};
+
+template <Op kOp, typename T, typename W, int kVec, bool kVecLoad,
+          int kThreads, int kRowThreads>
+__global__ void __launch_bounds__(kThreads) norm_kernel(const RowArgs args) {
+  constexpr int kRowsPerBlock = kThreads / kRowThreads;
+  const int t = threadIdx.x % kRowThreads;
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kRowThreads;
+  // with one row per warp, a warp past the last row leaves as a whole
+  // (only warp shuffles follow); with one row per block, every row exists
+  if (row >= args.rows) return;
+  const int d = args.d;
+  const T* a = static_cast<const T*>(args.a) + row * args.a_stride;
+  const T* b = static_cast<const T*>(args.b) + row * args.b_stride;
+  const W* w = static_cast<const W*>(args.w);
+  T* outr = static_cast<T*>(args.out) + row * (long long)d;
+
+  auto run = [&](const auto& values) {
+    const float inv = inv_rms<kVec, kRowThreads>(values, d, args.eps);
+    for (int g = t; g < d / kVec; g += kRowThreads) {
+      float v[kVec], wv[kVec];
+      values.again(g, v);
+      load_group<kVec, kVecLoad>(w + g * kVec, wv);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      const float y = attn::to_f32(a.v[k]) * inv;  // (x * inv) * w, as
-      attn::store(&o.v[k], y * attn::to_f32(b.v[k]));  // the reference
+      for (int k = 0; k < kVec; ++k)  // (x * inv) * w, as the reference
+        v[k] = __fmul_rn(__fmul_rn(v[k], inv), wv[k]);
+      store_group<kVec, kVecLoad>(outr + g * kVec, v);
     }
-    *reinterpret_cast<Vec<T, kVec>*>(outr + i * kVec) = o;
+  };
+  if constexpr (kOp == Op::kNorm) {
+    run(PlainRow<T, kVec, kVecLoad>{a});
+  } else if constexpr (kOp == Op::kAdd) {
+    T* r = static_cast<T*>(args.r) + row * (long long)d;
+    run(AddRow<T, kVec, kVecLoad>{a, b, r});
+  } else {
+    run(GatedRow<T, kVec, kVecLoad>{a, b});
   }
 }
 
-template <typename T, typename W, int kVec>
-cudaError_t launch_vec(const void* x, long long x_stride, const void* w,
-                       void* out, int rows, int d, float eps,
-                       cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const W* wp = static_cast<const W*>(w);
-  T* op = static_cast<T*>(out);
-  if (d <= kWarpRowMaxD) {
+template <Op kOp, typename T, typename W, int kVec, bool kVecLoad>
+cudaError_t launch_mode(const RowArgs& a, cudaStream_t stream) {
+  if (a.d <= kWarpRowMaxD) {
     constexpr int kRows = kWarpModeThreads / 32;
-    rmsnorm_kernel<T, W, kVec, kWarpModeThreads, 32>
-        <<<(rows + kRows - 1) / kRows, kWarpModeThreads, 0, stream>>>(
-            xp, x_stride, wp, op, rows, d, eps);
+    norm_kernel<kOp, T, W, kVec, kVecLoad, kWarpModeThreads, 32>
+        <<<(a.rows + kRows - 1) / kRows, kWarpModeThreads, 0, stream>>>(a);
   } else {
-    rmsnorm_kernel<T, W, kVec, kBlockModeThreads, kBlockModeThreads>
-        <<<rows, kBlockModeThreads, 0, stream>>>(xp, x_stride, wp, op, rows,
-                                                 d, eps);
+    constexpr int kThreads = kBlockModeThreads;
+    norm_kernel<kOp, T, W, kVec, kVecLoad, kThreads, kThreads>
+        <<<a.rows, kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
+// the grouping follows d alone; vec only picks the loads
+template <Op kOp, typename T, typename W>
+cudaError_t launch_grouped(const RowArgs& a, int vec, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  if (a.d % kV != 0) return launch_mode<kOp, T, W, 1, false>(a, stream);
+  if (vec) return launch_mode<kOp, T, W, kV, true>(a, stream);
+  return launch_mode<kOp, T, W, kV, false>(a, stream);
+}
+
+template <Op kOp>
+int launch_rows(const RowArgs& a, int x_dtype, int w_dtype, int vec,
+                void* stream) {
+  if (a.rows == 0) return cudaSuccess;
+  if (a.d < 1) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch_grouped<kOp, float, float>(a, vec, st);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch_grouped<kOp, float, __nv_bfloat16>(a, vec, st);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch_grouped<kOp, __nv_bfloat16, float>(a, vec, st);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch_grouped<kOp, __nv_bfloat16, __nv_bfloat16>(a, vec, st);
+  return cudaErrorInvalidValue;
+}
+
+// --- qk_norm_rope_fwd ------------------------------------------------------
+
+struct RopeArgs {
+  const void* q;  // [B, S, Hq, D], element strides (sb, ss, sh), d contiguous
+  long long q_sb, q_ss, q_sh;
+  const void* k;  // [B, S, Hkv, D]
+  long long k_sb, k_ss, k_sh;
+  const void* wq;  // [D] each, or both null: RoPE only
+  const void* wk;
+  const void* pos;  // int32 or int64, read at b * p_sb + s * p_ss
+  long long p_sb, p_ss;
+  int pos64;
+  const float* inv_freq;  // [D / 2]
+  void* q_out;            // contiguous [B, S, Hq, D] and [B, S, Hkv, D]
+  void* k_out;
+  int B, S, Hq, Hkv, D;
+  float eps;
+};
+
+// one warp per (token, head) row of q, then of k; D <= kWarpRowMaxD
+template <typename T, typename W, int kVec>
+__global__ void __launch_bounds__(kWarpModeThreads)
+qk_norm_rope_kernel(const RopeArgs a) {
+  constexpr int kRowsPerBlock = kWarpModeThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
+  const long long q_rows = (long long)a.B * a.S * a.Hq;
+  if (row >= q_rows + (long long)a.B * a.S * a.Hkv) return;  // whole warp
+  const bool is_q = row < q_rows;
+  const long long rr = is_q ? row : row - q_rows;
+  const int H = is_q ? a.Hq : a.Hkv;
+  const int h = (int)(rr % H);
+  const long long bs = rr / H;
+  const int s = (int)(bs % a.S), b = (int)(bs / a.S);
+  const T* x = static_cast<const T*>(is_q ? a.q : a.k) +
+               (is_q ? b * a.q_sb + s * a.q_ss + h * a.q_sh
+                     : b * a.k_sb + s * a.k_ss + h * a.k_sh);
+  const W* w = static_cast<const W*>(is_q ? a.wq : a.wk);
+  T* out = static_cast<T*>(is_q ? a.q_out : a.k_out) + rr * a.D;
+
+  float inv = 0.f;
+  if (w != nullptr)  // the same for the whole warp
+    inv = inv_rms<kVec, 32>(PlainRow<T, kVec, false>{x}, a.D, a.eps);
+  const long long pi = b * a.p_sb + s * a.p_ss;
+  const float p = a.pos64 ? (float)static_cast<const long long*>(a.pos)[pi]
+                          : (float)static_cast<const int*>(a.pos)[pi];
+  const int half = a.D / 2;
+  for (int i = lane; i < half; i += 32) {
+    float x1 = attn::to_f32(x[i]), x2 = attn::to_f32(x[i + half]);
+    if (w != nullptr) {  // rmsnorm_fwd's output, in T
+      x1 = round_to<T>(__fmul_rn(__fmul_rn(x1, inv), attn::to_f32(w[i])));
+      x2 = round_to<T>(
+          __fmul_rn(__fmul_rn(x2, inv), attn::to_f32(w[i + half])));
+    }
+    const float ang = __fmul_rn(p, a.inv_freq[i]);
+    const float c = cosf(ang), sn = sinf(ang);
+    attn::store(out + i, __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sn)));
+    attn::store(out + i + half,
+                __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sn)));
+  }
+}
+
 template <typename T, typename W>
-cudaError_t launch(const void* x, long long x_stride, const void* w,
-                   void* out, int rows, int d, float eps, int vec,
-                   cudaStream_t stream) {
-  if (vec)
-    return launch_vec<T, W, 16 / sizeof(T)>(x, x_stride, w, out, rows, d,
-                                            eps, stream);
-  return launch_vec<T, W, 1>(x, x_stride, w, out, rows, d, eps, stream);
+cudaError_t launch_rope(const RopeArgs& a, cudaStream_t stream) {
+  constexpr int kRows = kWarpModeThreads / 32;
+  const long long rows = (long long)a.B * a.S * (a.Hq + a.Hkv);
+  const unsigned grid = (unsigned)((rows + kRows - 1) / kRows);
+  constexpr int kV = 16 / sizeof(T);
+  if (a.D % kV == 0)
+    qk_norm_rope_kernel<T, W, kV><<<grid, kWarpModeThreads, 0, stream>>>(a);
+  else
+    qk_norm_rope_kernel<T, W, 1><<<grid, kWarpModeThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -139,20 +375,49 @@ cudaError_t launch(const void* x, long long x_stride, const void* w,
 extern "C" int rmsnorm_fwd(const void* x, long long x_stride, const void* w,
                            void* out, int rows, int d, float eps,
                            int x_dtype, int w_dtype, int vec, void* stream) {
-  if (rows == 0) return cudaSuccess;
-  if (d < 1) return cudaErrorInvalidValue;
+  const RowArgs a{x, x_stride, nullptr, 0, w, out, nullptr, rows, d, eps};
+  return launch_rows<Op::kNorm>(a, x_dtype, w_dtype, vec, stream);
+}
+
+extern "C" int add_rmsnorm_fwd(const void* x, long long x_stride,
+                               const void* delta, long long delta_stride,
+                               const void* w, void* out, void* r, int rows,
+                               int d, float eps, int x_dtype, int w_dtype,
+                               int vec, void* stream) {
+  const RowArgs a{x, x_stride, delta, delta_stride, w, out, r, rows, d, eps};
+  return launch_rows<Op::kAdd>(a, x_dtype, w_dtype, vec, stream);
+}
+
+extern "C" int gated_rmsnorm_fwd(const void* y, long long y_stride,
+                                 const void* z, long long z_stride,
+                                 const void* w, void* out, int rows, int d,
+                                 float eps, int x_dtype, int w_dtype, int vec,
+                                 void* stream) {
+  const RowArgs a{y, y_stride, z, z_stride, w, out, nullptr, rows, d, eps};
+  return launch_rows<Op::kGated>(a, x_dtype, w_dtype, vec, stream);
+}
+
+extern "C" int qk_norm_rope_fwd(
+    const void* q, long long q_sb, long long q_ss, long long q_sh,
+    const void* k, long long k_sb, long long k_ss, long long k_sh,
+    const void* wq, const void* wk, const void* pos, long long p_sb,
+    long long p_ss, int pos64, const float* inv_freq, void* q_out,
+    void* k_out, int B, int S, int Hq, int Hkv, int D, float eps,
+    int x_dtype, int w_dtype, void* stream) {
+  if ((long long)B * S * (Hq + Hkv) == 0) return cudaSuccess;
+  if (D < 2 || D % 2 != 0 || D > kWarpRowMaxD) return cudaErrorInvalidValue;
+  const RopeArgs a{q,     q_sb,  q_ss,     q_sh,  k,     k_sb,
+                   k_ss,  k_sh,  wq,       wk,    pos,   p_sb,
+                   p_ss,  pos64, inv_freq, q_out, k_out, B,
+                   S,     Hq,    Hkv,      D,     eps};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && w_dtype == 0)
-    return launch<float, float>(x, x_stride, w, out, rows, d, eps, vec, st);
+  if (x_dtype == 0 && w_dtype == 0) return launch_rope<float, float>(a, st);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, x_stride, w, out, rows, d, eps,
-                                        vec, st);
+    return launch_rope<float, __nv_bfloat16>(a, st);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, x_stride, w, out, rows, d, eps,
-                                        vec, st);
+    return launch_rope<__nv_bfloat16, float>(a, st);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, x_stride, w, out, rows, d,
-                                                eps, vec, st);
+    return launch_rope<__nv_bfloat16, __nv_bfloat16>(a, st);
   return cudaErrorInvalidValue;
 }
 

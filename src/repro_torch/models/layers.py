@@ -1,20 +1,54 @@
 """Core layers: norms, rotary embeddings, activations, MLP."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+# RoPE's formula lives beside the plain version of the fused qk-norm-RoPE
+# kernel that computes it
+from repro_torch.kernels.rmsnorm.ref import (  # noqa: F401
+    apply_rope, rope_freqs)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in fp32, cast back to x.dtype. (1+w) convention NOT used.
 
-    The device decides, not a flag: a CUDA tensor goes through the CUDA
-    RMSNorm kernel, a CPU tensor through its plain version (the JAX
-    package's formula, ``kernels/rmsnorm/ref.py``)."""
+    The device decides, not a flag, here and in the fused norms below: a
+    CUDA tensor goes through the CUDA kernel, a CPU tensor through its
+    plain version (the JAX package's formula, ``kernels/rmsnorm/ref.py``)."""
     return rmsnorm_ops.rmsnorm(x, weight, eps)
+
+
+def add_rms_norm(x: torch.Tensor, delta: Optional[torch.Tensor],
+                 weight: torch.Tensor,
+                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add of a pending block output and the next pre-norm:
+    -> (rms_norm(x + delta), x + delta), one launch on the card.  With no
+    pending ``delta`` (the stack's first norm) -> (rms_norm(x), x)."""
+    if delta is None:
+        return rms_norm(x, weight, eps), x
+    return rmsnorm_ops.add_rmsnorm(x, delta, weight, eps)
+
+
+def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated norm, rms_norm(y * silu(z)): one launch on the
+    card."""
+    return rmsnorm_ops.gated_rmsnorm(y, z, weight, eps)
+
+
+def qk_norm_rope(q: torch.Tensor, k: torch.Tensor,
+                 wq: Optional[torch.Tensor], wk: Optional[torch.Tensor],
+                 positions: torch.Tensor, theta: float,
+                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The qk-norm of q [B,S,Hq,D] and k [B,S,Hkv,D] (skipped when wq and
+    wk are None), then ``apply_rope`` of both at ``positions`` ([B, S],
+    [S] or [1]): one launch on the card."""
+    return rmsnorm_ops.qk_norm_rope(q, k, wq, wk, positions, theta, eps)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -30,33 +64,6 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "gelu":
         return F.gelu(x, approximate="tanh")   # the JAX default, not erf
     raise ValueError(f"unknown activation {kind!r}")
-
-
-# ---------------------------------------------------------------------------
-# Rotary position embeddings
-# ---------------------------------------------------------------------------
-
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies, fp32, shape [head_dim // 2]."""
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotate pairs (x[..., :d/2], x[..., d/2:]).
-
-    x: [B, S, H, D]; positions: [B, S] (or [S]) int.
-    """
-    d = x.shape[-1]
-    inv = rope_freqs(d, theta, device=x.device)  # [d/2]
-    angles = positions.float()[..., None] * inv  # [B, S, d/2]
-    cos = torch.cos(angles)[..., None, :]        # [B, S, 1, d/2]
-    sin = torch.sin(angles)[..., None, :]
-    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
-    out1 = xf1 * cos - xf2 * sin
-    out2 = xf2 * cos + xf1 * sin
-    return torch.cat([out1, out2], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

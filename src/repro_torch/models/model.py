@@ -32,7 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
                                           paged_decode_attention)
-from repro_torch.models.layers import apply_rope, mlp, rms_norm, softcap
+from repro_torch.models.layers import (add_rms_norm, mlp, qk_norm_rope,
+                                       rms_norm, softcap)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
@@ -273,10 +274,12 @@ def _embed(params, cfg, tokens):
     return x
 
 
-def _unembed(params, cfg, h):
-    """Final norm + LM head (+ gemma2 final softcap). h: [..., d].
-    Logits are fp32: the products of the weights' dtype, summed in fp32."""
-    h = rms_norm(h, params["final_ln_w"], cfg.norm_eps)
+def _unembed(params, cfg, h, delta=None):
+    """Final norm + LM head (+ gemma2 final softcap). h: [..., d], and the
+    last block's pending output ``delta`` (added in the final norm's
+    launch).  Logits are fp32: the products of the weights' dtype, summed
+    in fp32."""
+    h, _ = add_rms_norm(h, delta, params["final_ln_w"], cfg.norm_eps)
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     logits = h.float() @ w.float()
     if cfg.final_softcap > 0:
@@ -291,12 +294,22 @@ def _qk_normed(p, cfg, q, k):
     return q, k
 
 
+def _qk_rope(p, cfg, q, k, positions):
+    """The qk-norm (if the config has one) and RoPE of q and k: one launch
+    on the card."""
+    wq, wk = ((p["q_norm"], p["k_norm"]) if cfg.use_qk_norm
+              else (None, None))
+    return qk_norm_rope(q, k, wq, wk, positions, cfg.rope_theta,
+                        cfg.norm_eps)
+
+
 def _attn_scale(cfg) -> float:
     dim = getattr(cfg, "attn_scale_dim", 0) or cfg.head_dim
     return float(dim) ** -0.5
 
 
-def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
+def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               delta: Optional[torch.Tensor] = None, *,
                mode: str,                    # train | prefill | decode
                causal: bool = True,
                window: int = 0,
@@ -304,7 +317,9 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
                pos: Optional[torch.Tensor] = None,
                cross_kv=None,
                rope: bool = True):
-    """Pre-norm attention with residual. Returns (x_out, new_kv | None).
+    """Pre-norm attention.  ``delta`` is the previous block's pending
+    output, added to x in the pre-norm's launch.  Returns (x + delta, the
+    block's output, still to be added to the residual, new_kv | None).
 
     * train:   full self-attention, new_kv=None
     * prefill: full self-attention, returns (k, v) [B,S,Hkv,hd]
@@ -320,7 +335,7 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
-    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
 
     new_kv = None
@@ -334,14 +349,14 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
         v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-        q, k = _qk_normed(p, cfg, q, k)
+        if not rope:
+            q, k = _qk_normed(p, cfg, q, k)
         if mode == "decode":
             assert layer_kv is not None and pos is not None and S == 1
             posv = torch.as_tensor(pos, dtype=torch.int32,
                                    device=x.device).reshape(1)
             if rope:
-                q = apply_rope(q, posv, cfg.rope_theta)
-                k = apply_rope(k, posv, cfg.rope_theta)
+                q, k = _qk_rope(p, cfg, q, k, posv)
             ck, cv = layer_kv
             ck.index_copy_(1, posv.long(), k.to(ck.dtype))
             cv.index_copy_(1, posv.long(), v.to(cv.dtype))
@@ -353,9 +368,8 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
             new_kv = (ck, cv)
         else:
             if rope:
-                posv = torch.arange(S, device=x.device)
-                q = apply_rope(q, posv, cfg.rope_theta)
-                k = apply_rope(k, posv, cfg.rope_theta)
+                q, k = _qk_rope(p, cfg, q, k,
+                                torch.arange(S, device=x.device))
             out = attention(q, k, v, causal=causal, window=window,
                             attn_softcap=cfg.attn_softcap,
                             scale=_attn_scale(cfg),
@@ -367,26 +381,30 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     out = out.reshape(B, S, cfg.num_heads * hd) @ p["wo"]
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
-    return x + out, new_kv
+    return x, out, new_kv
 
 
-def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              delta: Optional[torch.Tensor] = None):
+    """Pre-norm gated MLP: -> (x + delta, the block's pending output)."""
+    h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
     out = mlp(h, p["wi_gate"], p["wi_up"], p["wo"], cfg.act)
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
-    return x + out
+    return x, out
 
 
 def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              shared_mlp: Optional[Params] = None, *,
+              shared_mlp: Optional[Params] = None,
+              delta: Optional[torch.Tensor] = None, *,
               with_aux: bool = False):
-    """Pre-norm MoE FFN with residual (plus a shared dense expert, if
-    given).  Returns (x_out, aux_loss), the loss None unless
-    ``with_aux`` (serving never reads it).  The expert-parallel branch of
-    the JAX version (``moe_ep``) comes with a later slice."""
+    """Pre-norm MoE FFN (plus a shared dense expert, if given), its
+    pre-norm adding the pending ``delta`` to x.  Returns (x + delta, the
+    block's pending output, aux_loss), the loss None unless ``with_aux``
+    (serving never reads it).  The expert-parallel branch of the JAX
+    version (``moe_ep``) comes with a later slice."""
     B, S, d = x.shape
-    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
     out = moe_ffn(h.reshape(B * S, d), p["w_router"], p["w_gate"],
                   p["w_up"], p["w_down"], k=cfg.experts_per_token,
                   capacity_factor=cfg.capacity_factor, act=cfg.act,
@@ -396,26 +414,29 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         hs = rms_norm(x, shared_mlp["ln_w"], cfg.norm_eps)
         y = y + mlp(hs, shared_mlp["wi_gate"], shared_mlp["wi_up"],
                     shared_mlp["wo"], cfg.act)
-    return x + y, out.aux_loss
+    return x, y, out.aux_loss
 
 
-def _ffn_block(pb: Params, cfg: ModelConfig, x: torch.Tensor, *,
+def _ffn_block(pb: Params, cfg: ModelConfig, x: torch.Tensor, delta, *,
                with_aux: bool = False):
     """Layer ``pb``'s FFN: the MoE block (and its shared expert) for the
-    moe family, else the dense MLP block.  Returns (x_out, aux_loss or
-    None)."""
+    moe family, else the dense MLP block.  Returns (x + delta, the
+    block's pending output, aux_loss or None)."""
     if "moe" in pb:
-        return moe_block(pb["moe"], cfg, x, pb.get("shared_mlp"),
+        return moe_block(pb["moe"], cfg, x, pb.get("shared_mlp"), delta,
                          with_aux=with_aux)
-    return mlp_block(pb["mlp"], cfg, x), None
+    return (*mlp_block(pb["mlp"], cfg, x, delta), None)
 
 
 def mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                state: Optional[ssm_mod.SSMState] = None, *,
+                state: Optional[ssm_mod.SSMState] = None,
+                delta: Optional[torch.Tensor] = None, *,
                 decode: bool = False):
-    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    """Pre-norm Mamba2 block: -> (x + delta, the block's pending output,
+    new state)."""
+    h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
     y, new_state = ssm_mod.mamba2_block(p, cfg, h, state, decode=decode)
-    return x + y, new_state
+    return x, y, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -441,10 +462,11 @@ def _paged_kv_write(pool, new, table, positions, page_size):
     return pool
 
 
-def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, delta,
                       pools, table, write_table, positions, kv_lens, *,
                       chunk_attend: bool):
-    """Pre-norm attention with residual over the page pool.
+    """Pre-norm attention over the page pool: -> (x + delta, the block's
+    pending output), as ``attn_block``.
 
     x: [B, S, d]; positions: [B, S] absolute positions of these tokens;
     kv_lens: [B] total valid tokens after this write.  KV writes route
@@ -456,13 +478,11 @@ def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     from repro_torch.kernels.paged_attention.ref import gather_pages
     B, S, _ = x.shape
     hd = cfg.head_dim
-    h = rms_norm(x, p["ln_w"], cfg.norm_eps)
+    h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
     k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
     v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-    q, k = _qk_normed(p, cfg, q, k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _qk_rope(p, cfg, q, k, positions)
     page = pools[0].shape[1]
     kp = _paged_kv_write(pools[0], k, write_table, positions, page)
     vp = _paged_kv_write(pools[1], v, write_table, positions, page)
@@ -482,7 +502,7 @@ def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = out.reshape(B, S, cfg.num_heads * hd) @ p["wo"]
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
-    return x + out
+    return x, out
 
 
 def _layer(tree, i: int):
@@ -494,7 +514,10 @@ def _layer(tree, i: int):
 def _paged_stack(params, cfg, x, cache, positions, kv_lens, active, *,
                  chunk_attend: bool):
     """Dense/moe/vlm stack over the page pool, one layer at a time; layer
-    ``l`` reads and writes the pools ``cache["k"][l]`` / ``[l]``."""
+    ``l`` reads and writes the pools ``cache["k"][l]`` / ``[l]``.  Each
+    block's output stays pending until the next norm adds it (in the same
+    launch on the card); returns (h, the last block's pending output,
+    cache)."""
     _check_paged(cfg)
     table = cache["table"]
     if active is None:
@@ -504,13 +527,15 @@ def _paged_stack(params, cfg, x, cache, positions, kv_lens, active, *,
             torch.as_tensor(active, dtype=torch.bool,
                             device=table.device)[:, None],
             table, torch.zeros((), dtype=table.dtype, device=table.device))
+    d = None
     for i in range(cfg.num_layers):
         pb = _layer(params["blocks"], i)
         pools = (cache["k"][i], cache["v"][i])
-        x = _paged_attn_block(pb["attn"], cfg, x, pools, table, write_table,
-                              positions, kv_lens, chunk_attend=chunk_attend)
-        x, _ = _ffn_block(pb, cfg, x)
-    return x, {"k": cache["k"], "v": cache["v"], "table": table}
+        x, d = _paged_attn_block(pb["attn"], cfg, x, d, pools, table,
+                                 write_table, positions, kv_lens,
+                                 chunk_attend=chunk_attend)
+        x, d, _ = _ffn_block(pb, cfg, x, d)
+    return x, d, {"k": cache["k"], "v": cache["v"], "table": table}
 
 
 def decode_step_paged(params: Params, cfg: ModelConfig, cache,
@@ -524,14 +549,14 @@ def decode_step_paged(params: Params, cfg: ModelConfig, cache,
     x = _embed(params, cfg, token)
     lens = cache["lens"]
     positions = lens[:, None]                   # [B, 1]
-    h, nc = _paged_stack(params, cfg, x, cache, positions, lens + 1,
-                         active, chunk_attend=False)
+    h, d, nc = _paged_stack(params, cfg, x, cache, positions, lens + 1,
+                            active, chunk_attend=False)
     nl = lens + 1
     if active is not None:
         nl = torch.where(torch.as_tensor(active, dtype=torch.bool,
                                          device=lens.device), nl, lens)
     nc["lens"] = nl
-    return _unembed(params, cfg, h), nc
+    return _unembed(params, cfg, h, d), nc
 
 
 def prefill_chunk(params: Params, cfg: ModelConfig, cache,
@@ -557,16 +582,16 @@ def prefill_chunk(params: Params, cfg: ModelConfig, cache,
     chunk_lens = torch.as_tensor(chunk_lens, dtype=torch.int32, device=dev)
     positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                               device=dev)[None, :]
-    h, nc = _paged_stack(params, cfg, x, cache, positions,
-                         start + chunk_lens, active, chunk_attend=True)
+    h, d, nc = _paged_stack(params, cfg, x, cache, positions,
+                            start + chunk_lens, active, chunk_attend=True)
     nl = start + chunk_lens
     if active is not None:
         nl = torch.where(torch.as_tensor(active, dtype=torch.bool,
                                          device=dev), nl, cache["lens"])
     nc["lens"] = nl
-    last = h[torch.arange(B, device=dev),
-             torch.clamp(chunk_lens - 1, min=0).long()][:, None]
-    return _unembed(params, cfg, last), nc
+    last = (torch.arange(B, device=dev),
+            torch.clamp(chunk_lens - 1, min=0).long())
+    return _unembed(params, cfg, h[last][:, None], d[last][:, None]), nc
 
 
 # ---------------------------------------------------------------------------
@@ -579,7 +604,8 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
 
 def _dense_stack(params, cfg, x, mode, cache=None):
     """Dense / moe / vlm decoder stack, one layer at a time. Returns (h,
-    new_cache_kv, aux).  Decode writes layer ``l``'s token into
+    the last block's pending output (see ``_paged_stack``), new_cache_kv,
+    aux).  Decode writes layer ``l``'s token into
     ``cache["k"][l]`` / ``["v"][l]`` in place; prefill stacks the
     layers' (k, v) into ``[L, B, S, Hkv, hd]``.  ``aux`` sums the MoE
     load-balancing loss in train mode and stays zero in the serving
@@ -589,27 +615,30 @@ def _dense_stack(params, cfg, x, mode, cache=None):
     pos = None if cache is None else cache["len"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
+    d = None
     for i in range(cfg.num_layers):
         pb = _layer(params["blocks"], i)
         kv = (cache["k"][i], cache["v"][i]) if cache else None
-        x, nkv = attn_block(pb["attn"], cfg, x, mode=mode, layer_kv=kv,
-                            pos=pos)
-        x, a = _ffn_block(pb, cfg, x, with_aux=mode == "train")
+        x, d, nkv = attn_block(pb["attn"], cfg, x, d, mode=mode, layer_kv=kv,
+                               pos=pos)
+        x, d, a = _ffn_block(pb, cfg, x, d, with_aux=mode == "train")
         if a is not None:
             aux = aux + a
         if mode == "prefill":
             ks.append(nkv[0])
             vs.append(nkv[1])
     if mode == "train":
-        return x, None, aux
+        return x, d, None, aux
     if mode == "prefill":
-        return x, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
-    return x, {"k": cache["k"], "v": cache["v"]}, aux
+        return x, d, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
+    return x, d, {"k": cache["k"], "v": cache["v"]}, aux
 
 
-def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, cache,
-                 layer: int, decode: bool) -> torch.Tensor:
-    """Mamba2 layer ``layer`` over the cache: starts from
+def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, delta, cache,
+                 layer: int, decode: bool):
+    """Mamba2 layer ``layer`` over the cache, its pre-norm adding the
+    pending ``delta``: -> (x + delta, the block's pending output).  It
+    starts from
     ``cache["ssm"][layer]`` / ``cache["conv"][layer]`` and writes its new
     states there IN PLACE (the JAX version returns updated copies from
     donated buffers).  A prefill starts from the fresh cache's zero state,
@@ -620,21 +649,23 @@ def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, cache,
     step cannot take)."""
     ssm, conv = cache["ssm"][layer], cache["conv"][layer]
     state = ssm_mod.SSMState(ssm=ssm if decode else None, conv=conv)
-    x, ns = mamba_block(p, cfg, x, state, decode=decode)
+    x, y, ns = mamba_block(p, cfg, x, state, delta, decode=decode)
     ssm.copy_(ns.ssm)
     conv[:, conv.shape[1] - ns.conv.shape[1]:].copy_(ns.conv)
-    return x
+    return x, y
 
 
 def _ssm_stack(params, cfg, x, mode, cache):
     """Pure-mamba stack over the cache {"ssm": [L,B,H,P,N], "conv":
     [L,B,W-1,ch]}, one layer at a time (prefill starts from a zero
-    cache, as in the JAX package); the states are updated in place."""
+    cache, as in the JAX package); the states are updated in place.
+    Returns (h, the last block's pending output, cache, aux)."""
+    d = None
     for i in range(cfg.num_layers):
-        x = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x, cache,
-                         i, mode == "decode")
+        x, d = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x, d,
+                            cache, i, mode == "decode")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"ssm": cache["ssm"], "conv": cache["conv"]}, aux
+    return x, d, {"ssm": cache["ssm"], "conv": cache["conv"]}, aux
 
 
 def _hybrid_stack(params, cfg, x, mode, cache):
@@ -642,30 +673,31 @@ def _hybrid_stack(params, cfg, x, mode, cache):
     attention+MLP block applied before each group, with a KV cache per
     application (``[n_apps, B, S, Hkv, hd]``).  Decode writes the token's
     k/v and the mamba states in place; prefill stacks the applications'
-    (k, v)."""
+    (k, v).  Returns (h, the last block's pending output, cache, aux)."""
     n_apps, per = cfg.num_layers // cfg.attn_every, cfg.attn_every
     decode = mode == "decode"
     pos = cache["len"]
     shared = params["shared"]
     ks, vs = [], []
+    d = None
     for app in range(n_apps):
         kv = (cache["k"][app], cache["v"][app])
-        x, nkv = attn_block(shared["attn"], cfg, x, mode=mode, layer_kv=kv,
-                            pos=pos)
-        x = mlp_block(shared["mlp"], cfg, x)
+        x, d, nkv = attn_block(shared["attn"], cfg, x, d, mode=mode,
+                               layer_kv=kv, pos=pos)
+        x, d = mlp_block(shared["mlp"], cfg, x, d)
         if not decode:
             ks.append(nkv[0])
             vs.append(nkv[1])
         for i in range(app * per, (app + 1) * per):
-            x = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x,
-                             cache, i, decode)
+            x, d = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x,
+                                d, cache, i, decode)
     new_cache = {"ssm": cache["ssm"], "conv": cache["conv"]}
     if decode:
         new_cache["k"], new_cache["v"] = cache["k"], cache["v"]
     else:
         new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, new_cache, aux
+    return x, d, new_cache, aux
 
 
 _STACKS = {"dense": _dense_stack, "moe": _dense_stack, "vlm": _dense_stack,
@@ -683,13 +715,13 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor):
     place and its ``len`` advances by one on the device."""
     _check_dense(cfg, "dense decode")
     x = _embed(params, cfg, token)
-    h, nc, _ = _STACKS[cfg.family](params, cfg, x, "decode", cache)
+    h, d, nc, _ = _STACKS[cfg.family](params, cfg, x, "decode", cache)
     nc["len"] = cache["len"] + 1
     # carry across non-updated fields
     for key in cache:
         if key not in nc:
             nc[key] = cache[key]
-    return _unembed(params, cfg, h), nc
+    return _unembed(params, cfg, h, d), nc
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -706,12 +738,12 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     if cfg.family in ("ssm", "hybrid"):
         # SSM prefill needs real state carry: run with a concrete zero cache
         cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
-        h, nc, _ = _STACKS[cfg.family](params, cfg, x, "prefill", cache)
+        h, d, nc, _ = _STACKS[cfg.family](params, cfg, x, "prefill", cache)
     else:
-        h, nc, _ = _dense_stack(params, cfg, x, "prefill", None)
+        h, d, nc, _ = _dense_stack(params, cfg, x, "prefill", None)
     nc = _pad_kv_cache(nc, max_len, S)
     nc["len"] = torch.tensor(S, dtype=torch.int32, device=x.device)
-    return _unembed(params, cfg, h[:, -1:]), nc
+    return _unembed(params, cfg, h[:, -1:], d[:, -1:]), nc
 
 
 def _pad_kv_cache(nc, max_len: int, cur_len: int):

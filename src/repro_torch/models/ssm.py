@@ -2,9 +2,10 @@
 
 Mirrors the JAX package's ``models/ssm.py``.  The chunked scan goes to
 ``kernels/ssd_scan``: the hand-written CUDA kernel on a CUDA tensor, the
-plain mirror of the JAX jnp branch on a CPU tensor.  The depthwise conv
-and the one-step decode update stay plain PyTorch, as in the JAX package
-(no kernel there either).
+plain mirror of the JAX jnp branch on a CPU tensor.  The gate and its norm
+(``y * silu(z)``, then RMSNorm) are one fused RMSNorm launch on the card.
+The depthwise conv and the one-step decode update stay plain PyTorch, as
+in the JAX package (no kernel there either).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import gated_rms_norm
 
 
 class SSMState(NamedTuple):
@@ -149,8 +150,7 @@ def mamba2_block(p: dict, cfg, x: torch.Tensor,
 
     y = y + x_ssm.float() * p["D"].float()[:, None]
     y = y.reshape(Bsz, S, di).to(x.dtype)
-    y = y * F.silu(z)
-    y = rms_norm(y, p["norm_w"], cfg.norm_eps)
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], new_state
 
 

@@ -6,7 +6,10 @@ so it also runs where only PyTorch is installed:
 
 The CUDA paged-decode, flash-attention, dense decode-attention and
 RMSNorm kernels are held against their plain PyTorch versions at the
-repo's tolerances (f32 2e-5, bf16 2e-2; RMSNorm by x's dtype), the CUDA
+repo's tolerances (f32 2e-5, bf16 2e-2; RMSNorm by x's dtype), and the
+three fused RMSNorm kernels (residual add, qk-norm with RoPE, Mamba2's
+gate) also bit for bit against the unfused card sequences they replace
+(the RMSNorm kernel beside torch's eager ops); the CUDA
 SSD-scan kernel at the JAX package's SSD tolerances (f32 1e-4, bf16
 5e-2; every bf16 case takes the tensor-core route).  The paged kernel
 is also held on rows cut by their attended range with a table wider
@@ -27,9 +30,13 @@ from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref as t_paged_ref
 from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
-from repro_torch.kernels.rmsnorm.cases import (RMSNORM_CASES, RMSNORM_DTYPES,
-                                               rmsnorm_case_on)
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.cases import (
+    QK_ROPE_CASES, QK_ROPE_THETA, RMSNORM_CASES, RMSNORM_DTYPES,
+    add_rmsnorm_unfused, gated_rmsnorm_unfused, pair_case_on,
+    qk_norm_rope_unfused, qk_rope_case_on, rmsnorm_case_on)
+from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
+                                             gated_rmsnorm_ref,
+                                             qk_norm_rope_ref, rmsnorm_ref)
 from repro_torch.kernels.ssd_scan import ops as t_ssd_ops
 from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_TOL,
                                                 ssd_case_on)
@@ -231,6 +238,8 @@ def test_kernels_refuse_grad_on_card():
     xb, a, Bm, Cm, _ = ssd_case_on("cuda", torch.float32, 1, 8, 2, 4, 1, 4)
     x, w = rmsnorm_case_on("cuda", torch.float32, torch.float32, (4, 64),
                            "dense")
+    q, k, wq, wk, pos = qk_rope_case_on("cuda", torch.float32, torch.float32,
+                                        (2, 3, 4, 2, 16), "rows", True)
     calls = [
         (t_ops.paged_attention_fwd,
          lambda: t_ops.paged_attention(grad(pq), pk, pv, table, ln)),
@@ -242,6 +251,13 @@ def test_kernels_refuse_grad_on_card():
          lambda: t_ssd_ops.ssd_scan(grad(xb), a, Bm, Cm, chunk=4)),
         (t_rms_kernel.rmsnorm_fwd,
          lambda: t_rms_ops.rmsnorm(x, grad(w), 1e-6)),
+        (t_rms_kernel.add_rmsnorm_fwd,
+         lambda: t_rms_ops.add_rmsnorm(x, grad(x), w, 1e-6)),
+        (t_rms_kernel.gated_rmsnorm_fwd,
+         lambda: t_rms_ops.gated_rmsnorm(grad(x), x, w, 1e-6)),
+        (t_rms_kernel.qk_norm_rope_fwd,
+         lambda: t_rms_ops.qk_norm_rope(q, k, grad(wq), wk, pos,
+                                        QK_ROPE_THETA, 1e-6)),
     ]
     for fn, call in calls:
         before = fn.launches
@@ -329,3 +345,99 @@ def test_rmsnorm_kernel_vs_plain_on_card(case, dtypes):
     assert t_rms_ops.row_view(x).data_ptr() == x.data_ptr()
     tol = TOL[dtypes[0]]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+_DTYPE_IDS = lambda d: f"{str(d[0])[6:]}-{str(d[1])[6:]}"  # noqa: E731
+
+
+def _bit_equal(name, got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    differ = int((got != want).sum())
+    assert differ == 0, f"{name}: {differ} elements differ from the unfused " \
+                        f"card sequence"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RMSNORM_CASES,
+                         ids=[c[0] for c in RMSNORM_CASES])
+@pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
+def test_add_rmsnorm_kernel_on_card(case, dtypes):
+    """Within tolerance of the plain version, and bit-equal to torch's
+    add + the RMSNorm kernel (the norm and the residual), in one launch;
+    x and delta read in place in every layout."""
+    _cuda_or_skip()
+    _, shape, layout = case
+    x, d, w = pair_case_on("cuda", *dtypes, shape, layout)
+    before = t_rms_kernel.add_rmsnorm_fwd.launches
+    out, r = t_rms_ops.add_rmsnorm(x, d, w, 1e-6)
+    torch.cuda.synchronize()
+    assert t_rms_kernel.add_rmsnorm_fwd.launches == before + 1
+    ref, ref_r = add_rmsnorm_ref(x, d, w, 1e-6)
+    tol = TOL[dtypes[0]]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(r.float(), ref_r.float(), atol=tol, rtol=tol)
+    u_out, u_r = add_rmsnorm_unfused(x, d, w, 1e-6)
+    _bit_equal("out", out, u_out)
+    _bit_equal("r", r, u_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RMSNORM_CASES,
+                         ids=[c[0] for c in RMSNORM_CASES])
+@pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
+def test_gated_rmsnorm_kernel_on_card(case, dtypes):
+    """Within tolerance of the plain version, and bit-equal to F.silu +
+    torch's mul + the RMSNorm kernel, in one launch."""
+    _cuda_or_skip()
+    _, shape, layout = case
+    y, z, w = pair_case_on("cuda", *dtypes, shape, layout)
+    before = t_rms_kernel.gated_rmsnorm_fwd.launches
+    out = t_rms_ops.gated_rmsnorm(y, z, w, 1e-6)
+    torch.cuda.synchronize()
+    assert t_rms_kernel.gated_rmsnorm_fwd.launches == before + 1
+    ref = gated_rmsnorm_ref(y, z, w, 1e-6)
+    tol = TOL[dtypes[0]]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    _bit_equal("out", out, gated_rmsnorm_unfused(y, z, w, 1e-6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QK_ROPE_CASES,
+                         ids=[c[0] for c in QK_ROPE_CASES])
+@pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
+def test_qk_norm_rope_kernel_on_card(case, dtypes):
+    """Within tolerance of the plain version, and bit-equal to two
+    RMSNorm kernels + apply_rope's eager ops, in one launch (none for no
+    rows)."""
+    _cuda_or_skip()
+    _, dims, positions, norm, layout = case
+    q, k, wq, wk, pos = qk_rope_case_on("cuda", *dtypes, dims, positions,
+                                        norm, layout)
+    before = t_rms_kernel.qk_norm_rope_fwd.launches
+    tq, tk = t_rms_ops.qk_norm_rope(q, k, wq, wk, pos, QK_ROPE_THETA, 1e-6)
+    torch.cuda.synchronize()
+    rows = q.shape[0] * q.shape[1]
+    assert t_rms_kernel.qk_norm_rope_fwd.launches == before + (rows > 0)
+    rq, rk = qk_norm_rope_ref(q, k, wq, wk, pos, QK_ROPE_THETA, 1e-6)
+    tol = TOL[dtypes[0]]
+    for got, ref in ((tq, rq), (tk, rk)):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+    uq, uk = qk_norm_rope_unfused(q, k, wq, wk, pos, QK_ROPE_THETA, 1e-6)
+    _bit_equal("q", tq, uq)
+    _bit_equal("k", tk, uk)
+
+
+@pytest.mark.gpu
+def test_fused_row_kernels_take_no_rows():
+    """rows == 0: empty outputs of the right shape, and no launch."""
+    _cuda_or_skip()
+    x = torch.zeros(0, 64, device="cuda")
+    w = torch.ones(64, device="cuda")
+    fns = (t_rms_kernel.add_rmsnorm_fwd, t_rms_kernel.gated_rmsnorm_fwd)
+    before = [f.launches for f in fns]
+    out, r = t_rms_ops.add_rmsnorm(x, x, w, 1e-6)
+    assert out.shape == r.shape == (0, 64)
+    assert t_rms_ops.gated_rmsnorm(x, x, w, 1e-6).shape == (0, 64)
+    assert [f.launches for f in fns] == before
+

@@ -1,4 +1,4 @@
-"""The port's kernels have no backward, so each of the five launchers
+"""The port's kernels have no backward, so each of the eight launchers
 refuses an input that requires grad while grad is enabled, before it looks
 at the device (so these run on the CPU).  Without grad the same call goes
 on to the launcher's own checks, which refuse a CPU tensor."""
@@ -8,7 +8,9 @@ import torch
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.paged_attention.kernel import paged_attention_fwd
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_fwd
+from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_fwd,
+                                                gated_rmsnorm_fwd,
+                                                qk_norm_rope_fwd, rmsnorm_fwd)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
 
 torch.set_num_threads(1)
@@ -35,6 +37,17 @@ def _rmsnorm():
     return (torch.zeros(4, 32), torch.ones(32)), dict(eps=1e-6)
 
 
+def _rows_pair():
+    return ((torch.zeros(4, 32), torch.zeros(4, 32), torch.ones(32)),
+            dict(eps=1e-6))
+
+
+def _qk_rope():
+    return ((torch.zeros(2, 3, 4, 16), torch.zeros(2, 3, 2, 16),
+             torch.ones(16), torch.ones(16), torch.arange(3),
+             torch.ones(8)), dict(eps=1e-6))
+
+
 def _ssd():
     return ((torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2),
              torch.zeros(1, 8, 1, 4), torch.zeros(1, 8, 1, 4)),
@@ -47,6 +60,9 @@ WRAPPERS = [
     (decode_attention_fwd, _decode, (0, 1, 2)),
     (flash_attention_fwd, _flash, (0, 1, 2)),
     (rmsnorm_fwd, _rmsnorm, (0, 1)),
+    (add_rmsnorm_fwd, _rows_pair, (0, 1, 2)),
+    (gated_rmsnorm_fwd, _rows_pair, (0, 1, 2)),
+    (qk_norm_rope_fwd, _qk_rope, (0, 1, 2, 3, 5)),
     (ssd_scan_fwd, _ssd, (0, 1, 2, 3)),
 ]
 IDS = [w[0].__name__ for w in WRAPPERS]

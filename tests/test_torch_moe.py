@@ -168,12 +168,12 @@ def test_moe_block_matches_jax(d_ff):
         .astype(np.float32)
     jy, jaux = jax.jit(lambda p, x, sh: jm.moe_block(p, jcfg, x, sh))(
         pick(jp["blocks"]["moe"]), jnp.asarray(x), jshared)
-    ty, taux = tm.moe_block(pick(tp["blocks"]["moe"]), tcfg,
-                            torch.from_numpy(x), tshared, with_aux=True)
-    _close(ty, jy)
+    tx, ty, taux = tm.moe_block(pick(tp["blocks"]["moe"]), tcfg,
+                                torch.from_numpy(x), tshared, with_aux=True)
+    _close(tx + ty, jy)     # the port leaves the residual add to the next norm
     _close(taux, jaux, 1e-6)
     assert tm.moe_block(pick(tp["blocks"]["moe"]), tcfg,
-                        torch.from_numpy(x), tshared)[1] is None
+                        torch.from_numpy(x), tshared)[2] is None
 
 
 def test_prefill_then_decode_match_jax():

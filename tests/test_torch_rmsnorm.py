@@ -130,48 +130,72 @@ def test_row_view_copies_a_strided_last_axis():
     assert torch.equal(v, x[:, ::2])
 
 
-def _norms_per_call(cfg) -> int:
-    """RMSNorms of one model call: per layer the two block norms and the
-    qk-norm's two, or Mamba2's pre-norm and gated norm; zamba2's shared
-    block's two (and qk-norm's) per application; the final norm."""
-    attn = 2 + 2 * cfg.use_qk_norm + 2 * cfg.use_post_norm
-    if cfg.family == "ssm":
-        return 2 * cfg.num_layers + 1
-    if cfg.family == "hybrid":
-        return (2 * cfg.num_layers
-                + cfg.num_layers // cfg.attn_every * attn + 1)
-    return attn * cfg.num_layers + 1
+#: the norm ops of the model, by name in ``kernels/rmsnorm/ops.py`` (on
+#: the card each launches the kernel of the same name + ``_fwd``)
+NORM_OPS = ("rmsnorm", "add_rmsnorm", "qk_norm_rope", "gated_rmsnorm")
 
 
-#: what chip_smoke.py's launch checks hold each path's calls to
-NORMS = {"qwen3-0.6b": 113, "mamba2-780m": 97, "zamba2-2.7b": 127,
-         "qwen3-moe-30b-a3b": 193}
+def _norms_per_call(cfg) -> dict:
+    """Calls of each norm op in one model call: the stack's first
+    pre-norm has no pending block output (``rmsnorm``); every later
+    pre-norm and the final norm add the previous block's output
+    (``add_rmsnorm``); each attention layer's qk-norm (if any) and RoPE
+    are one ``qk_norm_rope``, and each Mamba2 layer's gate and norm one
+    ``gated_rmsnorm``.  zamba2's shared block counts once per
+    application."""
+    L = cfg.num_layers
+    attn = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1)}.get(
+        cfg.family, L)
+    mamba = L if cfg.family in ("ssm", "hybrid") else 0
+    return {"rmsnorm": 1, "add_rmsnorm": 2 * attn + mamba,
+            "qk_norm_rope": attn, "gated_rmsnorm": mamba}
+
+
+#: what chip_smoke.py's launch checks hold each path's calls to, per op
+NORMS = {
+    "qwen3-0.6b": {"rmsnorm": 1, "add_rmsnorm": 56, "qk_norm_rope": 28,
+                   "gated_rmsnorm": 0},
+    "mamba2-780m": {"rmsnorm": 1, "add_rmsnorm": 48, "qk_norm_rope": 0,
+                    "gated_rmsnorm": 48},
+    "zamba2-2.7b": {"rmsnorm": 1, "add_rmsnorm": 72, "qk_norm_rope": 9,
+                    "gated_rmsnorm": 54},
+    "qwen3-moe-30b-a3b": {"rmsnorm": 1, "add_rmsnorm": 96,
+                          "qk_norm_rope": 48, "gated_rmsnorm": 0},
+}
 
 
 @pytest.mark.parametrize("arch", sorted(NORMS))
 def test_every_norm_of_every_serving_path_goes_through_the_op(arch,
                                                               monkeypatch):
-    """Counted on the smoke config for each call of each serving path
-    the arch has (the op is the kernel's wrapper on the card), and the
-    same count at the published config is the number the card's launch
-    checks use."""
+    """Counted per op on the smoke config for each call of each serving
+    path the arch has (each op is its kernel's wrapper on the card), and
+    the same counts at the published config are the numbers the card's
+    launch checks use."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as tm
     assert _norms_per_call(get_config(arch)) == NORMS[arch]
     cfg = get_config(arch, smoke=True).replace(param_dtype="float32",
                                                compute_dtype="float32")
-    calls = []
-    real = t_ops.rmsnorm
-    monkeypatch.setattr(t_ops, "rmsnorm",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    calls = {op: 0 for op in NORM_OPS}
+
+    def counted(op):
+        real = getattr(t_ops, op)
+
+        def call(*a, **k):
+            calls[op] += 1
+            return real(*a, **k)
+        return call
+
+    for op in NORM_OPS:
+        monkeypatch.setattr(t_ops, op, counted(op))
     p = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.randint(3, cfg.vocab_size, (2, 6))
     counts = []
 
     def count(step, *args):
-        n0 = len(calls)
+        before = dict(calls)
         out = step(p, cfg, *args)
-        counts.append(len(calls) - n0)
+        counts.append({op: calls[op] - before[op] for op in NORM_OPS})
         return out
 
     logits, cache = count(tm.prefill, {"tokens": toks}, 12)
