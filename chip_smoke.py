@@ -90,10 +90,41 @@ and any failure exits non-zero:
     and 2 of its 48 layers, 2 rows x 32 tokens and 4 decode steps, with
     the smallest gap between the k-th and (k+1)-th router probabilities
     printed (a routing flip would show as a greedy-token or logit
-    mismatch, never hidden by a looser bound).
+    mismatch, never hidden by a looser bound);
+16. the RMSNorm backward kernels vs plain: ``rmsnorm_bwd``,
+    ``add_rmsnorm_bwd``, ``gated_rmsnorm_bwd`` (on every case of
+    RMSNORM_CASES) and ``qk_norm_rope_bwd`` (on every case of
+    QK_ROPE_CASES), in the four (x, w) dtype pairs, against their plain
+    formulas and against torch.autograd of the plain forwards (TOL by x's
+    dtype, a weight gradient by the looser of x's and w's, relative to
+    its largest value);
+    each call repeated on the same inputs must give the same bits (dw's
+    partial rows summed in a fixed order).  Then each timed at the train
+    step's launch beside its bound and its plain formula and, for
+    ``rmsnorm_bwd``, the backward of ``torch.nn.functional.rms_norm``
+    under autograd;
+17. the training main path: ``repro_torch.launch.train.main`` trains the
+    full-width, full-depth qwen3-0.6b (bf16 params, fp32 Adam moments,
+    random weights from a seed) for 20 steps of 8 x 1024 tokens of the
+    synthetic stream: the mean loss of the last 5 steps must be below the
+    first 5's, each RMSNorm forward and backward kernel must launch
+    exactly its count (``train_norm_launches``: the forward, the
+    recompute of every layer under ``remat="full"``, the backward) and no
+    attention or SSD kernel at all (the train mode takes their plain
+    versions); the step-20 checkpoint must restore bit for bit and
+    ``--resume`` continue from it.  Step seconds, tokens/s and peak
+    memory per step, and a profile of one step (device busy, idle share,
+    kernels, the RMSNorm kernels' share, the top device ops); then a
+    short mamba2-780m run (full width, 8 of its 48 layers, 4 x 512) runs
+    the gated norm's kernels and the plain SSD scan;
+18. card vs CPU in f32: one train step (gradients and the AdamW update)
+    of full-width qwen3-0.6b (full depth) and mamba2-780m (8 layers),
+    2 rows x 64 tokens: loss, grad norm, every gradient leaf and the
+    parameters after the step within the bounds stated beside
+    ``PARITY_ATOL``'s.
 
-Every path (phases 3, 6, 9, 10, 13 and 14) runs an RMSNorm kernel for
-every norm (the fused ones wherever a neighbour is absorbed), and each
+Every path (phases 3, 6, 9, 10, 13, 14 and 17) runs an RMSNorm kernel
+for every norm (the fused ones wherever a neighbour is absorbed), and each
 runs with every kernel's launch count set to 0 just before it and read
 just after: each kernel of the path must have been launched exactly its
 per-call count times the path's calls, and no other kernel at all.  Each
@@ -127,6 +158,7 @@ from __future__ import annotations
 
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -151,6 +183,21 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: far below the gap between the top two logits that decides each
 #: greedy token.
 PARITY_ATOL = 2e-3
+#: phase 18: f32 card vs CPU, one train step.  Both sides compute in f32
+#: (TF32 off) but sum in other orders (cuBLAS vs the CPU BLAS, the norm
+#: kernels' row sums vs torch's), through 28 layers forward and back:
+#: the loss is held to TRAIN_LOSS_ATOL (an absolute error on losses near
+#: 12), the grad norm to TRAIN_GRAD_RTOL relative, and each gradient leaf
+#: to TRAIN_GRAD_RTOL of its largest value.  After the AdamW step (lr
+#: TRAIN_LR at count 1, where each element moves by lr * g / (|g| + eps)
+#: + weight decay) a parameter whose |g| is above 1e-4 (so eps is
+#: negligible beside it), above 1e-4 of its leaf's largest and above 10
+#: times that leaf's gradient error moves the same on both sides, to
+#: 1e-6 (f32 rounding of values near 1); any other may move by at most
+#: twice the step's size (the gradient's sign is noise there).
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_LR = 1e-3
 
 #: where phases 2, 4, 5 and 7 put the kernel's side (the card)
 DEVICE = "cuda"
@@ -507,15 +554,13 @@ def launchers() -> dict:
         flash_attention_fwd
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_fwd
-    from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_fwd,
-                                                    gated_rmsnorm_fwd,
-                                                    qk_norm_rope_fwd,
-                                                    rmsnorm_fwd)
+    from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
-    return {f.__name__: f for f in (paged_attention_fwd, flash_attention_fwd,
-                                    decode_attention_fwd, ssd_scan_fwd,
-                                    rmsnorm_fwd, add_rmsnorm_fwd,
-                                    qk_norm_rope_fwd, gated_rmsnorm_fwd)}
+    return {f.__name__: f for f in (
+        paged_attention_fwd, flash_attention_fwd, decode_attention_fwd,
+        ssd_scan_fwd, rms.rmsnorm_fwd, rms.add_rmsnorm_fwd,
+        rms.qk_norm_rope_fwd, rms.gated_rmsnorm_fwd, rms.rmsnorm_bwd,
+        rms.add_rmsnorm_bwd, rms.qk_norm_rope_bwd, rms.gated_rmsnorm_bwd)}
 
 
 def serve_counted(argv):
@@ -1709,6 +1754,470 @@ def phase_moe_parity() -> None:
     torch.cuda.empty_cache()
 
 
+# --- phase 16 ----------------------------------------------------------------
+
+#: operations per element of the normed activations in each backward (fp32
+#: on the CUDA cores): g = dy * w, the two sums (square and add, product
+#: and add), dx's three and dw's two; the add's dr; the gate's silu, its
+#: derivative and three products; RoPE's rotation (four products and two
+#: sums) and, per pair, the angle, cos and sin
+NORM_BWD_OPS = {"rmsnorm_bwd": 10, "add_rmsnorm_bwd": 11,
+                "gated_rmsnorm_bwd": 22, "qk_norm_rope_bwd": 10 + 6 + 1.5}
+
+
+def bwd_inputs(entry: str, arch: str, B: int, S: int, seed: int):
+    """The backward kernel's inputs at one of the train step's launches
+    (bf16, the arch's widths, random values from ``seed``): the forward's
+    inputs as the model passes them (the gated norm's z a slice of the
+    Mamba2 input projection) and the incoming gradients, dense."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm.ops import inv_freq, row_view
+    if entry == "qk_norm_rope_bwd":
+        q, k, wq, wk, pos = fused_inputs("qk_norm_rope_fwd", arch, B, S,
+                                         "seq", seed)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        freq = inv_freq(q.device, q.shape[-1], get_config(arch).rope_theta)
+        return (_rand(gen, q.shape, q.dtype), _rand(gen, k.shape, k.dtype),
+                q, k, wq, wk, pos, freq)
+    fwd = {"rmsnorm_bwd": "add_rmsnorm_fwd", "add_rmsnorm_bwd":
+           "add_rmsnorm_fwd", "gated_rmsnorm_bwd": "gated_rmsnorm_fwd"}[entry]
+    a, b, w = fused_inputs(fwd, arch, B, S, None, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    dy = row_view(_rand(gen, a.shape, a.dtype))
+    if entry == "rmsnorm_bwd":
+        return dy, row_view(a), w
+    if entry == "add_rmsnorm_bwd":
+        return dy, row_view(_rand(gen, a.shape, a.dtype)), row_view(a), w
+    return dy, row_view(a), row_view(b), w
+
+
+def bwd_plain(entry: str, ins, theta: float):
+    """The plain formula on ``bwd_inputs``'s arguments (``theta``: RoPE's,
+    of the arch)."""
+    from repro_torch.kernels.rmsnorm import ref as R
+    if entry == "qk_norm_rope_bwd":
+        dq, dk, q, k, wq, wk, pos, _ = ins
+        return R.qk_norm_rope_bwd_ref(dq, dk, q, k, wq, wk, pos, theta,
+                                      1e-6)
+    if entry == "rmsnorm_bwd":
+        dy, x, w = ins
+        return R.rmsnorm_bwd_ref(dy, x, w, 1e-6)
+    if entry == "add_rmsnorm_bwd":
+        dh, dr, r, w = ins
+        return R.add_rmsnorm_bwd_ref(dh, dr, r, w, 1e-6)
+    dout, y, z, w = ins
+    return R.gated_rmsnorm_bwd_ref(dout, y, z, w, 1e-6)
+
+
+def phase_rmsnorm_bwd_vs_plain() -> dict:
+    """The four RMSNorm backward kernels on the card against their plain
+    formulas and against torch.autograd of the plain forwards, on every
+    case of ``kernels/rmsnorm/cases.py`` (the row kernels on
+    RMSNORM_CASES, the qk-norm-RoPE one on QK_ROPE_CASES) in the four
+    (x, w) dtype pairs (TOL by x's dtype, a weight gradient by the looser
+    of x's and w's, relative to its largest value: a bf16 x rounds the
+    terms its sum adds); each call made twice on the same
+    inputs must give the same bits (dw's fixed-order sum).  Then each is
+    timed at the train step's launch (``BWD_TIMED``).  Returns the JSON
+    numbers of each backward kernel, by name."""
+    C = norm_cases()
+    worst = {e: [0.0, 0.0] for e in C.BWD_ENTRIES}
+    cases = {e: 0 for e in C.BWD_ENTRIES}
+    differ = {e: 0 for e in C.BWD_ENTRIES}
+    for entry in C.BWD_ENTRIES:
+        case_list = (C.QK_ROPE_CASES if entry == "qk_norm_rope_bwd"
+                     else C.RMSNORM_CASES)
+        for seed, case in enumerate(case_list):
+            for xdt, wdt in C.RMSNORM_DTYPES:
+                kernel, plain, auto = C.bwd_case(entry, DEVICE, xdt, wdt,
+                                                 case, seed)
+                got = kernel()
+                for i, want in enumerate((plain(), auto())):
+                    err, ok = C.bwd_max_err(got, want, TOL[xdt],
+                                            max(TOL[xdt], TOL[wdt]))
+                    if not ok:
+                        raise AssertionError(
+                            f"{entry} {case[0]} {xdt}/{wdt}: kernel vs "
+                            f"{('plain', 'autograd')[i]} err {err:.3g}")
+                    worst[entry][i] = max(worst[entry][i], err)
+                again = kernel()
+                differ[entry] += sum(int((g != a).sum()) for g, a in
+                                     zip(got, again) if g is not None)
+                cases[entry] += 1
+    torch.cuda.synchronize()
+    for entry in C.BWD_ENTRIES:
+        print(f"phase 16 {entry} vs plain: {cases[entry]} cases ok "
+              f"(shapes, layouts and (x, w) dtype pairs), max err vs the "
+              f"plain formula {worst[entry][0]:.3g}, vs autograd of the "
+              f"plain forward {worst[entry][1]:.3g} (tol f32 "
+              f"{TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; dw "
+              f"relative to max|dw| at the looser of x's and w's); a "
+              f"second call on the same inputs: "
+              f"{differ[entry]} elements differ")
+    if any(differ.values()):
+        raise AssertionError(f"backward kernels are not deterministic: "
+                             f"{differ}")
+    timing = time_norm_bwd_kernels("phase 16", C)
+    return {e: dict(max_abs_err=worst[e][0], **timing[e])
+            for e in C.BWD_ENTRIES}
+
+
+def time_norm_bwd_kernels(label: str, C) -> dict:
+    """Each backward kernel at the train step's launch (``C.BWD_TIMED``,
+    bf16): device time of its two launches, beside its bound, its plain
+    formula and, for ``rmsnorm_bwd``, the backward of
+    ``torch.nn.functional.rms_norm`` under autograd (the library time);
+    four inputs cycled.  One line each; returns the JSON numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import kernel as K
+    out = {}
+    for entry, launches in C.BWD_TIMED.items():
+        fn = getattr(K, entry)
+        for name, arch, B, S in launches:
+            theta = get_config(arch).rope_theta
+            ins = [bwd_inputs(entry, arch, B, S, 70 + j) for j in range(4)]
+            if entry == "qk_norm_rope_bwd":
+                def call(i):
+                    dq, dk, q, k, wq, wk, pos, freq = ins[i % 4]
+                    return fn(dq, dk, q, k, wq, wk, pos, freq, eps=1e-6)
+            else:
+                def call(i):
+                    return fn(*ins[i % 4], eps=1e-6)
+            ker = timed(call, 40)
+            plain = timed(lambda i: bwd_plain(entry, ins[i % 4], theta),
+                          10)
+            lib = None
+            if entry == "rmsnorm_bwd":
+                dy, x, w = ins[0]
+                xr = x.detach().requires_grad_(True)
+                wr = w.detach().requires_grad_(True)
+                y = torch.nn.functional.rms_norm(xr, (x.shape[-1],), wr,
+                                                 1e-6)
+                lib = timed(lambda i: torch.autograd.grad(
+                    y, (xr, wr), dy, retain_graph=True), 40)
+            outs = call(0)
+            nbytes = (sum(t.numel() * t.element_size()
+                          for t in list(ins[0]) + list(outs)
+                          if t is not None and t.dtype.is_floating_point)
+                      + (ins[0][6].numel() * 8
+                         if entry == "qk_norm_rope_bwd" else 0))
+            numel = outs[0].numel() + (outs[1].numel()
+                                       if entry == "qk_norm_rope_bwd" else 0)
+            bound_ms, bound_by = bound(nbytes, NORM_BWD_OPS[entry] * numel,
+                                       torch.float32)
+            out[entry] = dict(ms=ker["ms"], plain_ms=plain["ms"],
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None if lib is None else lib["ms"])
+            shapes = tuple(tuple(t.shape) for t in ins[0]
+                           if t is not None and t.dim() > 1)
+            print(f"{label} {entry} {name} bf16 {shapes}: device time "
+                  f"kernel {_us(ker)} (the row kernel and the sum of dw's "
+                  f"partial rows), plain {_us(plain)}"
+                  + (f", F.rms_norm's backward under autograd {_us(lib)}"
+                     if lib else ", library: none (no single PyTorch call)")
+                  + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: "
+                  f"{nbytes / 1e6:.2f} MB), {bound_ms / ker['ms']:.3f} of "
+                  f"it reached")
+            del ins
+            gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- phases 17 and 18 --------------------------------------------------------
+
+#: phase 17's train runs: the checkpoint directory (gitignored), the
+#: qwen3-0.6b main path and the short mamba2-780m run (full width, 8 of
+#: its 48 layers, to keep the phase short)
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+TRAIN_STEPS = 20
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--device", "cuda", "--steps",
+              str(TRAIN_STEPS), "--batch", "8", "--seq", "1024", "--seed",
+              "0", "--ckpt-every", str(TRAIN_STEPS)]
+MAMBA_TRAIN_ARGV = ["--arch", "mamba2-780m", "--layers", "8", "--device",
+                    "cuda", "--steps", "6", "--batch", "4", "--seq", "512",
+                    "--seed", "0", "--ckpt-every", "1000"]
+
+
+def train_norm_launches(cfg, steps: int) -> dict:
+    """Each RMSNorm kernel's launches in ``steps`` train steps of ``cfg``
+    under ``remat="full"``.  One forward runs every norm once (F): the
+    first layer's pre-norm and the final norm are ``rmsnorm_fwd`` (the
+    train mode's hidden is summed before the final norm), every other
+    pre-norm ``add_rmsnorm_fwd``, each attention layer's qk-norm and RoPE
+    ``qk_norm_rope_fwd`` and each Mamba2 layer's gate ``gated_rmsnorm_fwd``.
+    The backward recomputes every layer (F less the final norm, which
+    sits outside the layers) and runs each norm's backward once (F)."""
+    L = cfg.num_layers
+    apps = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1)}.get(
+        cfg.family, L)
+    mamba = L if cfg.family in ("ssm", "hybrid") else 0
+    per_fwd = {"rmsnorm": 2, "add_rmsnorm": 2 * apps + mamba - 1,
+               "qk_norm_rope": apps, "gated_rmsnorm": mamba}
+    assert cfg.remat == "full", cfg.remat
+    out = {}
+    for op, n in per_fwd.items():
+        if n:
+            out[f"{op}_fwd"] = steps * (2 * n - (op == "rmsnorm"))
+            out[f"{op}_bwd"] = steps * n
+    return out
+
+
+def train_counted(argv):
+    """``train.main(argv)`` with every kernel's launch count set to 0
+    just before and read just after, and the peak memory reset."""
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fns = launchers()
+    for f in fns.values():
+        f.launches = 0
+    out = train.main(argv)
+    return out, {name: f.launches for name, f in fns.items()}
+
+
+def check_train_run(label: str, out, counts, cfg, steps: int) -> None:
+    want = train_norm_launches(cfg, steps)
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{label}: launches {counts}; want {full} (no "
+                             f"attention or SSD kernel in a train step)")
+    losses = out["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+
+
+def train_step_profile(out, label: str, step_s: float) -> None:
+    """``torch.profiler`` over one train step from the run's final state
+    (the next step's batch): host ms, device busy, the idle share of an
+    unprofiled step (``step_s``, the run's median) and of the profiled
+    one, kernels per step, the RMSNorm kernels' share of busy and the top
+    device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    cfg, step_fn = out["cfg"], out["step_fn"]
+    B, S = (int(a) for a in (TRAIN_ARGV[TRAIN_ARGV.index("--batch") + 1],
+                             TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1]))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in make_batch(
+        cfg, ShapeConfig("t", "train", S, B), DataConfig(),
+        TRAIN_STEPS).items()}
+    state = [out["params"], out["opt"]]
+    out["params"] = out["opt"] = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"{label}: {1e3 * wall:.1f} ms per step (host clock, under "
+              f"the profiler); the profiler saw no device time: busy and "
+              f"idle share not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    norm = sum(t for n, t in by_name.items()
+               if "norm_kernel" in n or "norm_bwd_kernel" in n
+               or "sum_partials_kernel" in n or "qk_norm_rope" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label}: {1e3 * step_s:.1f} ms per step (host clock; "
+          f"{1e3 * wall:.1f} under the profiler), device busy {busy:.1f} ms "
+          f"({len(kernels)} kernels): idle share "
+          f"{max(0.0, 1 - busy / (1e3 * step_s)):.3f} of an unprofiled "
+          f"step, {1 - busy / (1e3 * wall):.3f} of the profiled one; "
+          f"RMSNorm kernels "
+          f"{norm:.2f} ms, {norm / busy:.4f} of busy; top device ops ms: "
+          + "; ".join(f"{n[:90]} {t:.2f}" for n, t in top))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_path() -> dict:
+    """The training main path: ``repro_torch.launch.train.main`` trains
+    full-width, full-depth qwen3-0.6b (bf16, random weights from a seed)
+    for ``TRAIN_STEPS`` steps of 8 x 1024 tokens; the loss must fall
+    (mean of the last 5 below the first 5), each RMSNorm kernel launch
+    exactly its count and no attention or SSD kernel launch.  The
+    checkpoint of the last step must restore bit for bit, and
+    ``--resume`` must continue from it.  Then one step is profiled, and a
+    short mamba2-780m run (``MAMBA_TRAIN_ARGV``) checks the gated norm's
+    kernels and the plain SSD route.  Returns both runs' launch counts
+    (the qwen3 run's, then the mamba2 run's)."""
+    from repro_torch.checkpoint.checkpoint import latest_step, restore
+    from repro_torch.configs import get_config
+    from repro_torch.utils.tree import tree_leaves
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    argv = TRAIN_ARGV + ["--ckpt-dir", str(TRAIN_CKPT)]
+    out, counts = train_counted(argv)
+    cfg = out["cfg"]
+    check_train_run("phase 17 qwen3-0.6b", out, counts, cfg, TRAIN_STEPS)
+    tok = out["tokens_per_step"]
+    for i, (s, peak) in enumerate(zip(out["step_s"], out["peak_bytes"])):
+        print(f"phase 17 qwen3-0.6b step {i}: loss {out['losses'][i]:.4f}, "
+              f"{s:.3f} s (host clock after synchronize), {tok / s:.0f} "
+              f"tokens/s, peak device memory {peak / 2**30:.2f} GiB")
+    losses = out["losses"]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"phase 17: the loss did not fall: first 5 "
+                             f"{first:.4f}, last 5 {last:.4f}")
+    steady = sorted(out["step_s"][2:])[len(out["step_s"][2:]) // 2]
+    C = {k: counts[k] for k in counts if counts[k]}
+    print(f"phase 17 train main path: qwen3-0.6b full ({cfg.num_layers} "
+          f"layers, d={cfg.d_model}, {cfg.param_dtype} params, fp32 Adam "
+          f"moments, remat {cfg.remat}) trained {TRAIN_STEPS} steps of "
+          f"8 x 1024 tokens: mean loss of the first 5 steps {first:.4f}, "
+          f"of the last 5 {last:.4f}; median step (from step 2) "
+          f"{steady:.3f} s, {tok / steady:.0f} tokens/s; peak device "
+          f"memory {max(out['peak_bytes']) / 2**30:.2f} GiB; launches "
+          f"{C} = per step {train_norm_launches(cfg, 1)} x {TRAIN_STEPS}; "
+          f"flash, decode, paged and SSD kernels 0")
+    # the checkpoint: step 20 restores bit for bit, and --resume continues
+    if latest_step(str(TRAIN_CKPT)) != TRAIN_STEPS:
+        raise AssertionError(f"phase 17: checkpoint step "
+                             f"{latest_step(str(TRAIN_CKPT))}")
+    tmpl = {"params": out["params"], "m": out["opt"].m, "v": out["opt"].v,
+            "count": out["opt"].count}
+    t0 = time.perf_counter()
+    restored, step = restore(str(TRAIN_CKPT), tmpl)
+    t_restore = time.perf_counter() - t0
+    bad = sum(int((a != b).sum()) for a, b in zip(tree_leaves(restored),
+                                                   tree_leaves(tmpl)))
+    if bad or int(restored["count"]) != TRAIN_STEPS:
+        raise AssertionError(f"phase 17: the checkpoint restores {bad} "
+                             f"differing elements, count "
+                             f"{int(restored['count'])}")
+    del restored, tmpl
+    train_step_profile(out, "phase 17 qwen3-0.6b train-step profile",
+                       steady)
+    del out
+    resumed, _ = train_counted(argv + ["--steps", str(TRAIN_STEPS + 2),
+                                       "--resume"])
+    if resumed["start"] != TRAIN_STEPS or len(resumed["losses"]) != 2:
+        raise AssertionError(f"phase 17: --resume started at "
+                             f"{resumed['start']}, ran "
+                             f"{len(resumed['losses'])} steps")
+    print(f"phase 17 checkpoint: step {TRAIN_STEPS} (params, fp32 m and v, "
+          f"count) restored bit for bit in {t_restore:.1f}s; --resume "
+          f"--steps {TRAIN_STEPS + 2} continued from step "
+          f"{resumed['start']} (losses {resumed['losses']})")
+    del resumed
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    mout, mcounts = train_counted(MAMBA_TRAIN_ARGV
+                                  + ["--ckpt-dir", str(TRAIN_CKPT)])
+    mcfg, msteps = mout["cfg"], len(mout["losses"])
+    check_train_run("phase 17 mamba2-780m", mout, mcounts, mcfg, msteps)
+    if not mout["losses"][-1] < mout["losses"][0]:
+        raise AssertionError(f"phase 17 mamba2: losses {mout['losses']}")
+    ms = sorted(mout["step_s"][1:])[len(mout["step_s"][1:]) // 2]
+    print(f"phase 17 mamba2-780m train: full width (d={mcfg.d_model}, "
+          f"d_inner {mcfg.d_inner}), {mcfg.num_layers} of its "
+          f"{get_config('mamba2-780m').num_layers} layers (depth cut to "
+          f"keep the phase short), {msteps} steps of 4 x 512 tokens: losses "
+          + ", ".join(f"{x:.3f}" for x in mout["losses"])
+          + f"; median step {ms:.3f} s; peak device memory "
+          f"{max(mout['peak_bytes']) / 2**30:.2f} GiB; launches "
+          f"{ {k: v for k, v in mcounts.items() if v} }; attention and SSD "
+          f"kernels 0 (the plain SSD scan)")
+    del mout
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [counts, mcounts]
+
+
+TRAIN_PARITY = [("qwen3-0.6b", None), ("mamba2-780m", 8)]
+
+
+def _train_step_on(cfg, tc, params, batch, device):
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_loss_fn, value_and_grad
+    from repro_torch.utils.tree import tree_map
+    p = tree_map(lambda t: t.to(device), params)
+    b = {k: v.to(device) for k, v in batch.items()}
+    (loss, metrics), grads = value_and_grad(build_loss_fn(cfg), p, b)
+    new, _, om = optim.adamw_update(p, grads, optim.init_opt_state(p, tc),
+                                    tc)
+    to_cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    return float(loss), float(om["grad_norm"]), to_cpu(grads), to_cpu(new)
+
+
+def phase_train_parity() -> None:
+    """One train step (value_and_grad + AdamW) of full-width qwen3-0.6b
+    (full depth) and mamba2-780m (8 of 48 layers) in f32, 2 rows x 64
+    tokens, the same params from a CPU generator, on the card and on the
+    CPU; held to the bounds above."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.utils.tree import flatten_with_paths
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=100)
+    for arch, layers in TRAIN_PARITY:
+        cfg = get_config(arch).replace(param_dtype="float32",
+                                       compute_dtype="float32")
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        params = model_lib.init(cfg, torch.Generator().manual_seed(7), "cpu")
+        batch = {k: torch.from_numpy(v) for k, v in make_batch(
+            cfg, ShapeConfig("t", "train", 64, 2), DataConfig(), 0).items()}
+        t0 = time.perf_counter()
+        gl, gn, gg, gp = _train_step_on(cfg, tc, params, batch, DEVICE)
+        t1 = time.perf_counter()
+        cl, cn, cg, cp = _train_step_on(cfg, tc, params, batch, "cpu")
+        t2 = time.perf_counter()
+        if not (abs(gl - cl) <= TRAIN_LOSS_ATOL
+                and abs(gn - cn) <= TRAIN_GRAD_RTOL * cn):
+            raise AssertionError(f"phase 18 {arch}: loss {gl} vs {cl}, "
+                                 f"grad norm {gn} vs {cn}")
+        worst, strict, loose, n_strict, n_all = 0.0, 0.0, 0.0, 0, 0
+        lr = TRAIN_LR
+        for (path, g), (_, c), (_, p1), (_, p2), (_, p0) in zip(
+                flatten_with_paths(gg), flatten_with_paths(cg),
+                flatten_with_paths(gp), flatten_with_paths(cp),
+                flatten_with_paths(params)):
+            scale = c.abs().max().item()
+            err = (g - c).abs().max().item()
+            rel = err / max(scale, 1e-30)
+            worst = max(worst, rel)
+            if rel > TRAIN_GRAD_RTOL:
+                raise AssertionError(f"phase 18 {arch}: grad {path} max err "
+                                     f"{err:.3g}, {rel:.3g} of its max")
+            diff = (p1 - p2).abs()
+            big = c.abs() >= max(1e-4 * scale, 10 * err, 1e-4)
+            strict = max(strict, diff[big].max().item() if big.any() else 0)
+            loose = max(loose, diff.max().item())
+            n_strict += int(big.sum())
+            n_all += big.numel()
+            if (big.any() and diff[big].max().item() > 1e-6
+                    * max(1.0, p0.abs().max().item())) \
+                    or diff.max().item() > 2 * lr + 1e-6:
+                raise AssertionError(f"phase 18 {arch}: param {path} after "
+                                     f"the step differs by "
+                                     f"{diff.max().item():.3g}")
+        print(f"phase 18 {arch} card vs CPU, one train step in f32 (TF32 "
+              f"off), full width, {cfg.num_layers} layers"
+              f"{' (depth cut)' if layers else ''}, 2 x 64 tokens: loss "
+              f"{gl:.6f} vs {cl:.6f} (|d| {abs(gl - cl):.3g} <= "
+              f"{TRAIN_LOSS_ATOL}); grad norm {gn:.6f} vs {cn:.6f}; worst "
+              f"grad leaf {worst:.3g} of its max (<= {TRAIN_GRAD_RTOL}); "
+              f"after AdamW: {n_strict} of {n_all} params with a clear "
+              f"gradient within {strict:.3g} (<= 1e-6), every param within "
+              f"{loose:.3g} (<= 2 lr = {2 * lr:g}); card {t1 - t0:.1f}s, "
+              f"cpu {t2 - t1:.1f}s")
+        del params, gg, gp, cg, cp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -1726,6 +2235,12 @@ KERNELS = {
     **{name: ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:22")
        for name in NORM_JSON},
+    # the backward of the RMSNorm kernel: the JAX package has no Pallas
+    # backward and trains through the plain norm under jax.grad
+    **{name: ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm/kernel.py:22")
+       for name in ("rmsnorm_bwd", "add_rmsnorm_bwd", "gated_rmsnorm_bwd",
+                    "qk_norm_rope_bwd")},
 }
 
 
@@ -1779,8 +2294,14 @@ def main() -> None:
     done(14)
     phase_moe_parity()
     done(15)
+    timing.update(phase_rmsnorm_bwd_vs_plain())
+    done(16)
+    paths.extend(phase_train_path())
+    done(17)
+    phase_train_parity()
+    done(18)
     # launches on the main paths: each path's own run, summed over the
-    # paths (phases 3, 6, 9, 10, 13 and 14)
+    # paths (phases 3, 6, 9, 10, 13 and 14, and the training path, 17)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")

@@ -13,11 +13,13 @@ import torch
 
 
 def refuse_grad(kernel: str, *tensors) -> None:
-    """Raise when autograd would record a call of ``kernel``.  The kernels
-    have no backward: their outputs are filled through ``ctypes`` and
-    carry no ``grad_fn``, so a backward through one would drop the
-    gradient without a word.  Every launcher calls this first, before it
-    looks at shapes or the device."""
+    """Raise when autograd would record a call of ``kernel``.  A launcher
+    fills its outputs through ``ctypes``, so they carry no ``grad_fn``
+    and a backward through a bare launch would drop the gradient without
+    a word.  Every launcher calls this first, before it looks at shapes
+    or the device.  Where a kernel has a backward (the RMSNorm family),
+    its op wraps the launchers in a ``torch.autograd.Function``, whose
+    forward runs with grad off and so passes this check."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

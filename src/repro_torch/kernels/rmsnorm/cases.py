@@ -219,3 +219,128 @@ def qk_norm_rope_unfused(q, k, wq, wk, positions, theta, eps=1e-6):
     if wq is not None:
         q, k = ops.rmsnorm(q, wq, eps), ops.rmsnorm(k, wk, eps)
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+
+
+# --- the backward kernels' checks: each ``*_bwd`` kernel on a case of
+# RMSNORM_CASES (the row kernels) or QK_ROPE_CASES, against its plain
+# formula (``ref.py``'s ``*_bwd_ref``) and against torch.autograd of its
+# plain forward, shared by ``chip_smoke.py`` (phase 16) and the card-only
+# tests.  The forward's inputs are read in the case's layout; the
+# incoming gradients are dense, as autograd hands them over.
+
+#: the backward kernels, in ``chip_smoke.py``'s order
+BWD_ENTRIES = ("rmsnorm_bwd", "add_rmsnorm_bwd", "gated_rmsnorm_bwd",
+               "qk_norm_rope_bwd")
+#: the output names of each backward, in its return order; the weight
+#: gradients (compared relative to their largest value) start with "dw"
+BWD_OUTPUTS = {"rmsnorm_bwd": ("dx", "dw"),
+               "add_rmsnorm_bwd": ("dx", "dw"),
+               "gated_rmsnorm_bwd": ("dy", "dz", "dw"),
+               "qk_norm_rope_bwd": ("dq", "dk", "dwq", "dwk")}
+
+
+def _grad_like(t, seed):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.normal(0, 1, tuple(t.shape)).astype(
+        np.float32)).to(t.device, t.dtype)
+
+
+def _autograd(fn, args, cots):
+    leaves = [None if a is None else a.detach().clone().requires_grad_(True)
+              for a in args]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.autograd.backward(out, cots)
+    return tuple(None if a is None else a.grad for a in leaves)
+
+
+def bwd_case(entry, device, x_dtype, w_dtype, case, seed=0):
+    """One backward kernel on one case: (kernel, plain, autograd), three
+    zero-argument callables each giving the backward's outputs in
+    ``BWD_OUTPUTS[entry]``'s order (None for a weight gradient RoPE alone
+    does not have), in the forward inputs' shapes.  ``case`` is an entry
+    of RMSNORM_CASES (the three row kernels) or of QK_ROPE_CASES."""
+    from repro_torch.kernels.rmsnorm import kernel as K
+    from repro_torch.kernels.rmsnorm import ref as R
+    from repro_torch.kernels.rmsnorm.ops import inv_freq, row_view
+    eps = 1e-6
+    if entry == "qk_norm_rope_bwd":
+        _, dims, positions, norm, layout = case
+        q, k, wq, wk, pos = qk_rope_case_on(device, x_dtype, w_dtype, dims,
+                                            positions, norm, layout, seed)
+        dq, dk = _grad_like(q, seed + 7), _grad_like(k, seed + 8)
+        freqs = inv_freq(q.device, dims[-1], QK_ROPE_THETA)
+        return (lambda: K.qk_norm_rope_bwd(dq, dk, q, k, wq, wk, pos, freqs,
+                                           eps=eps),
+                lambda: R.qk_norm_rope_bwd_ref(dq, dk, q, k, wq, wk, pos,
+                                               QK_ROPE_THETA, eps),
+                lambda: _autograd(
+                    lambda a, b, c, d: R.qk_norm_rope_ref(
+                        a, b, c, d, pos, QK_ROPE_THETA, eps),
+                    (q, k, wq, wk), (dq, dk)))
+    _, shape, layout = case
+    a, b, w = pair_case_on(device, x_dtype, w_dtype, shape, layout, seed)
+    g1, g2 = _grad_like(a, seed + 7), _grad_like(a, seed + 8)
+
+    def rows(*outs):  # the kernel's [rows, d] outputs in a's shape
+        return tuple(o.reshape(a.shape) if o.dim() == 2 else o
+                     for o in outs)
+    if entry == "rmsnorm_bwd":
+        return (lambda: rows(*K.rmsnorm_bwd(row_view(g1), row_view(a), w,
+                                            eps=eps)),
+                lambda: R.rmsnorm_bwd_ref(g1, a, w, eps),
+                lambda: _autograd(lambda x, ww: R.rmsnorm_ref(x, ww, eps),
+                                  (a, w), (g1,)))
+    if entry == "add_rmsnorm_bwd":
+        # a is r = x + delta; its gradient is the one x and delta share
+        return (lambda: rows(*K.add_rmsnorm_bwd(
+                    row_view(g1), row_view(g2), row_view(a), w, eps=eps)),
+                lambda: R.add_rmsnorm_bwd_ref(g1, g2, a, w, eps),
+                lambda: _autograd(lambda r, ww: (R.rmsnorm_ref(r, ww, eps),
+                                                 r * 1), (a, w), (g1, g2)))
+    if entry == "gated_rmsnorm_bwd":
+        return (lambda: rows(*K.gated_rmsnorm_bwd(
+                    row_view(g1), row_view(a), row_view(b), w, eps=eps)),
+                lambda: R.gated_rmsnorm_bwd_ref(g1, a, b, w, eps),
+                lambda: _autograd(
+                    lambda y, z, ww: R.gated_rmsnorm_ref(y, z, ww, eps),
+                    (a, b, w), (g1,)))
+    raise ValueError(f"unknown backward {entry!r}")
+
+
+def bwd_max_err(got, want, tol, w_tol=None):
+    """The largest error of a backward's outputs against a reference's
+    (a weight gradient relative to its largest value, at least 1), and
+    whether every output is within its tolerance (``torch.allclose`` at
+    atol = rtol = ``tol``, x's dtype's; a weight gradient at ``w_tol``
+    (default ``tol``), its atol scaled so)."""
+    w_tol = tol if w_tol is None else w_tol
+    worst, ok = 0.0, True
+    for g, r in zip(got, want, strict=True):
+        if g is None or r is None:
+            ok = ok and g is None and r is None
+            continue
+        g, r = g.float(), r.float()
+        if g.shape != r.shape:
+            return float("inf"), False
+        if not r.numel():                             # no rows
+            continue
+        weight = g.dim() == 1
+        scale = max(1.0, r.abs().max().item()) if weight else 1.0
+        t = w_tol if weight else tol
+        worst = max(worst, (g - r).abs().max().item() / scale)
+        ok = ok and torch.allclose(g, r, atol=t * scale, rtol=t)
+    return worst, ok
+
+
+#: the train step's launches that ``chip_smoke.py`` times each backward
+#: at, by entry point: (name, arch, B, S); the widths, heads and
+#: qk-norm are the arch's (the gated norm's z is the first d_inner
+#: columns of the arch's Mamba2 input projection, as the model passes it)
+BWD_TIMED = {
+    "rmsnorm_bwd": [("qwen3-0.6b train", "qwen3-0.6b", 8, 1024)],
+    "add_rmsnorm_bwd": [("qwen3-0.6b train", "qwen3-0.6b", 8, 1024)],
+    "qk_norm_rope_bwd": [("qwen3-0.6b train", "qwen3-0.6b", 8, 1024)],
+    "gated_rmsnorm_bwd": [("mamba2 train", "mamba2-780m", 4, 512)],
+}

@@ -16,6 +16,14 @@ work, a longer row one block's; rows are read through their stride and
 never padded (see the source for the design).  Each launcher adds one to
 its own ``.launches`` per launch (none for zero rows).
 
+Each entry point has a backward launcher (``*_bwd``): a row kernel
+that recomputes the norm's rstd from the forward's input and writes the
+input gradients, and a second launch that sums dw's fp32 partial rows in
+a fixed order (deterministic: no atomics).  ``ops.py`` binds each pair
+into a ``torch.autograd.Function``.  The JAX package's Pallas kernel has
+no backward (it trains through the plain norm); these carry the port's
+gradient where its forward kernel sits on the training path.
+
 The library is compiled with ``nvcc`` on first use and bound with
 ``ctypes``; this module imports nothing CUDA-specific until then.
 """
@@ -53,8 +61,19 @@ def _library() -> ctypes.CDLL:
     lib.qk_norm_rope_fwd.argtypes = ([vp, i64, i64, i64] * 2
                                      + [vp, vp, vp, i64, i64, i32, vp, vp, vp]
                                      + [i32] * 5 + [f32, i32, i32, vp])
+    lib.rmsnorm_bwd.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp] + [i32] * 3 \
+        + [f32, i32, i32, vp]
+    lib.add_rmsnorm_bwd.argtypes = ([vp, i64] * 3 + [vp, vp, vp, vp]
+                                    + [i32] * 3 + [f32, i32, i32, vp])
+    lib.gated_rmsnorm_bwd.argtypes = ([vp, i64] * 3 + [vp, vp, vp, vp, vp]
+                                      + [i32] * 3 + [f32, i32, i32, vp])
+    lib.qk_norm_rope_bwd.argtypes = ([vp, vp] + [vp, i64, i64, i64] * 2
+                                     + [vp, vp, vp, i64, i64, i32]
+                                     + [vp] * 5 + [i32] * 6
+                                     + [f32, i32, i32, vp])
     for fn in (lib.rmsnorm_fwd, lib.add_rmsnorm_fwd, lib.gated_rmsnorm_fwd,
-               lib.qk_norm_rope_fwd):
+               lib.qk_norm_rope_fwd, lib.rmsnorm_bwd, lib.add_rmsnorm_bwd,
+               lib.gated_rmsnorm_bwd, lib.qk_norm_rope_bwd):
         fn.restype = i32
     lib.rmsnorm_error_string.argtypes = [i32]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
@@ -297,7 +316,184 @@ def qk_norm_rope_fwd(q: torch.Tensor, k: torch.Tensor,
     return q_out, k_out
 
 
+# --- the backward -----------------------------------------------------------
+
+#: the most partial rows of dw a backward sums (one per block of its row
+#: kernel)
+BWD_PARTIALS = 256
+
+
+def partials(rows: int, d: int) -> int:
+    """Blocks of a backward's row kernel, each writing one fp32 partial
+    row of dw: the rows over a block's row slots (four warps up to d
+    ``WARP_ROW_MAX_D``, else one block per row), at most
+    ``BWD_PARTIALS``.  The shape alone decides it, so the order in which
+    dw is summed is fixed."""
+    per_block = 4 if d <= WARP_ROW_MAX_D else 1
+    return max(1, min(-(-rows // per_block), BWD_PARTIALS))
+
+
+def _partial_rows(rows: int, d: int, device) -> torch.Tensor:
+    return torch.empty((partials(rows, d), d), dtype=torch.float32,
+                       device=device)
+
+
+def rmsnorm_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, w: torch.Tensor, *,
+                eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of ``rmsnorm_fwd``: dy2d (the gradient of its output)
+    and x2d [rows, d] (one dtype, rows contiguous, any row strides), w
+    [d].  -> (dx contiguous [rows, d] in x's dtype, dw [d] in w's dtype),
+    rstd recomputed from x, everything summed in fp32.
+
+    Two launches (the row kernel, then the fixed-order sum of dw's
+    partial rows), counted as one in ``rmsnorm_bwd.launches``; the same
+    stream and grad rules as ``rmsnorm_fwd``."""
+    refuse_grad("rmsnorm_bwd", dy2d, x2d, w)
+    _check(x2d, w, dy=dy2d)
+    rows, d = x2d.shape
+    dx = torch.empty((rows, d), dtype=x2d.dtype, device=x2d.device)
+    if rows == 0:
+        return dx, torch.zeros((d,), dtype=w.dtype, device=w.device)
+    dw = torch.empty((d,), dtype=w.dtype, device=w.device)
+    part = _partial_rows(rows, d, x2d.device)
+    _launch("rmsnorm_bwd", x2d.device,
+            dy2d.data_ptr(), dy2d.stride(0), x2d.data_ptr(), x2d.stride(0),
+            w.data_ptr(), dx.data_ptr(), dw.data_ptr(), part.data_ptr(),
+            part.shape[0], rows, d, float(eps), _DTYPE_CODES[x2d.dtype],
+            _DTYPE_CODES[w.dtype])
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+def add_rmsnorm_bwd(dh2d: torch.Tensor, dr2d: Optional[torch.Tensor],
+                    r2d: torch.Tensor, w: torch.Tensor, *,
+                    eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of ``add_rmsnorm_fwd``: dh2d and dr2d (the gradients
+    of its two outputs, out and r; dr2d may be None) and r2d (its r)
+    [rows, d], w [d].  -> (g, dw): g = dr + rmsnorm_bwd(dh, r)'s dx in
+    r's dtype (dx rounded to it first, as torch's add of the two would
+    take it), the gradient of both x and delta; dw in w's dtype.
+
+    One row kernel and the sum of dw's partial rows, counted as one in
+    ``add_rmsnorm_bwd.launches``."""
+    refuse_grad("add_rmsnorm_bwd", dh2d, dr2d, r2d, w)
+    _check(r2d, w, dh=dh2d, **({} if dr2d is None else {"dr": dr2d}))
+    rows, d = r2d.shape
+    g = torch.empty((rows, d), dtype=r2d.dtype, device=r2d.device)
+    if rows == 0:
+        return g, torch.zeros((d,), dtype=w.dtype, device=w.device)
+    dw = torch.empty((d,), dtype=w.dtype, device=w.device)
+    part = _partial_rows(rows, d, r2d.device)
+    _launch("add_rmsnorm_bwd", r2d.device,
+            dh2d.data_ptr(), dh2d.stride(0),
+            None if dr2d is None else dr2d.data_ptr(),
+            0 if dr2d is None else dr2d.stride(0),
+            r2d.data_ptr(), r2d.stride(0), w.data_ptr(), g.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), part.shape[0], rows, d,
+            float(eps), _DTYPE_CODES[r2d.dtype], _DTYPE_CODES[w.dtype])
+    add_rmsnorm_bwd.launches += 1
+    return g, dw
+
+
+def gated_rmsnorm_bwd(dout2d: torch.Tensor, y2d: torch.Tensor,
+                      z2d: torch.Tensor, w: torch.Tensor, *,
+                      eps: float) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The backward of ``gated_rmsnorm_fwd``: dout2d (the gradient of its
+    output), y2d and z2d [rows, d] (its inputs; z may be a strided slice),
+    w [d].  -> (dy, dz contiguous [rows, d] in y's dtype, dw [d] in w's
+    dtype): the gradient reaches y through silu(z) and z through
+    y * silu'(z), the gate's gradients rounded to y's dtype where torch's
+    ops would hold them.
+
+    One row kernel and the sum of dw's partial rows, counted as one in
+    ``gated_rmsnorm_bwd.launches``."""
+    refuse_grad("gated_rmsnorm_bwd", dout2d, y2d, z2d, w)
+    _check(y2d, w, z=z2d, dout=dout2d)
+    rows, d = y2d.shape
+    dy = torch.empty((rows, d), dtype=y2d.dtype, device=y2d.device)
+    dz = torch.empty_like(dy)
+    if rows == 0:
+        return dy, dz, torch.zeros((d,), dtype=w.dtype, device=w.device)
+    dw = torch.empty((d,), dtype=w.dtype, device=w.device)
+    part = _partial_rows(rows, d, y2d.device)
+    _launch("gated_rmsnorm_bwd", y2d.device,
+            dout2d.data_ptr(), dout2d.stride(0), y2d.data_ptr(),
+            y2d.stride(0), z2d.data_ptr(), z2d.stride(0), w.data_ptr(),
+            dy.data_ptr(), dz.data_ptr(), dw.data_ptr(), part.data_ptr(),
+            part.shape[0], rows, d, float(eps), _DTYPE_CODES[y2d.dtype],
+            _DTYPE_CODES[w.dtype])
+    gated_rmsnorm_bwd.launches += 1
+    return dy, dz, dw
+
+
+def qk_norm_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, q: torch.Tensor,
+                     k: torch.Tensor, wq: Optional[torch.Tensor],
+                     wk: Optional[torch.Tensor], positions: torch.Tensor,
+                     inv_freq: torch.Tensor, *, eps: float):
+    """The backward of ``qk_norm_rope_fwd``: dq, dk (the gradients of q'
+    and k', contiguous, in q's shape and dtype) and the forward's inputs
+    as it took them.  -> (dq_in, dk_in, dwq, dwk): RoPE's transpose (the
+    rotation by the negative angle) and, with weights, the per-head norm's
+    backward, dwq and dwk summed over every (token, head) in fp32 and cast
+    to the weights' dtype; without weights the rotation alone and dwq,
+    dwk None.
+
+    One row kernel (a warp per head) and, with weights, the sum of the
+    dw partial rows, counted as one in ``qk_norm_rope_bwd.launches``."""
+    refuse_grad("qk_norm_rope_bwd", dq, dk, q, k, wq, wk, inv_freq)
+    _check_heads(q, k)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    for name, g, t in (("dq", dq, q), ("dk", dk, k)):
+        if (tuple(g.shape) != tuple(t.shape) or g.dtype != t.dtype
+                or not g.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {tuple(t.shape)} "
+                             f"{t.dtype}, got {tuple(g.shape)} {g.dtype}")
+    if (wq is None) != (wk is None):
+        raise ValueError("wq and wk must both be given or both be None")
+    weights = {} if wq is None else {"wq": wq, "wk": wk}
+    for name, t in weights.items():
+        _check_weight(t, D, name)
+    if wq is not None:
+        _check_dtypes(q, wq)
+        if wk.dtype != wq.dtype:
+            raise TypeError(f"wq and wk must share a dtype, got {wq.dtype}, "
+                            f"{wk.dtype}")
+    pos = positions.expand(B, S)
+    _on_device(q.device, q=q, k=k, dq=dq, dk=dk, positions=positions,
+               inv_freq=inv_freq, **weights)
+    dq_in = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    dk_in = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
+    rows = B * S * (Hq + Hkv)
+    dw = (None if wq is None else
+          torch.empty((2, D), dtype=wq.dtype, device=q.device))
+    if rows == 0:
+        return dq_in, dk_in, *((None, None) if dw is None
+                               else dw.zero_().unbind())
+    nb = partials(rows, D)
+    part = (None if wq is None else
+            torch.empty((nb, 2, D), dtype=torch.float32, device=q.device))
+    _launch("qk_norm_rope_bwd", q.device,
+            dq.data_ptr(), dk.data_ptr(), q.data_ptr(), *q.stride()[:3],
+            k.data_ptr(), *k.stride()[:3],
+            None if wq is None else wq.data_ptr(),
+            None if wk is None else wk.data_ptr(),
+            pos.data_ptr(), *pos.stride(), int(pos.dtype == torch.int64),
+            inv_freq.data_ptr(), dq_in.data_ptr(), dk_in.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if dw is None else dw.data_ptr(), nb, B, S, Hq, Hkv, D,
+            float(eps), _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[wq.dtype] if wq is not None else 0)
+    qk_norm_rope_bwd.launches += 1
+    return dq_in, dk_in, *((None, None) if dw is None else dw.unbind())
+
+
 rmsnorm_fwd.launches = 0
 add_rmsnorm_fwd.launches = 0
 gated_rmsnorm_fwd.launches = 0
 qk_norm_rope_fwd.launches = 0
+rmsnorm_bwd.launches = 0
+add_rmsnorm_bwd.launches = 0
+gated_rmsnorm_bwd.launches = 0
+qk_norm_rope_bwd.launches = 0

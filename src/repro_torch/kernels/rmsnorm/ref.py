@@ -10,6 +10,11 @@ so on the CPU the model computes what it computed before the fusion.
 This module does not import the port's ``layers``, which dispatches to
 this package.  The CPU path of the wrappers, the CPU tests and the
 card-side checks in ``chip_smoke.py`` use it.
+
+The ``*_bwd_ref`` functions are the backward kernels' plain versions:
+the explicit formulas, in fp32, that the CUDA backward kernels compute.
+Only the tests and ``chip_smoke.py`` call them; on the CPU the ops take
+the gradient by autograd of the plain forward.
 """
 from __future__ import annotations
 
@@ -73,3 +78,80 @@ def qk_norm_rope_ref(q: torch.Tensor, k: torch.Tensor,
     if wq is not None:
         q, k = rmsnorm_ref(q, wq, eps), rmsnorm_ref(k, wk, eps)
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+
+
+# --- the backward kernels' plain versions ------------------------------------
+
+def rmsnorm_bwd_ref(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                    eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``rmsnorm_ref``: dy, x [..., d], w [d] -> (dx in
+    x's dtype, dw in w's dtype).  rstd = rsqrt(mean(x^2) + eps), xhat =
+    x * rstd, g = dy * w, dx = rstd * (g - xhat * mean(g * xhat)), dw =
+    the sum over rows of dy * xhat, all in fp32."""
+    d = x.shape[-1]
+    xf = x.float()
+    rstd = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    dyf = dy.float()
+    g = dyf * w.float()
+    dx = rstd * (g - xhat * torch.mean(g * xhat, dim=-1, keepdim=True))
+    dw = (dyf * xhat).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def add_rmsnorm_bwd_ref(dh: torch.Tensor, dr: Optional[torch.Tensor],
+                        r: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``add_rmsnorm_ref`` from those of its outputs (out
+    and r = x + delta; dr None: 0): (the gradient of x and of delta, dw).
+    The norm's dx is in r's dtype before torch's add of dr, as autograd
+    of the unfused add and norm has it."""
+    dx, dw = rmsnorm_bwd_ref(dh, r, w, eps)
+    return (dx if dr is None else dx + dr), dw
+
+
+def gated_rmsnorm_bwd_ref(dout: torch.Tensor, y: torch.Tensor,
+                          z: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The gradient of ``gated_rmsnorm_ref``: (dy, dz, dw).  With s =
+    silu(z) and g = y * s (each in y's dtype, as the forward rounds
+    them): dg = rmsnorm's dx at g, dy = dg * s, dz = (dg * y) * silu'(z),
+    silu'(z) = sig * (1 + z * (1 - sig)) with sig = 1 / (1 + exp(-z)) in
+    fp32."""
+    s = F.silu(z)
+    dg, dw = rmsnorm_bwd_ref(dout, y * s, w, eps)
+    zf = z.float()
+    sig = 1.0 / (1.0 + torch.exp(-zf))
+    dz = (dg * y).float() * (sig * (1.0 + zf * (1.0 - sig)))
+    return dg * s, dz.to(z.dtype), dw
+
+
+def rope_bwd_ref(dout: torch.Tensor, positions: torch.Tensor,
+                 theta: float) -> torch.Tensor:
+    """The gradient of ``apply_rope``: the rotation of dout [B, S, H, D]
+    by the negative angle (RoPE's transpose), in dout's dtype."""
+    d = dout.shape[-1]
+    inv = rope_freqs(d, theta, device=dout.device)
+    angles = positions.float()[..., None] * inv
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    d1, d2 = dout[..., : d // 2].float(), dout[..., d // 2:].float()
+    return torch.cat([d1 * cos + d2 * sin, d2 * cos - d1 * sin],
+                     dim=-1).to(dout.dtype)
+
+
+def qk_norm_rope_bwd_ref(dq: torch.Tensor, dk: torch.Tensor, q: torch.Tensor,
+                         k: torch.Tensor, wq: Optional[torch.Tensor],
+                         wk: Optional[torch.Tensor], positions: torch.Tensor,
+                         theta: float, eps: float = 1e-6):
+    """The gradient of ``qk_norm_rope_ref`` from those of q' and k': RoPE's
+    transpose, then (with weights) the norm's backward per head -> (dq,
+    dk, dwq, dwk), dwq and dwk None without weights."""
+    dnq, dnk = rope_bwd_ref(dq, positions, theta), rope_bwd_ref(
+        dk, positions, theta)
+    if wq is None:
+        return dnq, dnk, None, None
+    dq_in, dwq = rmsnorm_bwd_ref(dnq, q, wq, eps)
+    dk_in, dwk = rmsnorm_bwd_ref(dnk, k, wk, eps)
+    return dq_in, dk_in, dwq, dwk

@@ -2,7 +2,9 @@
 jnp branch of the JAX package's ``models/ssm.py::ssd_chunked`` (its
 oracle ``kernels/ssd_scan/ref.py``): the same padding of S to the chunk,
 cumsum, tril mask, ``exp(seg)`` under the mask and sequential
-inter-chunk recurrence, all in fp32."""
+inter-chunk recurrence, all in fp32.  The mask is applied to the
+exponent (the same values), so that the gradient, which the train mode
+takes through this version, stays finite at full-size chunks."""
 from __future__ import annotations
 
 import torch
@@ -38,7 +40,13 @@ def ssd_scan_ref(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
     # ---- intra-chunk (the "attention-like" quadratic-in-Q term)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,i,j,H]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xb.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # the exponent is masked before exp, not the exp after it: the same
+    # values (exp(-inf) = 0), but above the diagonal seg is a sum of decays
+    # (> 0) that overflows to inf at full-size chunks, and the gradient of
+    # where(tri, exp(seg), 0) there is 0 * inf = NaN (the JAX package's
+    # jnp branch has it; ROADMAP.md, Queue 3)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                              float("-inf")))
     cb = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
     M = cb * L                                          # [B,nc,i,j,H]
     xf = xb_c.float()

@@ -7,6 +7,11 @@ the tensor lies on the card, whatever ``use_pallas`` says: prefill
 self-attention goes to ``kernels/flash_attention``, dense decode to
 ``kernels/decode_attention`` and paged decode to
 ``kernels/paged_attention``.  A CPU tensor takes the plain path.
+
+The train mode is the exception, and the model's mode decides it, never
+the device: ``attention(..., differentiable=True)`` takes the plain path
+on any device, because the kernels have no backward and the JAX package
+trains through its plain XLA attention (``use_pallas=False``).
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ def attention(
     scale: Optional[float] = None,
     use_pallas: bool = False,
     f32_logits: bool = True,
+    differentiable: bool = False,
 ) -> torch.Tensor:
     """Returns [B, Q, Hq, D]. Softmax in fp32 (or in the input dtype with
     explicit max-subtraction when ``f32_logits=False``).
@@ -63,14 +69,17 @@ def attention(
     CUDA flash-attention kernel on a CUDA tensor (fp32 online softmax, so
     ``f32_logits`` and the positions do not apply there, as in the JAX
     kernel path).  ``use_pallas`` is kept for the callers' signature and
-    has no effect: the tensor's device decides."""
+    has no effect: the tensor's device decides, except that
+    ``differentiable`` (the model's train mode) always takes the plain
+    path, which autograd can differentiate, as the JAX package trains."""
     B, Q, Hq, D = q.shape
     _, K, Hkv, _ = k.shape
     assert Hq % Hkv == 0, (Hq, Hkv)
     G = Hq // Hkv
     scale = D ** -0.5 if scale is None else scale
 
-    if q.is_cuda and Q > 1 and causal and kv_len is None and Q == K:
+    if (q.is_cuda and not differentiable and Q > 1 and causal
+            and kv_len is None and Q == K):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention(
             q, k, v, causal=True, window=window,

@@ -1,16 +1,24 @@
-"""Model assembly: parameter specs for every family, and the paged-serving
-forward passes.
+"""Model assembly: parameter specs for every family, and the serving and
+training forward passes.
 
 Mirrors the JAX package's ``models/model.py``.  ``param_specs``,
 ``abstract`` and ``init_cache(abstract_only=True)`` cover every family
 (dense / moe / encdec / vlm / ssm / hybrid), so the footprint estimator
-sees the same byte counts.  The forward passes here are the ones serving
+sees the same byte counts.  The forward passes are the ones serving
 runs: the paged pair (``prefill_chunk`` / ``decode_step_paged``) for the
 dense, moe and vlm families, and the dense-cache pair (``prefill`` /
-``decode_step``) for the dense, moe, vlm, ssm and hybrid families.  The
-rest (training, expert parallelism and the remaining families) comes in
-later slices of the port (ROADMAP.md, Queue 1), and raises
+``decode_step``) for the dense, moe, vlm, ssm and hybrid families; and
+``forward_train`` for the dense, moe, vlm, ssm and hybrid families.  The
+rest (expert parallelism and the remaining families) comes in later
+slices of the port (ROADMAP.md, Queue 1), and raises
 ``NotImplementedError`` until then.
+
+The train mode (``forward_train``) keeps no cache and writes no state.
+Its attention and SSD scan take their plain versions on any device (the
+JAX package trains with ``use_pallas=False``; the port's attention and
+scan kernels have no backward), while every norm runs its CUDA kernel on
+the card, forward and backward (``kernels/rmsnorm/ops.py``).  Each layer
+runs under ``cfg.remat`` (``_maybe_remat``).
 
 Design rules:
   * Plain functions over a nested dict of tensors, stacked ``[L, ...]``
@@ -27,6 +35,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
@@ -321,7 +331,8 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     output, added to x in the pre-norm's launch.  Returns (x + delta, the
     block's output, still to be added to the residual, new_kv | None).
 
-    * train:   full self-attention, new_kv=None
+    * train:   full self-attention by the plain (differentiable) path on
+               any device, new_kv=None
     * prefill: full self-attention, returns (k, v) [B,S,Hkv,hd]
     * decode:  layer_kv is the full cache slice; the new token's k/v is
                written at index ``pos`` IN PLACE (the JAX version returns
@@ -345,7 +356,8 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = attention(q, k, v, causal=False, scale=_attn_scale(cfg),
                         attn_softcap=cfg.attn_softcap,
                         use_pallas=cfg.use_pallas,
-                        f32_logits=cfg.attn_f32_logits)
+                        f32_logits=cfg.attn_f32_logits,
+                        differentiable=mode == "train")
     else:
         k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
         v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
@@ -374,7 +386,8 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             attn_softcap=cfg.attn_softcap,
                             scale=_attn_scale(cfg),
                             use_pallas=cfg.use_pallas,
-                            f32_logits=cfg.attn_f32_logits)
+                            f32_logits=cfg.attn_f32_logits,
+                            differentiable=mode == "train")
             if mode == "prefill":
                 new_kv = (k, v)
 
@@ -431,12 +444,64 @@ def _ffn_block(pb: Params, cfg: ModelConfig, x: torch.Tensor, delta, *,
 def mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 state: Optional[ssm_mod.SSMState] = None,
                 delta: Optional[torch.Tensor] = None, *,
-                decode: bool = False):
+                decode: bool = False, train: bool = False):
     """Pre-norm Mamba2 block: -> (x + delta, the block's pending output,
-    new state)."""
+    new state).  ``train``: no state in or out, the plain scan."""
     h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
-    y, new_state = ssm_mod.mamba2_block(p, cfg, h, state, decode=decode)
+    y, new_state = ssm_mod.mamba2_block(p, cfg, h, state, decode=decode,
+                                        differentiable=train)
     return x, y, new_state
+
+
+# ---------------------------------------------------------------------------
+# The train mode: one layer at a time, each under cfg.remat
+# ---------------------------------------------------------------------------
+
+#: what ``remat="dots"`` keeps from a layer's forward: the outputs of its
+#: matrix products (the JAX package's ``dots_saveable``)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_DOTS)
+
+
+def _maybe_remat(fn, cfg, mode):
+    """``fn`` (one layer) as the train mode runs it.  ``cfg.remat``:
+    "none" runs it as is and keeps what autograd saves; "full" keeps only
+    its inputs and runs it again in the backward
+    (``torch.utils.checkpoint``); "dots" runs it again too but keeps the
+    outputs of its matrix products.  Other modes run ``fn`` as is.  The
+    layer's boundary carries the (x, pending delta) pair; a checkpointed
+    layer runs its forward kernels twice (forward, then the recompute)."""
+    if mode != "train" or cfg.remat == "none":
+        return fn
+    extra = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **extra)
+    return run
+
+
+def _dense_train_layer(pb, cfg, x, delta):
+    """A dense/moe/vlm layer in train mode: -> (x, pending delta, the MoE
+    aux loss or None)."""
+    x, delta, _ = attn_block(pb["attn"], cfg, x, delta, mode="train")
+    return _ffn_block(pb, cfg, x, delta, with_aux=True)
+
+
+def _mamba_train_layer(p, cfg, x, delta):
+    """A Mamba2 layer in train mode: -> (x, pending delta)."""
+    x, y, _ = mamba_block(p, cfg, x, None, delta, train=True)
+    return x, y
+
+
+def _shared_train_block(shared, cfg, x, delta):
+    """One application of zamba2's shared attention + MLP in train mode:
+    -> (x, pending delta)."""
+    x, delta, _ = attn_block(shared["attn"], cfg, x, delta, mode="train")
+    return mlp_block(shared["mlp"], cfg, x, delta)
 
 
 # ---------------------------------------------------------------------------
@@ -618,12 +683,16 @@ def _dense_stack(params, cfg, x, mode, cache=None):
     d = None
     for i in range(cfg.num_layers):
         pb = _layer(params["blocks"], i)
+        if mode == "train":
+            x, d, a = _maybe_remat(_dense_train_layer, cfg, mode)(pb, cfg, x,
+                                                                  d)
+            if a is not None:
+                aux = aux + a
+            continue
         kv = (cache["k"][i], cache["v"][i]) if cache else None
         x, d, nkv = attn_block(pb["attn"], cfg, x, d, mode=mode, layer_kv=kv,
                                pos=pos)
-        x, d, a = _ffn_block(pb, cfg, x, d, with_aux=mode == "train")
-        if a is not None:
-            aux = aux + a
+        x, d, _ = _ffn_block(pb, cfg, x, d)
         if mode == "prefill":
             ks.append(nkv[0])
             vs.append(nkv[1])
@@ -655,31 +724,49 @@ def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, delta, cache,
     return x, y
 
 
-def _ssm_stack(params, cfg, x, mode, cache):
+def _ssm_stack(params, cfg, x, mode, cache=None):
     """Pure-mamba stack over the cache {"ssm": [L,B,H,P,N], "conv":
     [L,B,W-1,ch]}, one layer at a time (prefill starts from a zero
-    cache, as in the JAX package); the states are updated in place.
+    cache, as in the JAX package); the states are updated in place.  The
+    train mode takes no cache and writes no state (new cache None).
     Returns (h, the last block's pending output, cache, aux)."""
     d = None
     for i in range(cfg.num_layers):
-        x, d = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x, d,
-                            cache, i, mode == "decode")
+        p = _layer(params["blocks"]["mamba"], i)
+        if mode == "train":
+            x, d = _maybe_remat(_mamba_train_layer, cfg, mode)(p, cfg, x, d)
+        else:
+            x, d = _mamba_layer(p, cfg, x, d, cache, i, mode == "decode")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        return x, d, None, aux
     return x, d, {"ssm": cache["ssm"], "conv": cache["conv"]}, aux
 
 
-def _hybrid_stack(params, cfg, x, mode, cache):
+def _hybrid_stack(params, cfg, x, mode, cache=None):
     """Zamba2: groups of ``attn_every`` mamba blocks, a single *shared*
     attention+MLP block applied before each group, with a KV cache per
     application (``[n_apps, B, S, Hkv, hd]``).  Decode writes the token's
     k/v and the mamba states in place; prefill stacks the applications'
-    (k, v).  Returns (h, the last block's pending output, cache, aux)."""
+    (k, v).  The train mode takes no cache and writes no state (new cache
+    None), each shared application and each mamba layer under
+    ``cfg.remat``.  Returns (h, the last block's pending output, cache,
+    aux)."""
     n_apps, per = cfg.num_layers // cfg.attn_every, cfg.attn_every
+    shared = params["shared"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    d = None
+    if mode == "train":
+        for app in range(n_apps):
+            x, d = _maybe_remat(_shared_train_block, cfg, mode)(shared, cfg,
+                                                                x, d)
+            for i in range(app * per, (app + 1) * per):
+                x, d = _maybe_remat(_mamba_train_layer, cfg, mode)(
+                    _layer(params["blocks"]["mamba"], i), cfg, x, d)
+        return x, d, None, aux
     decode = mode == "decode"
     pos = cache["len"]
-    shared = params["shared"]
     ks, vs = [], []
-    d = None
     for app in range(n_apps):
         kv = (cache["k"][app], cache["v"][app])
         x, d, nkv = attn_block(shared["attn"], cfg, x, d, mode=mode,
@@ -696,7 +783,6 @@ def _hybrid_stack(params, cfg, x, mode, cache):
         new_cache["k"], new_cache["v"] = cache["k"], cache["v"]
     else:
         new_cache["k"], new_cache["v"] = torch.stack(ks), torch.stack(vs)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, d, new_cache, aux
 
 
@@ -707,6 +793,25 @@ _STACKS = {"dense": _dense_stack, "moe": _dense_stack, "vlm": _dense_stack,
 def _check_dense(cfg: ModelConfig, what: str) -> None:
     if cfg.family == "encdec":
         raise _not_ported(f"{what} of the {cfg.family} family", cfg.family)
+
+
+def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
+    """Returns (hidden [B,S,d], aux_loss scalar). Loss lives in
+    train/loss.py.
+
+    ``batch``: {"tokens": [B, S] int, ...}; the vlm family prepends
+    ``batch["patch_embeds"]`` [B, S_img, d] to the token embeddings.  The
+    hidden returned is the sum the JAX function returns (the last block's
+    pending output added).  No cache is read or written, and attention
+    and the SSD scan take their plain versions (the JAX training path;
+    see the module docstring)."""
+    _check_dense(cfg, "training")
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    h, d, _, aux = _STACKS[cfg.family](params, cfg, x, "train")
+    return h + d, aux
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor):

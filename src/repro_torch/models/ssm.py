@@ -5,7 +5,10 @@ Mirrors the JAX package's ``models/ssm.py``.  The chunked scan goes to
 plain mirror of the JAX jnp branch on a CPU tensor.  The gate and its norm
 (``y * silu(z)``, then RMSNorm) are one fused RMSNorm launch on the card.
 The depthwise conv and the one-step decode update stay plain PyTorch, as
-in the JAX package (no kernel there either).
+in the JAX package (no kernel there either).  The train mode
+(``differentiable=True``, set by the model's mode) takes the plain scan
+on any device: the kernel has no backward, and the JAX package trains
+through its plain ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.models.layers import gated_rms_norm
 
 
@@ -54,12 +58,18 @@ def ssd_chunked(
     chunk: int,
     initial_state: Optional[torch.Tensor] = None,  # [B, H, P, N]
     use_pallas: bool = False,
+    differentiable: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan. Returns (y [B,S,H,P], final_state [B,H,P,N]).
 
     The tensor's device decides: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor.  ``use_pallas`` is kept for the
-    callers' signature and has no effect."""
+    plain version on a CPU tensor; ``differentiable`` (the model's train
+    mode) takes the plain version on any device, which autograd can
+    differentiate.  ``use_pallas`` is kept for the callers' signature
+    and has no effect."""
+    if differentiable:
+        return ssd_scan_ref(xb, a, B_mat, C_mat, chunk=chunk,
+                            initial_state=initial_state)
     return ssd_ops.ssd_scan(xb, a, B_mat, C_mat, chunk=chunk,
                             initial_state=initial_state)
 
@@ -102,9 +112,11 @@ def mamba2_dims(cfg) -> dict:
 
 def mamba2_block(p: dict, cfg, x: torch.Tensor,
                  state: Optional[SSMState] = None,
-                 *, decode: bool = False):
+                 *, decode: bool = False, differentiable: bool = False):
     """Mamba2 block. x: [B,S,d] (S=1 when decode=True).  In a prefill,
     ``state.ssm`` may be None: the scan then starts from a zero state.
+    The train mode passes ``state=None`` and ``differentiable=True`` (the
+    plain scan; no state is returned).
 
     Returns (y [B,S,d], new_state | None).
     """
@@ -141,7 +153,8 @@ def mamba2_block(p: dict, cfg, x: torch.Tensor,
         init = state.ssm if state is not None else None
         y, final = ssd_chunked(xb, a, B_mat, C_mat, chunk=cfg.ssm_chunk,
                                initial_state=init,
-                               use_pallas=cfg.use_pallas)
+                               use_pallas=cfg.use_pallas,
+                               differentiable=differentiable)
         if state is not None:
             new_state = SSMState(ssm=final,
                                  conv=_conv_tail(xBC_raw, cfg.conv_width))

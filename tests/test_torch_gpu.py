@@ -31,9 +31,9 @@ from repro_torch.kernels.paged_attention.ref import \
 from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm.cases import (
-    QK_ROPE_CASES, QK_ROPE_THETA, RMSNORM_CASES, RMSNORM_DTYPES,
-    add_rmsnorm_unfused, gated_rmsnorm_unfused, pair_case_on,
-    qk_norm_rope_unfused, qk_rope_case_on, rmsnorm_case_on)
+    BWD_ENTRIES, QK_ROPE_CASES, QK_ROPE_THETA, RMSNORM_CASES, RMSNORM_DTYPES,
+    add_rmsnorm_unfused, bwd_case, bwd_max_err, gated_rmsnorm_unfused,
+    pair_case_on, qk_norm_rope_unfused, qk_rope_case_on, rmsnorm_case_on)
 from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
                                              gated_rmsnorm_ref,
                                              qk_norm_rope_ref, rmsnorm_ref)
@@ -223,7 +223,11 @@ def test_paged_kernel_split_vs_plain_on_card(case, dtype):
 def test_kernels_refuse_grad_on_card():
     """On the card too, every launcher refuses an input that requires
     grad while grad is enabled, and launches nothing; under
-    ``torch.no_grad()`` the same call launches its kernel."""
+    ``torch.no_grad()`` the same call launches its kernel.  The attention
+    and SSD ops call their launchers directly, so they refuse too; the
+    RMSNorm ops wrap theirs in autograd Functions
+    (test_norm_ops_carry_a_gradient_on_card), so their bare launchers are
+    called here."""
     _cuda_or_skip()
 
     def grad(t):
@@ -250,14 +254,17 @@ def test_kernels_refuse_grad_on_card():
         (t_ssd_ops.ssd_scan_fwd,
          lambda: t_ssd_ops.ssd_scan(grad(xb), a, Bm, Cm, chunk=4)),
         (t_rms_kernel.rmsnorm_fwd,
-         lambda: t_rms_ops.rmsnorm(x, grad(w), 1e-6)),
+         lambda: t_rms_kernel.rmsnorm_fwd(x, grad(w), eps=1e-6)),
         (t_rms_kernel.add_rmsnorm_fwd,
-         lambda: t_rms_ops.add_rmsnorm(x, grad(x), w, 1e-6)),
+         lambda: t_rms_kernel.add_rmsnorm_fwd(x, grad(x), w, eps=1e-6)),
         (t_rms_kernel.gated_rmsnorm_fwd,
-         lambda: t_rms_ops.gated_rmsnorm(grad(x), x, w, 1e-6)),
+         lambda: t_rms_kernel.gated_rmsnorm_fwd(grad(x), x, w, eps=1e-6)),
         (t_rms_kernel.qk_norm_rope_fwd,
-         lambda: t_rms_ops.qk_norm_rope(q, k, grad(wq), wk, pos,
-                                        QK_ROPE_THETA, 1e-6)),
+         lambda: t_rms_kernel.qk_norm_rope_fwd(
+             q, k, grad(wq), wk, pos, t_rms_ops.inv_freq(
+                 q.device, q.shape[-1], QK_ROPE_THETA), eps=1e-6)),
+        (t_rms_kernel.rmsnorm_bwd,
+         lambda: t_rms_kernel.rmsnorm_bwd(grad(x), x, w, eps=1e-6)),
     ]
     for fn, call in calls:
         before = fn.launches
@@ -441,3 +448,191 @@ def test_fused_row_kernels_take_no_rows():
     assert t_rms_ops.gated_rmsnorm(x, x, w, 1e-6).shape == (0, 64)
     assert [f.launches for f in fns] == before
 
+
+
+# --- the backward kernels (the training slice) ------------------------------
+
+#: (backward, case): the row kernels on every RMSNORM_CASES entry, the
+#: qk-norm-RoPE backward on every QK_ROPE_CASES entry
+BWD_CASES = [(e, c) for e in BWD_ENTRIES
+             for c in (QK_ROPE_CASES if e == "qk_norm_rope_bwd"
+                       else RMSNORM_CASES)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,case", BWD_CASES,
+                         ids=[f"{e}-{c[0]}" for e, c in BWD_CASES])
+@pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
+def test_norm_bwd_kernel_vs_plain_on_card(entry, case, dtypes):
+    """Each backward kernel against its plain formula and against
+    torch.autograd of the plain forward (TOL by x's dtype, a weight
+    gradient by the looser of x's and w's, relative to its largest value:
+    a bf16 x rounds the terms its sum adds), in one counted
+    call (none for no rows); a second call on the same inputs gives the
+    same bits (dw's partial rows are summed in a fixed order, no
+    atomics)."""
+    _cuda_or_skip()
+    kernel, plain, auto = bwd_case(entry, "cuda", *dtypes, case)
+    fn = getattr(t_rms_kernel, entry)
+    before = fn.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    rows = got[0].numel() > 0
+    assert fn.launches == before + rows
+    for want in (plain(), auto()):
+        err, ok = bwd_max_err(got, want, TOL[dtypes[0]],
+                              max(TOL[dtypes[0]], TOL[dtypes[1]]))
+        assert ok, err
+    again = kernel()
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_ops_carry_a_gradient_on_card(dtype):
+    """The four RMSNorm ops on CUDA inputs that require grad: each
+    returns a ``grad_fn``, launches its forward kernel once and, in the
+    backward, its backward kernel once; the gradients equal autograd of
+    the plain versions within TOL."""
+    _cuda_or_skip()
+    from repro_torch.kernels.rmsnorm import ref as R
+    x, d, w = pair_case_on("cuda", dtype, dtype, (6, 3, 256), "dense")
+    q, k, wq, wk, pos = qk_rope_case_on("cuda", dtype, dtype,
+                                        (2, 5, 4, 2, 64), "rows", True)
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_(True) for t in ts]
+    runs = [
+        ("rmsnorm", lambda a, b: (t_rms_ops.rmsnorm(a, b, 1e-6),),
+         lambda a, b: (R.rmsnorm_ref(a, b, 1e-6),), (x, w)),
+        ("add_rmsnorm", lambda a, b, c: t_rms_ops.add_rmsnorm(a, b, c, 1e-6),
+         lambda a, b, c: R.add_rmsnorm_ref(a, b, c, 1e-6), (x, d, w)),
+        ("gated_rmsnorm",
+         lambda a, b, c: (t_rms_ops.gated_rmsnorm(a, b, c, 1e-6),),
+         lambda a, b, c: (R.gated_rmsnorm_ref(a, b, c, 1e-6),), (x, d, w)),
+        ("qk_norm_rope",
+         lambda a, b, c, e: t_rms_ops.qk_norm_rope(a, b, c, e, pos,
+                                                   QK_ROPE_THETA, 1e-6),
+         lambda a, b, c, e: R.qk_norm_rope_ref(a, b, c, e, pos,
+                                               QK_ROPE_THETA, 1e-6),
+         (q, k, wq, wk)),
+    ]
+    for op, fn, ref, inputs in runs:
+        fwd = getattr(t_rms_kernel, f"{op}_fwd")
+        bwd = getattr(t_rms_kernel, f"{op}_bwd")
+        f0, b0 = fwd.launches, bwd.launches
+        ins = leaves(*inputs)
+        outs = fn(*ins)
+        assert all(o.grad_fn is not None for o in outs)
+        cots = [torch.randn_like(o) for o in outs]
+        torch.autograd.backward(outs, cots)
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 1), op
+        ref_ins = leaves(*inputs)
+        torch.autograd.backward(ref(*ref_ins), cots)
+        err, ok = bwd_max_err([t.grad for t in ins],
+                              [t.grad for t in ref_ins], TOL[dtype])
+        assert ok, (op, err)
+
+
+def _train_launches(arch, device):
+    """One ``build_train_step`` step of the arch's smoke config in f32 on
+    ``device``: (metrics, new params, {launcher name: launches in the
+    step})."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_fwd
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_fwd
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+    from repro_torch.models import model as tm
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32",
+                                               compute_dtype="float32")
+    tc = TrainConfig()
+    from repro_torch.utils.tree import tree_map
+    params = tree_map(lambda p: p.to(device),
+                      tm.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    opt = optim.init_opt_state(params, tc)
+    r = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(r.integers(
+                 3, cfg.vocab_size, (2, 32)).astype(np.int32)).to(device),
+             "labels": torch.from_numpy(r.integers(
+                 3, cfg.vocab_size, (2, 32)).astype(np.int32)).to(device)}
+    fns = [paged_attention_fwd, flash_attention_fwd, decode_attention_fwd,
+           ssd_scan_fwd] + [getattr(t_rms_kernel, f"{e[:-4]}_{d}")
+                            for e in BWD_ENTRIES for d in ("fwd", "bwd")]
+    before = {f.__name__: f.launches for f in fns}
+    params2, _, metrics = build_train_step(cfg, tc)(params, opt, batch)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return metrics, params2, {f.__name__: f.launches - before[f.__name__]
+                              for f in fns}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "zamba2-2.7b",
+                                  "qwen3-moe-30b-a3b"])
+def test_train_step_on_card_runs_the_norm_kernels_and_no_other(arch):
+    """A train step on the card raises nothing, runs every norm's
+    forward and backward kernel and no attention or SSD kernel (the train
+    mode takes their plain versions), and its loss, grad norm and new
+    params match the CPU's (f32, TF32 off) within 1e-4 relative."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m_gpu, p_gpu, counts = _train_launches(arch, "cuda")
+    for k in ("paged_attention_fwd", "flash_attention_fwd",
+              "decode_attention_fwd", "ssd_scan_fwd"):
+        assert counts[k] == 0, (k, counts)
+    assert counts["rmsnorm_fwd"] > 0 and counts["rmsnorm_bwd"] > 0
+    assert counts["add_rmsnorm_bwd"] > 0
+    m_cpu, p_cpu, _ = _train_launches(arch, "cpu")
+    for key in ("total_loss", "grad_norm"):
+        a, b = float(m_gpu[key]), float(m_cpu[key])
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (key, a, b)
+    from repro_torch.utils.tree import tree_leaves
+    for g, c in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
+        assert torch.allclose(g.cpu(), c, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "zamba2-2.7b",
+                                  "qwen3-moe-30b-a3b", "pixtral-12b"])
+def test_train_grads_on_card_match_the_cpu(arch):
+    """``value_and_grad`` of the loss at smoke size in f32 (TF32 off):
+    the card's loss within 1e-5 and every gradient leaf within 1e-4 of
+    its largest value of the CPU's (the same arithmetic summed in other
+    orders, the norms' kernels against their plain versions)."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    from repro_torch.train.step import build_loss_fn, value_and_grad
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32",
+                                               compute_dtype="float32")
+    params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(2)
+    toks = r.integers(3, cfg.vocab_size, (2, 32)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(toks[:, :24 if cfg.family == "vlm"
+                                             else 32]),
+             "labels": torch.from_numpy(toks)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            r.normal(0, 0.02, (2, 8, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(build_loss_fn(cfg), p, b)
+        out[dev] = (float(loss), flatten_with_paths(
+            tree_map(lambda t: t.cpu(), grads)))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * max(
+        1.0, abs(out["cpu"][0]))
+    for (path, g), (_, c) in zip(out["cuda"][1], out["cpu"][1]):
+        scale = max(float(c.abs().max()), 1e-30)
+        assert float((g - c).abs().max()) <= 1e-4 * scale, path

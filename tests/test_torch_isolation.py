@@ -79,7 +79,8 @@ VERBATIM = sorted(
     + [Path("serve") / f for f in ("request.py", "queue.py", "batcher.py",
                                    "engine.py", "metrics.py")]
     + [p.relative_to(JAX) for p in (JAX / "configs").glob("*.py")
-       if p.name not in ("registry.py", "__init__.py")])
+       if p.name not in ("registry.py", "__init__.py")]
+    + [Path("data") / "pipeline.py"])
 
 
 @pytest.mark.parametrize("rel", VERBATIM, ids=str)
@@ -88,7 +89,14 @@ def test_verbatim_copy_has_not_drifted(rel):
         f"{rel}: re-copy from src/repro with repro. -> repro_torch."
 
 
-#: original file -> {original name: port name or None (left out)}
+def _rewritten(*names):
+    """Names the port keeps under the same name, rewritten for PyTorch."""
+    return {n: n for n in names}
+
+
+#: original file -> {original name: port name or None (left out)}; every
+#: other top-level name must be in the port verbatim (``repro.`` ->
+#: ``repro_torch.`` applied)
 PORTED = {
     "serve/backends.py": {"JaxBackend": "TorchBackend"},
     "serve/paged.py": {"PagedJaxBackend": "TorchPagedBackend"},
@@ -96,6 +104,21 @@ PORTED = {
                           "PagedJaxBackend": "TorchPagedBackend"},
     "configs/registry.py": {"input_specs": None, "concrete_inputs": None},
     "launch/serve.py": {"main": "main"},
+    "launch/train.py": {"main": "main"},
+    "train/step.py": {"build_serve_step": None, **_rewritten(
+        "build_loss_fn", "build_train_step", "build_train_step_compressed",
+        "build_prefill_step", "build_decode_step", "build_paged_decode_step",
+        "build_prefill_chunk_step")},
+    "train/loss.py": _rewritten("_ce_from_hidden", "lm_loss"),
+    "train/optim.py": _rewritten(
+        "OptState", "init_opt_state", "abstract_opt_state", "cosine_schedule",
+        "global_norm", "clip_by_global_norm", "adamw_update"),
+    "train/compression.py": _rewritten(
+        "init_error_buffer", "quantize_int8", "dequantize_int8",
+        "compress_grads_ef"),
+    # save, _gc and latest_step are verbatim
+    "checkpoint/checkpoint.py": _rewritten("_to_numpy_tree", "restore",
+                                           "AsyncCheckpointer"),
 }
 
 

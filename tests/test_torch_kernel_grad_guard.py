@@ -1,16 +1,28 @@
-"""The port's kernels have no backward, so each of the eight launchers
-refuses an input that requires grad while grad is enabled, before it looks
-at the device (so these run on the CPU).  Without grad the same call goes
-on to the launcher's own checks, which refuse a CPU tensor."""
+"""A bare launcher records nothing for autograd, so each of the eight
+forward launchers (and the four RMSNorm backward launchers) refuses an
+input that requires grad while grad is enabled, before it looks at the
+device (so these run on the CPU).  Without grad the same call goes on to
+the launcher's own checks, which refuse a CPU tensor.
+
+The RMSNorm ops are ``torch.autograd.Function``s on the card (the forward
+kernel, then the backward kernel): they accept inputs that require grad
+and return a ``grad_fn``.  On the CPU the ops trace the plain version;
+a Function's own forward runs with grad off, so its launcher's guard lets
+it through to the device check."""
 import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.paged_attention.kernel import paged_attention_fwd
-from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_fwd,
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_bwd,
+                                                add_rmsnorm_fwd,
+                                                gated_rmsnorm_bwd,
                                                 gated_rmsnorm_fwd,
-                                                qk_norm_rope_fwd, rmsnorm_fwd)
+                                                qk_norm_rope_bwd,
+                                                qk_norm_rope_fwd, rmsnorm_bwd,
+                                                rmsnorm_fwd)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
 
 torch.set_num_threads(1)
@@ -54,6 +66,27 @@ def _ssd():
             dict(chunk=4, initial_state=torch.zeros(1, 2, 4, 4)))
 
 
+def _rms_bwd():
+    return (torch.zeros(4, 32), torch.zeros(4, 32), torch.ones(32)), \
+        dict(eps=1e-6)
+
+
+def _add_bwd():
+    return ((torch.zeros(4, 32), torch.zeros(4, 32), torch.zeros(4, 32),
+             torch.ones(32)), dict(eps=1e-6))
+
+
+def _gated_bwd():
+    return ((torch.zeros(4, 32), torch.zeros(4, 32), torch.zeros(4, 32),
+             torch.ones(32)), dict(eps=1e-6))
+
+
+def _qk_bwd():
+    (q, k, wq, wk, pos, freq), kw = _qk_rope()
+    return (torch.zeros(2, 3, 4, 16), torch.zeros(2, 3, 2, 16), q, k, wq,
+            wk, pos, freq), kw
+
+
 #: (launcher, inputs, indices of the float inputs that may require grad)
 WRAPPERS = [
     (paged_attention_fwd, _paged, (0, 1, 2)),
@@ -64,6 +97,10 @@ WRAPPERS = [
     (gated_rmsnorm_fwd, _rows_pair, (0, 1, 2)),
     (qk_norm_rope_fwd, _qk_rope, (0, 1, 2, 3, 5)),
     (ssd_scan_fwd, _ssd, (0, 1, 2, 3)),
+    (rmsnorm_bwd, _rms_bwd, (0, 1, 2)),
+    (add_rmsnorm_bwd, _add_bwd, (0, 1, 2, 3)),
+    (gated_rmsnorm_bwd, _gated_bwd, (0, 1, 2, 3)),
+    (qk_norm_rope_bwd, _qk_bwd, (0, 1, 2, 3, 4, 5, 7)),
 ]
 IDS = [w[0].__name__ for w in WRAPPERS]
 
@@ -106,3 +143,47 @@ def test_ssd_kernel_refuses_an_initial_state_that_requires_grad():
     kw["initial_state"] = kw["initial_state"].requires_grad_(True)
     with pytest.raises(RuntimeError, match="ssd_scan_fwd has no backward"):
         ssd_scan_fwd(*args, **kw)
+
+
+#: (op, its autograd Function, inputs, indices of the float inputs)
+NORM_OPS = [
+    ("rmsnorm", rms_ops.RMSNormFn, _rmsnorm, (0, 1)),
+    ("add_rmsnorm", rms_ops.AddRMSNormFn, _rows_pair, (0, 1, 2)),
+    ("gated_rmsnorm", rms_ops.GatedRMSNormFn, _rows_pair, (0, 1, 2)),
+    ("qk_norm_rope", rms_ops.QKNormRopeFn, _qk_rope, (0, 1, 2, 3)),
+]
+
+
+def _op_args(op, args):
+    """The op's own arguments from its launcher's."""
+    if op == "qk_norm_rope":
+        q, k, wq, wk, pos, _ = args
+        return (q, k, wq, wk, pos, 1e6, 1e-6)
+    return (*args, 1e-6)
+
+
+@pytest.mark.parametrize("op,fn,make,grad_args", NORM_OPS,
+                         ids=[n[0] for n in NORM_OPS])
+def test_norm_ops_accept_inputs_that_require_grad(op, fn, make, grad_args):
+    """Every float input in turn requiring grad: the op returns its
+    outputs that depend on it with a ``grad_fn`` (the plain version on the
+    CPU) and the input gets a gradient, and its
+    Function's forward (grad off inside it) passes its launcher's grad
+    guard and reaches the device check, which refuses a CPU tensor: on
+    the card it launches.  The bare launcher refuses the same inputs."""
+    launcher = getattr(rms_ops, f"{op}_fwd")
+    for i in grad_args:
+        args, _ = _with_grad(make, i)
+        outs = getattr(rms_ops, op)(*_op_args(op, args))
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        # an output that does not depend on the input (r on w; k' on wq)
+        # needs no graph
+        tracked = [o for o in outs if o.grad_fn is not None]
+        assert tracked
+        sum(o.sum() for o in tracked).backward()
+        assert args[i].grad is not None
+        args, kw = _with_grad(make, i)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn.apply(*args, 1e-6)
+        with pytest.raises(RuntimeError, match="has no backward"):
+            launcher(*args, **kw)
