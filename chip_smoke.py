@@ -33,10 +33,13 @@ and any failure exits non-zero:
    tensor cores, f32 on the CUDA cores) and the dense decode-attention
    (split over a thread-block cluster) kernels against their plain
    PyTorch versions on the card on every case (f32 2e-5, bf16 2e-2),
-   then each timed at every served launch shape (qwen3-0.6b, zamba2-2.7b
-   and qwen3-moe-30b-a3b) beside its bound, the share of the bound
-   reached, the plain version and ``scaled_dot_product_attention``,
-   with the decode split plan (splits, cluster, blocks);
+   then each timed at every served launch shape (qwen3-0.6b, zamba2-2.7b,
+   qwen3-moe-30b-a3b, gemma2-27b at 128 and 4,160 tokens with its window,
+   softcap and scale, whisper-large-v3's D 64 and G 1, pixtral-12b's S
+   132 and its decode past the cache) beside its bound, the share of the
+   bound reached, the plain version and ``scaled_dot_product_attention``
+   (none where the launch has a softcap), with the decode split plan
+   (splits, cluster, blocks);
 6. the dense main path: ``repro_torch.launch.serve.main`` with
    ``--backend dense`` serves the same 8 requests; the flash kernel must
    have been launched once per layer per prefill call and the decode
@@ -121,11 +124,40 @@ and any failure exits non-zero:
     of full-width qwen3-0.6b (full depth) and mamba2-780m (8 layers),
     2 rows x 64 tokens: loss, grad norm, every gradient leaf and the
     parameters after the step within the bounds stated beside
-    ``PARITY_ATOL``'s.
+    ``PARITY_ATOL``'s;
+19. gemma2-27b's dense path: ``repro_torch.launch.serve.main`` with
+    ``--backend dense`` serves 8 requests with the full-width, full-depth
+    model (46 layers in 23 local/global pairs, 54.5 GB in bf16) inside a
+    64 GB budget, with phase 6's launch checks (the post-norms add two
+    ``rmsnorm_fwd`` per layer) and decode-step profile;
+20. gemma2-27b's long context: 2 requests of up to 4,160 prompt tokens
+    (a 4,160-position prefill) and 16 new, so the local layers' window of
+    4,096 masks the first keys in prefill and in every decode step; the
+    same checks, and a decode step profiled at 2 rows of 4,160 tokens;
+21. whisper-large-v3's dense path (32 + 32 layers, 8 encoder frames per
+    request): the flash kernel in the decoder's self-attention only (the
+    encoder and the cross-attention take the plain path), the encoder's
+    norms in every prefill;
+22. pixtral-12b's dense path (40 layers, 4 patch embeddings per
+    request): its last decode steps write past the cache onto the last
+    slot, as JAX clamps them, and at least one must;
+23. card vs CPU in f32 on the dense path: gemma2-27b at full width and 2
+    of its 46 layers, 1 row x 4,160 tokens (the window binds in prefill
+    and decode), whisper-large-v3 at full width and depth (2 x 32
+    tokens, 8 frames), pixtral-12b at full width and 2 of its 40 layers
+    decoding past the cache; greedy tokens equal, logits within
+    ``PARITY_ATOL``;
+24. training: ``repro_torch.launch.train.main`` trains gemma2-27b (full
+    width, 2 of its 46 layers, 4 x 512) and whisper-large-v3 (full width
+    and depth, 8 x 512, half of it encoder frames) for 6 steps each: the
+    loss falls (mean of the last 3 below the first 3), each norm kernel
+    launches exactly its count and no attention or SSD kernel;
+25. phase 18's card-vs-CPU train step for both.
 
-Every path (phases 3, 6, 9, 10, 13, 14 and 17) runs an RMSNorm kernel
-for every norm (the fused ones wherever a neighbour is absorbed), and each
-runs with every kernel's launch count set to 0 just before it and read
+Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22 and 24) runs an
+RMSNorm kernel for every norm (the fused ones wherever a neighbour is
+absorbed), and each runs with every kernel's launch count set to 0 just
+before it and read
 just after: each kernel of the path must have been launched exactly its
 per-call count times the path's calls, and no other kernel at all.  Each
 path's decode-step profile must show no ``cos`` or ``sin`` kernel, and
@@ -222,17 +254,39 @@ NORMS_PER_CALL = {
                     "qk_norm_rope_fwd": 9, "gated_rmsnorm_fwd": 54},
     "qwen3-moe-30b-a3b": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 48 * 2,
                           "qk_norm_rope_fwd": 48},
+    # gemma2 adds the two post-norms of each layer (rmsnorm_fwd); whisper's
+    # decoder has three pre-norms per layer (self-attention,
+    # cross-attention, MLP) and RoPE in its self-attention only
+    "gemma2-27b": {"rmsnorm_fwd": 1 + 46 * 2, "add_rmsnorm_fwd": 46 * 2,
+                   "qk_norm_rope_fwd": 46},
+    "whisper-large-v3": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 32 * 3,
+                         "qk_norm_rope_fwd": 32},
+    "pixtral-12b": {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 40 * 2,
+                    "qk_norm_rope_fwd": 40},
 }
+#: what a prefill launches on top of NORMS_PER_CALL: whisper's encoder
+#: (its first pre-norm; its other pre-norms and its final norm, each
+#: adding the previous block's output).  tests/test_torch_gemma2.py,
+#: test_torch_encdec.py and test_torch_pixtral.py count the new archs'
+#: norms on the CPU.
+NORMS_PER_PREFILL = {"whisper-large-v3": {"rmsnorm_fwd": 1,
+                                          "add_rmsnorm_fwd": 32 * 2}}
 
 
-def norm_launches(arch: str, calls: int) -> dict:
-    """Each RMSNorm kernel's launches over ``calls`` model calls."""
-    return {k: n * calls for k, n in NORMS_PER_CALL[arch].items()}
+def norm_launches(arch: str, pre: int, dec: int) -> dict:
+    """Each RMSNorm kernel's launches over ``pre`` prefill (or prefill
+    chunk) calls and ``dec`` decode steps."""
+    extra = NORMS_PER_PREFILL.get(arch, {})
+    return {k: n * (pre + dec) + extra.get(k, 0) * pre
+            for k, n in NORMS_PER_CALL[arch].items()}
 
 
 def norms_line(counts: dict, arch: str, pre: int, dec: int) -> str:
-    return ", ".join(f"{k[:-4]} {counts[k]} = {n} x ({pre} + {dec})"
-                     for k, n in NORMS_PER_CALL[arch].items())
+    extra = NORMS_PER_PREFILL.get(arch, {})
+    return ", ".join(
+        f"{k[:-4]} {counts[k]} = {n} x ({pre} + {dec})"
+        + (f" + {extra[k]} x {pre}" if k in extra else "")
+        for k, n in NORMS_PER_CALL[arch].items())
 
 
 def card_line() -> str:
@@ -578,9 +632,9 @@ def serve_counted(argv):
     return out, {name: f.launches for name, f in fns.items()}
 
 
-def check_served(out, cfg) -> None:
-    if out["summary"]["completed"] != 8:
-        raise AssertionError(f"served {out['summary']['completed']}/8 "
+def check_served(out, cfg, n: int = 8) -> None:
+    if out["summary"]["completed"] != n:
+        raise AssertionError(f"served {out['summary']['completed']}/{n} "
                              f"requests")
     for r in out["engine"].requests:
         if len(r.tokens) != r.max_new_tokens or not all(
@@ -612,7 +666,7 @@ def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
     pre = sum(be.prefill_calls for be in backends)
     dec = sum(be.decode_calls for be in backends)
     check_launches(counts, {"paged_attention_fwd": layers * dec,
-                            **norm_launches(arch, pre + dec)}, cfg, layers)
+                            **norm_launches(arch, pre, dec)}, cfg, layers)
     if dec == 0 or summary["forced_steps"]:
         raise AssertionError(f"{dec} decode steps, {summary['forced_steps']} "
                              f"steps forced over the budget")
@@ -810,13 +864,21 @@ def phase_parity(cfg, p_cpu) -> None:
 
 # --- phase 5 -----------------------------------------------------------------
 
-#: (name, (B, S, Hq, Hkv, D), causal, window, softcap): causal and not,
-#: window, softcap, S not a multiple of the tiles (64 x 64 in bf16, 64 x 32
-#: in f32), G in {1, 2, 4, 8}, the D > 128 tiling, S over five K/V tiles
-#: (the bf16 ring wraps), a window that starts the kv loop past key 0, a D
-#: that is a multiple of 8 but not of 16, and the dense main paths' shapes
-#: (qwen3-0.6b, zamba2-2.7b's shared attention: D = 80, Hq = Hkv = 32, and
-#: qwen3-moe-30b-a3b: Hq 32, Hkv 4, G = 8)
+#: gemma2-27b's attention scale: 144^-0.5 (d_model / num_heads), where
+#: D is 128
+GEMMA2_SCALE = 144 ** -0.5
+
+#: (name, (B, S, Hq, Hkv, D), causal, window, softcap[, scale]): causal
+#: and not, window, softcap, S not a multiple of the tiles (64 x 64 in
+#: bf16, 64 x 32 in f32), G in {1, 2, 4, 8}, the D > 128 tiling, S over
+#: five K/V tiles (the bf16 ring wraps), a window that starts the kv loop
+#: past key 0, a D that is a multiple of 8 but not of 16, and the dense
+#: main paths' shapes (qwen3-0.6b, zamba2-2.7b's shared attention: D =
+#: 80, Hq = Hkv = 32, qwen3-moe-30b-a3b: Hq 32, Hkv 4, G = 8; gemma2-27b's
+#: local layers, window 4,096 and softcap 50 at scale 144^-0.5, and its
+#: long-context prefill of 4,160 tokens, where the window binds;
+#: whisper-large-v3's decoder, D 64 and G 1; pixtral-12b's 128 tokens and
+#: 4 patches, S 132).  The scale is D^-0.5 unless given.
 FLASH_CASES = [
     ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
     ("mha-ragged", (2, 80, 4, 4, 16), True, 0, 0.0),
@@ -835,13 +897,22 @@ FLASH_CASES = [
     ("d40-zero-filled", (2, 100, 4, 2, 40), True, 0, 0.0),
     ("zamba2-d80-mha32", (8, 128, 32, 32, 80), True, 0, 0.0),
     ("qwen3-moe-g8", (8, 128, 32, 4, 128), True, 0, 0.0),
+    ("gemma2", (8, 128, 32, 16, 128), True, 4096, 50.0, GEMMA2_SCALE),
+    ("gemma2-long", (2, 4160, 32, 16, 128), True, 4096, 50.0,
+     GEMMA2_SCALE),
+    ("whisper", (8, 128, 20, 20, 64), True, 0, 0.0),
+    ("pixtral", (8, 132, 32, 8, 128), True, 0, 0.0),
 ]
 
-#: (name, (B, S, Hq, Hkv, D, lens), window, softcap): lens include 1 and
-#: S, S not a multiple of the split, G in {1, 2, 4, 8}, a len-0 row, 8
-#: splits of several passes each, a row that leaves most splits empty, a
-#: window that skips whole splits, and the dense main paths' shapes (8
-#: rows at the shared position)
+#: (name, (B, S, Hq, Hkv, D, lens), window, softcap[, scale]): lens
+#: include 1 and S, S not a multiple of the split, G in {1, 2, 4, 8}, a
+#: len-0 row, 8 splits of several passes each, a row that leaves most
+#: splits empty, a window that skips whole splits, and the dense main
+#: paths' shapes (8 rows at the shared position; gemma2's local layers at
+#: 161 slots and at 4,177, where the window skips the first 74 keys;
+#: whisper's decoder; pixtral at len + 1 = 163 > S = 161, the decode
+#: write clamped onto the last slot: lens = S, the window's end at 163).
+#: A len above S is the query's position + 1 past the last slot.
 DECODE_CASES = [
     ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
     ("main-mixed-lens", (8, 161, 16, 8, 128,
@@ -860,13 +931,21 @@ DECODE_CASES = [
     ("g8-d64", (2, 161, 8, 1, 64, [145, 161]), 0, 0.0),
     ("zamba2-d80-mha32", (8, 161, 32, 32, 80, [145] * 8), 0, 0.0),
     ("qwen3-moe-g8", (8, 161, 32, 4, 128, [145] * 8), 0, 0.0),
+    ("gemma2", (8, 161, 32, 16, 128, [145] * 8), 4096, 50.0, GEMMA2_SCALE),
+    ("gemma2-long", (2, 4177, 32, 16, 128, [4170] * 2), 4096, 50.0,
+     GEMMA2_SCALE),
+    ("whisper", (8, 161, 20, 20, 64, [145] * 8), 0, 0.0),
+    ("pixtral", (8, 161, 32, 8, 128, [163] * 8), 0, 0.0),
+    ("clamped-window", (2, 96, 8, 2, 64, [100, 97]), 40, 30.0),
 ]
 
 #: the served launch shapes phase 5 times, by path: the case of that name
 #: in FLASH_CASES and in DECODE_CASES; the first is the main path's, whose
 #: numbers go into the JSON line
 TIMED = [("qwen3", "main"), ("zamba2", "zamba2-d80-mha32"),
-         ("qwen3-moe", "qwen3-moe-g8")]
+         ("qwen3-moe", "qwen3-moe-g8"), ("gemma2", "gemma2"),
+         ("gemma2-long", "gemma2-long"), ("whisper", "whisper"),
+         ("pixtral", "pixtral")]
 
 
 def attended_pairs(S: int, causal: bool, window: int) -> int:
@@ -896,79 +975,128 @@ def _rand(gen, shape, dtype):
 
 
 def _timing_line(label, shape, t, extra) -> str:
+    lib = (NO_SDPA if t["lib"] is None else
+           f"{_us(t['lib'])} (|sdpa - kernel| {t['lib_err']:.2g})")
     return (f"phase 5 {label} bf16 {shape}{extra}: device time kernel "
-            f"{_us(t['ker'])}, plain {_us(t['plain'])}, sdpa "
-            f"{_us(t['lib'])} (|sdpa - kernel| {t['lib_err']:.2g}); bound "
+            f"{_us(t['ker'])}, plain {_us(t['plain'])}, sdpa {lib}; bound "
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
             f"{t['bound_ms'] / t['ker']['ms']:.3f} of it reached")
 
 
-def time_flash(B, S, Hq, Hkv, D, L, gen, iters) -> dict:
+#: why ``scaled_dot_product_attention`` has no time beside a launch with
+#: a softcap: it cannot compute cap * tanh(s / cap) on the logits
+NO_SDPA = "none: SDPA has no softcap"
+
+
+def case_opts(case) -> dict:
+    """A FLASH_CASES or DECODE_CASES entry's window, softcap and scale
+    (D^-0.5 unless the entry gives one)."""
+    name, shape, *rest = case
+    if len(shape) == 5:                       # flash: causal comes first
+        rest = rest[1:]
+    window, cap, *scale = rest
+    return dict(window=window, softcap=cap,
+                scale=scale[0] if scale else shape[4] ** -0.5)
+
+
+def time_flash(B, S, Hq, Hkv, D, L, gen, iters, window=0, softcap=0.0,
+               scale=None) -> dict:
     """The flash kernel at one served launch (bf16, causal) beside its
     bound, the plain version and ``scaled_dot_product_attention`` on
     [B, Hq, S, D] with K/V repeated to the query heads (made outside the
-    timing); L sets of q/k/v cycled so each launch reads device memory."""
+    timing; none where the launch has a softcap); L sets of q/k/v cycled
+    so each launch reads device memory."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dtype = torch.bfloat16
+    scale = D ** -0.5 if scale is None else scale
+    opts = dict(window=window, attn_softcap=softcap, scale=scale)
     es = torch.empty((), dtype=dtype).element_size()
     qs = [_rand(gen, (B, S, Hq, D), dtype) for _ in range(L)]
     ks = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
     vs = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
     ker = timed(lambda i: fa_ops.flash_attention(
-        qs[i % L], ks[i % L], vs[i % L]), iters, "flash_fwd")
+        qs[i % L], ks[i % L], vs[i % L], **opts), iters, "flash_fwd")
     plain = timed(lambda i: attention_ref(
         qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
-        vs[i % L].transpose(1, 2), scale=D ** -0.5), max(L, iters // 10))
-    G = Hq // Hkv
-    qh = [t.transpose(1, 2).contiguous() for t in qs]
-    kh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in ks]
-    vh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous() for t in vs]
-    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L],
-                               is_causal=True), iters)
-    lib_err = (sdpa(qh[0], kh[0], vh[0], is_causal=True).transpose(1, 2)
-               .float() - fa_ops.flash_attention(qs[0], ks[0], vs[0])
-               .float()).abs().max().item()
+        vs[i % L].transpose(1, 2), scale=scale, window=window,
+        softcap=softcap), max(L, iters // 10))
+    lib, lib_err = None, None
+    if softcap == 0.0:       # every served window comes with a softcap
+        assert window == 0, window
+        G = Hq // Hkv
+        qh = [t.transpose(1, 2).contiguous() for t in qs]
+        kh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+              for t in ks]
+        vh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+              for t in vs]
+        kw = dict(is_causal=True, scale=scale)
+        lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L], **kw),
+                    iters)
+        lib_err = (sdpa(qh[0], kh[0], vh[0], **kw).transpose(1, 2).float()
+                   - fa_ops.flash_attention(qs[0], ks[0], vs[0], **opts)
+                   .float()).abs().max().item()
+        del qh, kh, vh
     nbytes = B * S * D * es * (2 * Hq + 2 * Hkv)
-    ops = 4 * D * Hq * B * attended_pairs(S, True, 0)
+    ops = 4 * D * Hq * B * attended_pairs(S, True, window)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
                 bound_ms=bound_ms, bound_by=bound_by,
                 nbytes=nbytes, ops=ops)
 
 
-def time_decode(B, S, Hq, Hkv, D, lens, L, gen, iters) -> dict:
+def attended_slots(S: int, lens, window: int) -> int:
+    """Cache slots the dense decode reads over the rows: [max(0, end -
+    window), min(end, S)) for each row's end = lens[b] (its position +
+    1, past S where the write was clamped onto the last slot)."""
+    return sum(min(e, S) - (max(0, e - window) if window else 0)
+               for e in lens)
+
+
+def time_decode(B, S, Hq, Hkv, D, lens, L, gen, iters, window=0,
+                softcap=0.0, scale=None) -> dict:
     """The dense decode kernel at one served launch (bf16, every row at
     one shared position, as the dense path's cache is) beside its bound,
     the plain version and ``scaled_dot_product_attention`` of the 1-token
-    query against the live K/V repeated to Hq (made outside the timing)."""
+    query against the attended K/V repeated to Hq (made outside the
+    timing; none where the launch has a softcap)."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dtype = torch.bfloat16
+    scale = D ** -0.5 if scale is None else scale
+    opts = dict(window=window, attn_softcap=softcap, scale=scale)
     es = torch.empty((), dtype=dtype).element_size()
-    ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    ends = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    ln = torch.clamp(ends, max=S)
     pos = torch.tensor(lens[0] - 1, dtype=torch.int32, device=DEVICE)
     qs = [_rand(gen, (B, 1, Hq, D), dtype) for _ in range(L)]
     kc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
     vc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
     ker = timed(lambda i: da_ops.decode_attention(
-        qs[i % L], kc[i % L], vc[i % L], pos), iters, "dense_decode")
+        qs[i % L], kc[i % L], vc[i % L], pos, **opts), iters,
+        "dense_decode")
     plain = timed(lambda i: decode_attention_ref(
-        qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], ln,
-        scale=D ** -0.5), max(L, iters // 10))
-    n = lens[0]
-    qh = [t.transpose(1, 2).contiguous() for t in qs]
-    kh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-          .contiguous() for t in kc]
-    vh = [t[:, :n].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-          .contiguous() for t in vc]
-    lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L]), iters)
-    lib_err = (sdpa(qh[0], kh[0], vh[0]).transpose(1, 2).float()
-               - da_ops.decode_attention(qs[0], kc[0], vc[0], pos)
-               .float()).abs().max().item()
-    live = int(sum(lens))
+        qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], ln, scale=scale,
+        window=window, softcap=softcap, ends=ends), max(L, iters // 10))
+    lib, lib_err = None, None
+    if softcap == 0.0:
+        hi = min(lens[0], S)
+        lo = max(0, lens[0] - window) if window else 0
+        qh = [t.transpose(1, 2).contiguous() for t in qs]
+        kh = [t[:, lo:hi].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+              .contiguous() for t in kc]
+        vh = [t[:, lo:hi].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+              .contiguous() for t in vc]
+        lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L],
+                                   scale=scale), iters)
+        lib_err = (sdpa(qh[0], kh[0], vh[0], scale=scale).transpose(1, 2)
+                   .float() - da_ops.decode_attention(
+                       qs[0], kc[0], vc[0], pos, **opts).float()
+                   ).abs().max().item()
+        del qh, kh, vh
+    live = attended_slots(S, lens, window)
     nbytes = live * Hkv * D * 2 * es + 2 * B * Hq * D * es + B * 4
     ops = 4 * Hq * D * live
     bound_ms, bound_by = bound(nbytes, ops, dtype)
@@ -991,18 +1119,20 @@ def phase_dense_kernels_vs_plain() -> dict:
 
     # flash prefill: correctness
     errs, worst = [], 0.0
-    for seed, (name, (B, S, Hq, Hkv, D), causal, window, cap) in \
-            enumerate(FLASH_CASES):
+    for seed, case in enumerate(FLASH_CASES):
+        name, (B, S, Hq, Hkv, D), causal = case[:3]
+        o = case_opts(case)
         r = np.random.default_rng(seed)
         arrs = [r.normal(0, 1, (B, S, H, D)).astype(np.float32)
                 for H in (Hq, Hkv, Hkv)]
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(a).to(DEVICE, dt) for a in arrs)
             got = fa_ops.flash_attention(q, k, v, causal=causal,
-                                         window=window, attn_softcap=cap)
+                                         window=o["window"],
+                                         attn_softcap=o["softcap"],
+                                         scale=o["scale"])
             ref = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
-                                scale=D ** -0.5, causal=causal,
-                                window=window, softcap=cap).transpose(1, 2)
+                                causal=causal, **o).transpose(1, 2)
             torch.cuda.synchronize()
             worst = max(worst, _check_close(name, dt, got, ref, errs))
     print(f"phase 5 flash kernel vs plain: {len(errs)} cases ok, max abs "
@@ -1011,20 +1141,23 @@ def phase_dense_kernels_vs_plain() -> dict:
 
     # dense decode: correctness
     errs, worst = [], 0.0
-    for seed, (name, (B, S, Hq, Hkv, D, lens), window, cap) in \
-            enumerate(DECODE_CASES):
+    for seed, case in enumerate(DECODE_CASES):
+        name, (B, S, Hq, Hkv, D, lens) = case[:2]
+        o = case_opts(case)
         r = np.random.default_rng(100 + seed)
         arrs = [r.normal(0, 1, (B, 1, Hq, D)).astype(np.float32),
                 r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
                 r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32)]
-        ln = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        ends = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        ln = torch.clamp(ends, max=S)
         for dt in (torch.float32, torch.bfloat16):
             q, kc, vc = (torch.from_numpy(a).to(DEVICE, dt) for a in arrs)
-            got = da_ops.decode_attention(q, kc, vc, ln - 1, window=window,
-                                          attn_softcap=cap)
+            got = da_ops.decode_attention(q, kc, vc, ends - 1,
+                                          window=o["window"],
+                                          attn_softcap=o["softcap"],
+                                          scale=o["scale"])
             ref = decode_attention_ref(q.transpose(1, 2), kc, vc, ln,
-                                       scale=D ** -0.5, window=window,
-                                       softcap=cap).transpose(1, 2)
+                                       ends=ends, **o).transpose(1, 2)
             torch.cuda.synchronize()
             live = ln >= 1       # the plain version averages len-0 rows
             if not torch.all(got[~live] == 0):
@@ -1057,13 +1190,20 @@ def time_served_shapes(L: int) -> dict:
     out = {}
     for kernel, cases, fn in (("flash", FLASH_CASES, time_flash),
                               ("decode", DECODE_CASES, time_decode)):
-        shapes = {name: shape for name, shape, *_ in cases}
+        by_name = {case[0]: case for case in cases}
         for n, (path, name) in enumerate(TIMED):
-            shape = shapes[name]
-            t = fn(*shape, L, gen, (20 if n == 0 else 10) * L)
-            extra = (f" causal, {t['nbytes'] / 1e6:.2f} MB, "
+            case = by_name[name]
+            shape = case[1]
+            t = fn(*shape, L, gen, (20 if n == 0 else 10) * L,
+                   **case_opts(case))
+            o = case_opts(case)
+            opts = (f", window {o['window']}" if o["window"] else "") + (
+                f", softcap {o['softcap']:g}" if o["softcap"] else "") + (
+                f", scale {o['scale']:.4g}")
+            extra = (f" causal{opts}, {t['nbytes'] / 1e6:.2f} MB, "
                      f"{t['ops'] / 1e9:.3f} GFLOP" if kernel == "flash" else
-                     f" lens {shape[-1][0]}, {t['nbytes'] / 1e6:.2f} MB")
+                     f" lens {shape[-1][0]}{opts}, "
+                     f"{t['nbytes'] / 1e6:.2f} MB")
             print(_timing_line(f"{kernel} {path}", tuple(shape[:5]), t,
                                extra))
             if n == 0:
@@ -1073,58 +1213,79 @@ def time_served_shapes(L: int) -> dict:
                     library_ms=t["lib"]["ms"])
             del t
             gc.collect()
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     return out
 
 
 # --- phase 6 -----------------------------------------------------------------
 
-def phase_dense_path(n: int, arch: str, argv, layers: int) -> dict:
+def phase_dense_path(n: int, arch: str, argv, layers: int,
+                     requests: int = 8, profile_batch: int = 8,
+                     profile_ctx: int = 128):
     """A dense-cache main path of a decoder stack at full width and
-    depth: 8 requests complete, none forced over the budget; the flash
-    kernel runs once per layer per prefill call, the dense decode kernel
-    once per layer per decode step and the RMSNorm kernel once per norm
-    per call; no other kernel."""
+    depth: ``requests`` requests complete, none forced over the budget;
+    the flash kernel runs once per layer per prefill call, the dense
+    decode kernel once per layer per decode step and the RMSNorm kernel
+    once per norm per call; no other kernel.  Then a decode step is
+    profiled at ``profile_batch`` rows of ``profile_ctx`` tokens.
+    Returns (the launch counts, the requests, the backends' positions at
+    each decode step, the cache length)."""
     from repro_torch.configs import get_config
+    from repro_torch.serve.backends import TorchBackend
     cfg = get_config(arch)
-    out, counts = serve_counted(argv)
+    positions, real = [], TorchBackend.decode
+
+    def decode(be, running):
+        positions.append(be.position)
+        return real(be, running)
+    TorchBackend.decode = decode
+    try:
+        out, counts = serve_counted(argv)
+    finally:
+        TorchBackend.decode = real
     peak = torch.cuda.max_memory_allocated() / 2**30
     summary, backends = out["summary"], out["backends"]
-    check_served(out, cfg)
+    check_served(out, cfg, requests)
     pre = sum(be.prefill_calls for be in backends)
     dec = sum(be.decode_calls for be in backends)
     fl, de = counts["flash_attention_fwd"], counts["decode_attention_fwd"]
     check_launches(counts, {"flash_attention_fwd": layers * pre,
                             "decode_attention_fwd": layers * dec,
-                            **norm_launches(arch, pre + dec)}, cfg, layers)
+                            **norm_launches(arch, pre, dec)}, cfg, layers)
     if pre == 0 or dec == 0 or summary["forced_steps"]:
         raise AssertionError(f"{pre} prefill calls, {dec} decode steps, "
                              f"{summary['forced_steps']} steps forced over "
                              f"the budget")
     dec_s = sum(be.decode_seconds for be in backends)
     tok = summary["good_tokens"]
+    reqs = out["engine"].requests
     print(f"phase {n} dense path: {arch} full ({layers} layers, "
           f"d={cfg.d_model}, {cfg.param_dtype}) served "
-          f"{summary['completed']}/8 requests, {tok} tokens in "
+          f"{summary['completed']}/{requests} requests (prompts "
+          f"{min(r.prompt_len for r in reqs)}-"
+          f"{max(r.prompt_len for r in reqs)} tokens), {tok} tokens in "
           f"{out['wall_s']:.2f}s wall ({tok / out['wall_s']:.1f} tok/s); "
           f"{pre} prefill calls, flash kernel launched {fl} = {layers} x "
           f"{pre}; {dec} decode steps, mean {1e3 * dec_s / dec:.2f} "
           f"ms/step, decode kernel launched {de} = {layers} x {dec}; "
           f"{norms_line(counts, arch, pre, dec)}; none forced over budget; "
           f"peak device memory {peak:.2f} GiB")
-    dense_decode_profile(backends[0], f"phase {n} dense decode-step profile")
-    return counts
+    dense_decode_profile(backends[0], f"phase {n} dense decode-step profile",
+                         profile_batch, ctx=profile_ctx)
+    return counts, reqs, positions, backends[0].max_len
 
 
-def dense_decode_profile(be, label: str, batch: int = 8,
-                         steps: int = 5) -> None:
+def dense_decode_profile(be, label: str, batch: int = 8, steps: int = 5,
+                         ctx: int = 128) -> None:
     """Where a dense-cache decode step's time goes: the backend's weights
-    and cache length, every row of the batch at context 128 (or less, to
-    leave room for the steps in the cache)."""
+    and cache length, every row of the batch at context ``ctx`` (or
+    less, to leave room for the steps in the cache); an encdec cache
+    holds 8 encoder frames, as the backend's prefills give it."""
     from repro_torch.models import model as model_lib
     from repro_torch.train.step import build_decode_step
-    ctx, dev = min(128, be.max_len - 2 * steps), be.device
-    cache = model_lib.init_cache(be.cfg, batch, be.max_len, device=dev)
+    ctx, dev = min(ctx, be.max_len - 2 * steps), be.device
+    cache = model_lib.init_cache(be.cfg, batch, be.max_len, device=dev,
+                                 cross_len=8)
     cache["len"] = torch.tensor(ctx, dtype=torch.int32, device=dev)
     token = torch.full((batch, 1), 7, dtype=torch.long, device=dev)
     decode = build_decode_step(be.cfg)
@@ -1135,15 +1296,21 @@ def dense_decode_profile(be, label: str, batch: int = 8,
         return logits
     profile_steps(label, step, batch, ctx, steps,
                   absent=rope_kernels(be.cfg))
+    del state, cache
 
 
 # --- phase 7 -----------------------------------------------------------------
 
-def _run_dense_parity(cfg, params, device, prompts, max_len):
+def _run_dense_parity(cfg, params, device, prompts, max_len, extra=None):
+    """A prefill of ``prompts`` (with ``extra``'s numpy arrays in the
+    batch: the vlm's patch embeddings, the encdec's encoder frames) and 4
+    greedy decode steps on ``device``: the 5 logits, on the CPU."""
     from repro_torch.train.step import build_decode_step, build_prefill_step
     dev = torch.device(device)
-    logits, cache = build_prefill_step(cfg, max_len)(
-        params, {"tokens": torch.from_numpy(prompts).long().to(dev)})
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             (extra or {}).items()}
+    batch["tokens"] = torch.from_numpy(prompts).long().to(dev)
+    logits, cache = build_prefill_step(cfg, max_len)(params, batch)
     outs = [logits.cpu()]
     decode = build_decode_step(cfg)
     for _ in range(4):
@@ -1365,7 +1532,7 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
     check_launches(counts, {"flash_attention_fwd": apps * pre,
                             "decode_attention_fwd": apps * dec,
                             "ssd_scan_fwd": layers * pre,
-                            **norm_launches(arch, pre + dec)}, cfg, layers)
+                            **norm_launches(arch, pre, dec)}, cfg, layers)
     if n_apps != apps or pre == 0 or dec == 0:
         raise AssertionError(f"{n_apps} shared-attention applications (want "
                              f"{apps}), {pre} prefill calls, {dec} decode "
@@ -1945,20 +2112,31 @@ def train_norm_launches(cfg, steps: int) -> dict:
     first layer's pre-norm and the final norm are ``rmsnorm_fwd`` (the
     train mode's hidden is summed before the final norm), every other
     pre-norm ``add_rmsnorm_fwd``, each attention layer's qk-norm and RoPE
-    ``qk_norm_rope_fwd`` and each Mamba2 layer's gate ``gated_rmsnorm_fwd``.
-    The backward recomputes every layer (F less the final norm, which
-    sits outside the layers) and runs each norm's backward once (F)."""
+    ``qk_norm_rope_fwd``, each Mamba2 layer's gate ``gated_rmsnorm_fwd``
+    and gemma2's two post-norms per layer ``rmsnorm_fwd``; whisper's
+    encoder adds its first pre-norm, its other pre-norms and its final
+    norm, and its decoder has three pre-norms per layer.  The backward
+    recomputes every layer (or gemma2's layer pair: F less the norms
+    outside the layers, the final norm and whisper's encoder final norm)
+    and runs each norm's backward once (F)."""
     L = cfg.num_layers
-    apps = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1)}.get(
-        cfg.family, L)
-    mamba = L if cfg.family in ("ssm", "hybrid") else 0
-    per_fwd = {"rmsnorm": 2, "add_rmsnorm": 2 * apps + mamba - 1,
-               "qk_norm_rope": apps, "gated_rmsnorm": mamba}
+    if cfg.family == "encdec":
+        per_fwd = {"rmsnorm": 3, "add_rmsnorm": 5 * L - 1,
+                   "qk_norm_rope": L}
+        outside = {"rmsnorm": 1, "add_rmsnorm": 1}
+    else:
+        apps = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1)}.get(
+            cfg.family, L)
+        mamba = L if cfg.family in ("ssm", "hybrid") else 0
+        post = 2 * apps if cfg.use_post_norm else 0
+        per_fwd = {"rmsnorm": 2 + post, "add_rmsnorm": 2 * apps + mamba - 1,
+                   "qk_norm_rope": apps, "gated_rmsnorm": mamba}
+        outside = {"rmsnorm": 1}
     assert cfg.remat == "full", cfg.remat
     out = {}
     for op, n in per_fwd.items():
         if n:
-            out[f"{op}_fwd"] = steps * (2 * n - (op == "rmsnorm"))
+            out[f"{op}_fwd"] = steps * (2 * n - outside.get(op, 0))
             out[f"{op}_bwd"] = steps * n
     return out
 
@@ -2138,6 +2316,10 @@ TRAIN_PARITY = [("qwen3-0.6b", None), ("mamba2-780m", 8)]
 
 
 def _train_step_on(cfg, tc, params, batch, device):
+    """One step on ``device``: (loss, grad norm, grads, new params), the
+    trees left on ``device`` (so two f32 copies of a 2-billion-parameter
+    tree never sit in host memory at once; the comparison takes the CPU's
+    leaves to the card one at a time)."""
     from repro_torch.train import optim
     from repro_torch.train.step import build_loss_fn, value_and_grad
     from repro_torch.utils.tree import tree_map
@@ -2146,27 +2328,34 @@ def _train_step_on(cfg, tc, params, batch, device):
     (loss, metrics), grads = value_and_grad(build_loss_fn(cfg), p, b)
     new, _, om = optim.adamw_update(p, grads, optim.init_opt_state(p, tc),
                                     tc)
-    to_cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
-    return float(loss), float(om["grad_norm"]), to_cpu(grads), to_cpu(new)
+    return float(loss), float(om["grad_norm"]), grads, new
 
 
-def phase_train_parity() -> None:
-    """One train step (value_and_grad + AdamW) of full-width qwen3-0.6b
-    (full depth) and mamba2-780m (8 of 48 layers) in f32, 2 rows x 64
-    tokens, the same params from a CPU generator, on the card and on the
-    CPU; held to the bounds above."""
+def phase_train_parity(n: int = 18, archs=None,
+                       init_device: str = "cpu") -> None:
+    """One train step (value_and_grad + AdamW) of each arch of ``archs``
+    (default ``TRAIN_PARITY``: full-width qwen3-0.6b at full depth and
+    mamba2-780m at 8 of 48 layers) in f32, 2 rows x 64 tokens (the
+    encdec's split into 32 tokens and 32 encoder frames, as
+    ``data/pipeline.py`` splits it), the same params from one generator
+    on ``init_device`` (the card draws billions of them in a second where
+    the CPU takes tens), on the card and on the CPU; held to the bounds
+    above."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.models import model as model_lib
-    from repro_torch.utils.tree import flatten_with_paths
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
     tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=100)
-    for arch, layers in TRAIN_PARITY:
+    for arch, layers in archs or TRAIN_PARITY:
         cfg = get_config(arch).replace(param_dtype="float32",
                                        compute_dtype="float32")
         if layers:
             cfg = cfg.replace(num_layers=layers)
-        params = model_lib.init(cfg, torch.Generator().manual_seed(7), "cpu")
+        params = model_lib.init(
+            cfg, torch.Generator(device=init_device).manual_seed(7),
+            init_device)
+        params = tree_map(lambda t: t.cpu(), params)
         batch = {k: torch.from_numpy(v) for k, v in make_batch(
             cfg, ShapeConfig("t", "train", 64, 2), DataConfig(), 0).items()}
         t0 = time.perf_counter()
@@ -2176,7 +2365,7 @@ def phase_train_parity() -> None:
         t2 = time.perf_counter()
         if not (abs(gl - cl) <= TRAIN_LOSS_ATOL
                 and abs(gn - cn) <= TRAIN_GRAD_RTOL * cn):
-            raise AssertionError(f"phase 18 {arch}: loss {gl} vs {cl}, "
+            raise AssertionError(f"phase {n} {arch}: loss {gl} vs {cl}, "
                                  f"grad norm {gn} vs {cn}")
         worst, strict, loose, n_strict, n_all = 0.0, 0.0, 0.0, 0, 0
         lr = TRAIN_LR
@@ -2184,12 +2373,16 @@ def phase_train_parity() -> None:
                 flatten_with_paths(gg), flatten_with_paths(cg),
                 flatten_with_paths(gp), flatten_with_paths(cp),
                 flatten_with_paths(params)):
+            # compared on the card, one leaf of the CPU's trees at a time
+            # (the same arithmetic, in seconds rather than minutes for a
+            # tree of two billion parameters)
+            c, p2, p0 = (t.to(DEVICE) for t in (c, p2, p0))
             scale = c.abs().max().item()
             err = (g - c).abs().max().item()
             rel = err / max(scale, 1e-30)
             worst = max(worst, rel)
             if rel > TRAIN_GRAD_RTOL:
-                raise AssertionError(f"phase 18 {arch}: grad {path} max err "
+                raise AssertionError(f"phase {n} {arch}: grad {path} max err "
                                      f"{err:.3g}, {rel:.3g} of its max")
             diff = (p1 - p2).abs()
             big = c.abs() >= max(1e-4 * scale, 10 * err, 1e-4)
@@ -2200,10 +2393,10 @@ def phase_train_parity() -> None:
             if (big.any() and diff[big].max().item() > 1e-6
                     * max(1.0, p0.abs().max().item())) \
                     or diff.max().item() > 2 * lr + 1e-6:
-                raise AssertionError(f"phase 18 {arch}: param {path} after "
+                raise AssertionError(f"phase {n} {arch}: param {path} after "
                                      f"the step differs by "
                                      f"{diff.max().item():.3g}")
-        print(f"phase 18 {arch} card vs CPU, one train step in f32 (TF32 "
+        print(f"phase {n} {arch} card vs CPU, one train step in f32 (TF32 "
               f"off), full width, {cfg.num_layers} layers"
               f"{' (depth cut)' if layers else ''}, 2 x 64 tokens: loss "
               f"{gl:.6f} vs {cl:.6f} (|d| {abs(gl - cl):.3g} <= "
@@ -2216,6 +2409,171 @@ def phase_train_parity() -> None:
         del params, gg, gp, cg, cp
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# --- phases 19 to 25: the remaining families -------------------------------
+
+GEMMA2, WHISPER, PIXTRAL = "gemma2-27b", "whisper-large-v3", "pixtral-12b"
+#: 8 requests of 64-128 prompt tokens and 16-32 new tokens, as phase 6
+#: serves qwen3-0.6b; each budget holds the estimator's weights (gemma2
+#: 50.7 GB, whisper 3.6, pixtral 22.8) and the 8 requests' KV
+FAMILY_ARGV = ["--backend", "dense", "--requests", "8", "--prompt-len",
+               "128", "--decode-steps", "32", "--device", "cuda"]
+FAMILY_PATHS = [(19, GEMMA2, ["--budget-gb", "64"], 46),
+                (21, WHISPER, ["--budget-gb", "16"], 32),
+                (22, PIXTRAL, ["--budget-gb", "32"], 40)]
+#: gemma2's long context: 2 requests of up to 4,160 prompt tokens and
+#: 16 new; seed 167 draws prompts of 3,676 and 4,145 tokens, so the batch
+#: prefills at 4,160 positions and the local layers' window (4,096)
+#: masks the first keys in prefill and in every decode step
+GEMMA2_LONG_ARGV = ["--arch", GEMMA2, "--backend", "dense", "--requests",
+                    "2", "--prompt-len", "4160", "--decode-steps", "16",
+                    "--budget-gb", "64", "--seed", "167", "--device", "cuda"]
+#: phase 23: (arch, layers (None: all), (rows, prompt tokens), cache
+#: slots); gemma2's 4,160-token prompt passes its window in prefill and
+#: decode, pixtral's 32 tokens and 4 patches fill 36 of 38 slots, so its
+#: last two decode steps write past the cache's end (clamped)
+FAMILY_PARITY = [(GEMMA2, 2, (1, 4160), 4168), (WHISPER, None, (2, 32), 40),
+                 (PIXTRAL, 2, (2, 32), 38)]
+#: phase 24: (arch, the train CLI's extra argv); gemma2 at 2 of its 46
+#: layers (46 layers' fp32 AdamW moments alone are 218 GB), whisper at
+#: full depth with half of each sequence encoder frames
+FAMILY_TRAIN = [(GEMMA2, ["--layers", "2", "--batch", "4"]),
+                (WHISPER, ["--batch", "8"])]
+FAMILY_TRAIN_STEPS = 6
+#: phase 25: (arch, layers)
+FAMILY_TRAIN_PARITY = [(GEMMA2, 2), (WHISPER, None)]
+
+
+def phase_family_path(n: int, arch: str, extra, layers: int) -> dict:
+    """A remaining family's dense main path (``phase_dense_path``); for
+    pixtral, whose cache ``len`` counts its 4 patches ahead of the
+    backend's position, the last decode steps must write past the cache's
+    end (onto its last slot, as JAX clamps them)."""
+    counts, _, positions, max_len = phase_dense_path(
+        n, arch, ["--arch", arch] + FAMILY_ARGV + extra, layers)
+    if arch == PIXTRAL:
+        past = sum(p + 4 >= max_len for p in positions)
+        if not past:
+            raise AssertionError(f"phase {n}: no decode step wrote past the "
+                                 f"cache (positions up to {max(positions)}"
+                                 f", {max_len} slots)")
+        print(f"phase {n} {arch}: {past} of {len(positions)} decode steps "
+              f"wrote past the cache's {max_len} slots (len = position + "
+              f"4 patches), onto its last slot")
+    return counts
+
+
+def phase_gemma2_long() -> dict:
+    """gemma2-27b at full width and depth with a 4,160-position prefill
+    (``GEMMA2_LONG_ARGV``): 2/2 requests, the same launch checks as
+    ``phase_dense_path``, and a decode step profiled at 2 rows of 4,160
+    tokens."""
+    counts, reqs, positions, _ = phase_dense_path(
+        20, GEMMA2, GEMMA2_LONG_ARGV, 46, requests=2, profile_batch=2,
+        profile_ctx=4160)
+    window = 4096
+    if max(r.prompt_len for r in reqs) <= window or min(positions) < window:
+        raise AssertionError(f"phase 20: the window does not bind: prompts "
+                             f"{[r.prompt_len for r in reqs]}, decode "
+                             f"positions {min(positions)}-{max(positions)}")
+    print(f"phase 20 gemma2-27b long context: decode positions "
+          f"{min(positions)}-{max(positions)}, past the local layers' "
+          f"window of {window}")
+    return counts
+
+
+def phase_family_parity() -> None:
+    """Card vs CPU in f32 (TF32 off) on the dense path of each
+    FAMILY_PARITY arch at full width, random weights from one generator
+    on the card, copied to the CPU: a prefill and 4 decode steps; greedy
+    tokens equal, logits within ``PARITY_ATOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.utils.tree import tree_map
+    for arch, layers, (B, C), max_len in FAMILY_PARITY:
+        full = get_config(arch)
+        cfg = full.replace(param_dtype="float32", compute_dtype="float32",
+                           num_layers=layers or full.num_layers)
+        t0 = time.perf_counter()       # drawn on the card, copied over
+        p_cpu = tree_map(lambda t: t.cpu(), model_lib.init(
+            cfg, torch.Generator(device=DEVICE).manual_seed(11), DEVICE))
+        t_init = time.perf_counter() - t0
+        r = np.random.default_rng(17)
+        prompts = r.integers(3, cfg.vocab_size, (B, C)).astype(np.int32)
+        extra = {}
+        if cfg.family == "vlm":
+            extra["patch_embeds"] = r.normal(
+                0, 0.02, (B, 4, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            extra["enc_embeds"] = r.normal(
+                0, 0.02, (B, 8, cfg.d_model)).astype(np.float32)
+        t0 = time.perf_counter()
+        gpu = _run_dense_parity(cfg, to_card(p_cpu), DEVICE, prompts,
+                                max_len, extra)
+        t1 = time.perf_counter()
+        cpu = _run_dense_parity(cfg, p_cpu, "cpu", prompts, max_len, extra)
+        t2 = time.perf_counter()
+        what = {"vlm": " + 4 patches (the last 2 decode steps past the "
+                       "cache's end)",
+                "encdec": " + 8 encoder frames"}.get(cfg.family, "")
+        print(f"phase 23 {arch} card vs CPU: full width (d={cfg.d_model}), "
+              f"{cfg.num_layers} of its {full.num_layers} layers"
+              f"{' (depth cut)' if layers else ''}, f32 (TF32 off), prefill "
+              f"{B}x{C}{what} into {max_len} slots + 4 decode steps: "
+              f"{check_parity('phase 23', gpu, cpu)}; weights drawn in "
+              f"{t_init:.1f}s, card {t1 - t0:.2f}s, cpu {t2 - t1:.2f}s")
+        del p_cpu, gpu, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_family_train() -> list:
+    """``repro_torch.launch.train.main`` on each FAMILY_TRAIN arch at full
+    width (bf16 params, fp32 Adam moments, random weights from a seed)
+    for ``FAMILY_TRAIN_STEPS`` steps of 512 tokens: the mean loss of the
+    last 3 steps below the first 3's, each RMSNorm forward and backward
+    kernel launched exactly its count (``train_norm_launches``) and no
+    attention or SSD kernel.  Returns each run's launch counts."""
+    from repro_torch.configs import get_config
+    out_counts = []
+    for arch, extra in FAMILY_TRAIN:
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+        argv = ["--arch", arch, "--device", "cuda", "--steps",
+                str(FAMILY_TRAIN_STEPS), "--seq", "512", "--seed", "0",
+                "--ckpt-every", "1000", "--ckpt-dir", str(TRAIN_CKPT)] + extra
+        out, counts = train_counted(argv)
+        cfg, steps = out["cfg"], FAMILY_TRAIN_STEPS
+        check_train_run(f"phase 24 {arch}", out, counts, cfg, steps)
+        losses = out["losses"]
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        if not last < first:
+            raise AssertionError(f"phase 24 {arch}: the loss did not fall: "
+                                 f"{losses}")
+        med = sorted(out["step_s"][1:])[len(out["step_s"][1:]) // 2]
+        tok = out["tokens_per_step"]
+        full = get_config(arch).num_layers
+        cut = (" (depth cut: the fp32 moments of all of them exceed the "
+               "card)" if cfg.num_layers < full else "")
+        frames = ("half of them encoder frames, " if cfg.family == "encdec"
+                  else "")
+        print(f"phase 24 {arch} train: full width (d={cfg.d_model}), "
+              f"{cfg.num_layers} of its {full} layers{cut}, {steps} steps "
+              f"of {tok} tokens ({frames}remat {cfg.remat}): losses "
+              + ", ".join(f"{x:.3f}" for x in losses)
+              + f" (mean of the first 3 {first:.4f}, of the last 3 "
+              f"{last:.4f}); median step (from step 1) {med:.3f} s, "
+              f"{tok / med:.0f} tokens/s; peak device memory "
+              f"{max(out['peak_bytes']) / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in counts.items() if v} } = per step "
+              f"{train_norm_launches(cfg, 1)} x {steps}; attention and SSD "
+              f"kernels 0")
+        out_counts.append(counts)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return out_counts
 
 
 #: what each kernel replaces: its source in the port and the TPU kernel
@@ -2271,7 +2629,7 @@ def main() -> None:
     timing.update(phase_dense_kernels_vs_plain())
     done(5)
     paths.append(phase_dense_path(6, "qwen3-0.6b",
-                                  MAIN_ARGV + ["--backend", "dense"], 28))
+                                  MAIN_ARGV + ["--backend", "dense"], 28)[0])
     done(6)
     phase_dense_parity(f32, p_cpu)
     del p_cpu
@@ -2290,7 +2648,7 @@ def main() -> None:
     paths.append(phase_paged_path(13, MOE, MOE_ARGV, 48))
     done(13)
     paths.append(phase_dense_path(14, MOE, MOE_ARGV + ["--backend", "dense"],
-                                  48))
+                                  48)[0])
     done(14)
     phase_moe_parity()
     done(15)
@@ -2300,8 +2658,21 @@ def main() -> None:
     done(17)
     phase_train_parity()
     done(18)
+    for n, arch, extra, layers in FAMILY_PATHS:
+        paths.append(phase_family_path(n, arch, extra, layers))
+        done(n)
+        if arch == GEMMA2:
+            paths.append(phase_gemma2_long())
+            done(20)
+    phase_family_parity()
+    done(23)
+    paths.extend(phase_family_train())
+    done(24)
+    phase_train_parity(25, FAMILY_TRAIN_PARITY, init_device=DEVICE)
+    done(25)
     # launches on the main paths: each path's own run, summed over the
-    # paths (phases 3, 6, 9, 10, 13 and 14, and the training path, 17)
+    # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, and the training
+    # paths, 17 and 24)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")

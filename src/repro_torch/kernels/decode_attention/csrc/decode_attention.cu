@@ -4,7 +4,7 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attention/kernel.py
 // (decode_attention_fwd, body _decode_kernel) and computes what it
 // computes: GQA decode attention where row b attends positions < lens[b]
-// (and, with a window, only positions > lens[b] - 1 - window), masked
+// (and, with a window, only positions > ends[b] - 1 - window), masked
 // with the same finite NEG_INF, optional softcap cap * tanh(s / cap),
 // and a lens[b] == 0 row writes zeros (the running sum is floored at
 // 1e-30).
@@ -44,7 +44,11 @@
 // cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16.  The
 // pointers must be 16-byte aligned, D a multiple of 8, D <= 256, lens[b]
 // <= S and 1 <= splits <= 8 (the wrapper checks what it can without
-// reading lens back).
+// reading lens back).  ends[b] is the query's position + 1, from which the
+// window is measured: lens[b] itself, except where the model's decode
+// write was clamped onto the cache's last slot (the query past S - 1, as
+// jax.lax.dynamic_update_slice clamps its start), and then lens[b] = S
+// and ends[b] > S, as JAX's plain attention sees that step.
 #include "attention_common.cuh"
 
 namespace {
@@ -64,6 +68,7 @@ dense_decode_split_kernel(const T* __restrict__ q,       // [B, Hq, D]
                           const T* __restrict__ k,       // [B, S, Hkv, D]
                           const T* __restrict__ v,       // [B, S, Hkv, D]
                           const int* __restrict__ lens,  // [B]
+                          const int* __restrict__ ends,  // [B]
                           T* __restrict__ out,           // [B, Hq, D]
                           int S, int Hkv, int G, int D, float scale,
                           int window, float softcap) {
@@ -73,15 +78,15 @@ dense_decode_split_kernel(const T* __restrict__ q,       // [B, Hq, D]
   const size_t head0 = ((size_t)b * Hkv + h) * G;
   const DenseTokens src{((size_t)b * S * Hkv + h) * D, (size_t)Hkv * D};
   attn::decode_split<T, GT, CPT, attn::SplitOver::kSlots>(
-      q + head0 * D, k, v, src, out + head0 * D, lens + b, S, G, D, scale,
-      window, softcap);
+      q + head0 * D, k, v, src, out + head0 * D, lens + b, ends + b, S, G,
+      D, scale, window, softcap);
 }
 
 template <typename T, int GT, int CPT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lens, void* out, int B, int S, int Hq,
-                   int Hkv, int D, float scale, int window, float softcap,
-                   int splits, cudaStream_t stream) {
+                   const void* lens, const void* ends, void* out, int B,
+                   int S, int Hq, int Hkv, int D, float scale, int window,
+                   float softcap, int splits, cudaStream_t stream) {
   // at most 41 KB (GT 8, D 256): under the 48 KB a launch may take
   // without raising the limit
   const size_t smem = sizeof(float) * attn::split_smem_floats(GT, D);
@@ -100,8 +105,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, dense_decode_split_kernel<T, GT, CPT>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lens), static_cast<T*>(out), S, Hkv, Hq / Hkv,
-      D, scale, window, softcap);
+      static_cast<const int*>(lens), static_cast<const int*>(ends),
+      static_cast<T*>(out), S, Hkv, Hq / Hkv, D, scale, window, softcap);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -111,29 +116,30 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // for an fp32 row of more than 32 chunks, D > 128)
 template <typename T, int CPT>
 cudaError_t by_heads(const void* q, const void* k, const void* v,
-                     const void* lens, void* out, int B, int S, int Hq,
-                     int Hkv, int D, float scale, int window, float softcap,
-                     int splits, cudaStream_t st) {
+                     const void* lens, const void* ends, void* out, int B,
+                     int S, int Hq, int Hkv, int D, float scale, int window,
+                     float softcap, int splits, cudaStream_t st) {
   const int G = Hq / Hkv;
   if (G == 1)
-    return launch<T, 1, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                             window, softcap, splits, st);
+    return launch<T, 1, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+                             scale, window, softcap, splits, st);
   if (G == 2)
-    return launch<T, 2, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                             window, softcap, splits, st);
+    return launch<T, 2, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+                             scale, window, softcap, splits, st);
   if (G <= 4)
-    return launch<T, 4, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                             window, softcap, splits, st);
-  return launch<T, 8, CPT>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                           window, softcap, splits, st);
+    return launch<T, 4, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+                             scale, window, softcap, splits, st);
+  return launch<T, 8, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+                           scale, window, softcap, splits, st);
 }
 
 }  // namespace
 
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lens,
-                                    void* out, int B, int S, int Hq, int Hkv,
-                                    int D, float scale, int window,
+                                    const void* ends, void* out, int B,
+                                    int S, int Hq, int Hkv, int D,
+                                    float scale, int window,
                                     float softcap, int splits, int dtype,
                                     void* stream) {
   if (B == 0) return cudaSuccess;
@@ -141,14 +147,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (D / 4 > 32)
-      return by_heads<float, 2>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                                window, softcap, splits, st);
-    return by_heads<float, 1>(q, k, v, lens, out, B, S, Hq, Hkv, D, scale,
-                              window, softcap, splits, st);
+      return by_heads<float, 2>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+                                scale, window, softcap, splits, st);
+    return by_heads<float, 1>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+                              scale, window, softcap, splits, st);
   }
   if (dtype == 1)
-    return by_heads<__nv_bfloat16, 1>(q, k, v, lens, out, B, S, Hq, Hkv, D,
-                                      scale, window, softcap, splits, st);
+    return by_heads<__nv_bfloat16, 1>(q, k, v, lens, ends, out, B, S, Hq,
+                                      Hkv, D, scale, window, softcap, splits,
+                                      st);
   return cudaErrorInvalidValue;
 }
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,7 +41,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention_fwd.argtypes = (
-        [vp] * 5 + [i32] * 5 + [f32, i32, f32, i32, i32, vp])
+        [vp] * 6 + [i32] * 5 + [f32, i32, f32, i32, i32, vp])
     lib.decode_attention_fwd.restype = i32
     lib.decode_attention_error_string.argtypes = [i32]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -79,7 +79,7 @@ def smem_bytes(G: int, D: int) -> int:
     return 4 * (4 * GT * D + 2 * 4 * GT + GT * D + 2 * GT)
 
 
-def _check(q, k_cache, v_cache, lens):
+def _check(q, k_cache, v_cache, lens, ends):
     if q.dim() != 4 or q.shape[2] != 1:
         raise ValueError(f"q must be [B, Hq, 1, D], got {tuple(q.shape)}")
     B, Hq, _, D = q.shape
@@ -94,16 +94,18 @@ def _check(q, k_cache, v_cache, lens):
     if D > MAX_HEAD_DIM or D % 8:
         raise ValueError(f"head dim {D} unsupported (need D <= "
                          f"{MAX_HEAD_DIM} and D % 8 == 0)")
-    if tuple(lens.shape) != (B,):
-        raise ValueError(f"lens must be [B={B}], got {tuple(lens.shape)}")
+    for name, t in (("lens", lens), ("ends", ends)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be [B={B}], got "
+                             f"{tuple(t.shape)}")
     if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise TypeError(f"q and caches must share one of float32/bfloat16, "
                         f"got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
-    if lens.dtype != torch.int32:
-        raise TypeError("lens must be int32")
+    if lens.dtype != torch.int32 or ends.dtype != torch.int32:
+        raise TypeError("lens and ends must be int32")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lens", lens)):
+                    ("lens", lens), ("ends", ends)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must lie on q's CUDA device "
                              f"({q.device}), got {t.device}")
@@ -118,17 +120,22 @@ def _check(q, k_cache, v_cache, lens):
 def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lens: torch.Tensor, *,
                          scale: float, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0,
+                         ends: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """q [B, Hq, 1, D]; caches [B, S, Hkv, D]; lens [B] int32 (valid
-    entries incl. the current token, each <= S).  All on one CUDA
-    device.  -> [B, Hq, 1, D] in q's dtype.
+    entries incl. the current token, each <= S); ends [B] int32 (the
+    query's position + 1, from which a window is measured; ``lens`` when
+    None, and above it only where the decode write was clamped onto the
+    last slot).  All on one CUDA device.  -> [B, Hq, 1, D] in q's dtype.
 
     Launches on the current stream and does not synchronise.  Raises
     ``RuntimeError`` when grad is enabled and an input requires grad
     (the kernel has no backward).  Adds one to
     ``decode_attention_fwd.launches`` per launch."""
     refuse_grad("decode_attention_fwd", q, k_cache, v_cache)
-    _check(q, k_cache, v_cache, lens)
+    ends = lens if ends is None else ends
+    _check(q, k_cache, v_cache, lens, ends)
     B, Hq, _, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
@@ -138,7 +145,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D, float(scale),
+            lens.data_ptr(), ends.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D, float(scale),
             int(window), float(softcap), splits, _DTYPE_CODES[q.dtype],
             stream)
     if err != 0:

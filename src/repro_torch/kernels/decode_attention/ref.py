@@ -12,9 +12,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def decode_attention_ref(q, k_cache, v_cache, lens, *, scale, window=0,
-                         softcap=0.0):
+                         softcap=0.0, ends=None):
     """q: [B, Hq, 1, D]; caches [B, S, Hkv, D]; lens [B] (valid entries
-    incl. the current token).  -> [B, Hq, 1, D] in q's dtype."""
+    incl. the current token); ends [B] (the query's position + 1, from
+    which a window is measured; ``lens`` when None).  -> [B, Hq, 1, D] in
+    q's dtype."""
     B, Hq, _, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -28,7 +30,8 @@ def decode_attention_ref(q, k_cache, v_cache, lens, *, scale, window=0,
     lens = lens.to(q.device)
     mask = k_pos < lens[:, None]
     if window > 0:
-        mask = mask & (k_pos > (lens[:, None] - 1 - window))
+        ends = lens if ends is None else ends.to(q.device)
+        mask = mask & (k_pos > (ends[:, None] - 1 - window))
     s = torch.where(mask[:, None, None], s,
                     torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)

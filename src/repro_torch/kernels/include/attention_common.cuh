@@ -88,6 +88,12 @@ __device__ __forceinline__ void load16_or_zero(const T* src, float* dst,
 //              has (the paged pool, whose S = maxp * page is far above
 //              any row's length).
 //
+// The window is measured from end = *endp, the query's position + 1,
+// which kSlots reads apart from len and which is len itself for
+// kAttended: a dense cache whose decode write was clamped onto its last
+// slot (the query's position past S - 1, as jax.lax.dynamic_update_slice
+// clamps it) has every slot valid, len = S, and end > S.
+//
 // Src tells where the row's tokens lie:
 //   size_t at(int t)  element offset of (token t, kv head, d = 0) in the
 //                     K and V arrays
@@ -146,8 +152,8 @@ __device__ __forceinline__ void decode_split(
     const T* __restrict__ qb,  // [G, D]: the G heads of this kv head
     const T* __restrict__ k, const T* __restrict__ v, const Src& src,
     T* __restrict__ ob,  // [G, D]
-    const int* __restrict__ lenp, int S, int G, int D, float scale,
-    int window, float softcap) {
+    const int* __restrict__ lenp, const int* __restrict__ endp, int S,
+    int G, int D, float scale, int window, float softcap) {
   namespace cg = cooperative_groups;
   constexpr int kThreads = 128;
   constexpr int kWarps = kThreads / 32;
@@ -174,7 +180,7 @@ __device__ __forceinline__ void decode_split(
   float* bm = bacc + GT * D;            // [GT] block partial max
   float* bl = bm + GT;                  // [GT] block partial sum
 
-  int t0, t_end, len;  // this block's tokens [t0, t_end), set below
+  int t0, t_end, len, end;  // this block's tokens [t0, t_end), set below
 
   // one pass's K/V words: token base + gi + groups * u, clamped into the
   // block's tokens (a chunk past the row reads chunk 0: its q is zero and
@@ -200,8 +206,10 @@ __device__ __forceinline__ void decode_split(
     t_end = min(t0 + chunk, S);
     if (t0 < t_end) load_pass(t0);  // before len is read
     len = *lenp;
+    end = *endp;
   } else {
     len = *lenp;
+    end = len;
     const int row_hi = min(max(len, 0), S);
     const int row_lo = window > 0 ? max(0, len - window) : 0;
     const int chunk = (max(row_hi - row_lo, 0) + splits - 1) / splits;
@@ -210,7 +218,7 @@ __device__ __forceinline__ void decode_split(
     if (t0 < t_end) load_pass(t0);
   }
   const int hi = min(t_end, max(len, 0));  // attended: [lo, hi)
-  const int lo = max(t0, window > 0 ? len - window : 0);
+  const int lo = max(t0, window > 0 ? end - window : 0);
 
   for (int h0 = 0; h0 < G; h0 += GT) {  // heads h0 .. h0 + GT - 1
     float qr[GT][CPT][kVec], acc[GT][CPT][kVec], m[GT], l[GT];

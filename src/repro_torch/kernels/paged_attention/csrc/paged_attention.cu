@@ -93,7 +93,7 @@ paged_decode_split_kernel(const T* __restrict__ q,        // [B, Hq, D]
   const PagedTokens src{tab_s, row, page, (size_t)Hkv * D, (size_t)h * D};
   attn::decode_split<T, GT, CPT, attn::SplitOver::kAttended>(
       q + head0 * D, k_pool, v_pool, src, out + head0 * D, &len_s,
-      maxp * page, G, D, scale, window, softcap);
+      &len_s, maxp * page, G, D, scale, window, softcap);
 }
 
 template <typename T, int GT, int CPT>

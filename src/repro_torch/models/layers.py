@@ -66,6 +66,18 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {kind!r}")
 
 
+def sinusoidal_positions(seq_len: int, d_model: int) -> torch.Tensor:
+    """Whisper-encoder style sinusoidal positional embedding [S, D]
+    (fp32, on the CPU): sin of each position times ``d_model // 2``
+    frequencies spaced geometrically from 1 to 1/10000, then their cos."""
+    half = d_model // 2
+    freqs = torch.exp(-torch.log(torch.tensor(10000.0, dtype=torch.float64))
+                      * torch.arange(half, dtype=torch.float64)
+                      / max(half - 1, 1))
+    pos = torch.arange(seq_len, dtype=torch.float64)[:, None] * freqs[None]
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=1).float()
+
+
 # ---------------------------------------------------------------------------
 # Gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------

@@ -6,12 +6,11 @@ Mirrors the JAX package's ``models/model.py``.  ``param_specs``,
 (dense / moe / encdec / vlm / ssm / hybrid), so the footprint estimator
 sees the same byte counts.  The forward passes are the ones serving
 runs: the paged pair (``prefill_chunk`` / ``decode_step_paged``) for the
-dense, moe and vlm families, and the dense-cache pair (``prefill`` /
-``decode_step``) for the dense, moe, vlm, ssm and hybrid families; and
-``forward_train`` for the dense, moe, vlm, ssm and hybrid families.  The
-rest (expert parallelism and the remaining families) comes in later
-slices of the port (ROADMAP.md, Queue 1), and raises
-``NotImplementedError`` until then.
+dense (but gemma2's local/global layers), moe and vlm families, as in the
+JAX package, which refuses the others there; the dense-cache pair
+(``prefill`` / ``decode_step``) for every family; and ``forward_train``
+for every family.  Expert parallelism comes with a later slice of the
+port (ROADMAP.md, Queue 1).
 
 The train mode (``forward_train``) keeps no cache and writes no state.
 Its attention and SSD scan take their plain versions on any device (the
@@ -227,19 +226,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-#: what raises until its slice of the port lands (ROADMAP.md, Queue 1)
-_LATER = {
-    "local_global": "the remaining-families slice of the PyTorch port "
-                    "(gemma2 local/global layers)",
-    "encdec": "the remaining-families slice of the PyTorch port "
-              "(whisper encoder-decoder)",
-}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with {_LATER[key]}")
-
-
 def _check_paged(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "moe", "vlm") or cfg.local_global:
         raise NotImplementedError(
@@ -340,9 +326,12 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     * cross_kv set -> cross-attention (no rope, non-causal, ignores cache).
 
     ``pos`` is the cache's 0-dim position tensor and stays on its device
-    (no read-back).  Unlike ``jax.lax.dynamic_update_slice``, which clamps
-    a start index past the end, the write needs ``pos < S``: the backend
-    asserts it before every decode step, as the JAX backend does.
+    (no read-back).  A position past the cache's last slot writes onto
+    slot S - 1, as ``jax.lax.dynamic_update_slice`` clamps its start (the
+    vlm's cache ``len`` counts its patch embeddings, so the backend's
+    shared position lags it and the last decode steps land there); the
+    attention then sees every slot valid and measures a window from the
+    unclamped position, as the JAX package's plain path does.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -370,8 +359,9 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
             if rope:
                 q, k = _qk_rope(p, cfg, q, k, posv)
             ck, cv = layer_kv
-            ck.index_copy_(1, posv.long(), k.to(ck.dtype))
-            cv.index_copy_(1, posv.long(), v.to(cv.dtype))
+            slot = torch.clamp(posv, max=ck.shape[1] - 1).long()
+            ck.index_copy_(1, slot, k.to(ck.dtype))
+            cv.index_copy_(1, slot, v.to(cv.dtype))
             out = decode_attention(
                 q, ck, cv, pos, window=window,
                 attn_softcap=cfg.attn_softcap, scale=_attn_scale(cfg),
@@ -497,6 +487,45 @@ def _mamba_train_layer(p, cfg, x, delta):
     return x, y
 
 
+def _pair_layer(pl, pg, cfg, x, delta, mode, kvl=None, kvg=None,
+                pos=None):
+    """gemma2's (local, global) layer pair, the unit the JAX package's
+    scan (and its remat) wraps, each layer an attention block (the local
+    one within ``cfg.sliding_window`` keys) and an MLP block: -> (x,
+    pending delta, the local and the global layer's new (k, v) or
+    None)."""
+    x, delta, nkvl = attn_block(pl["attn"], cfg, x, delta, mode=mode,
+                                window=cfg.sliding_window, layer_kv=kvl,
+                                pos=pos)
+    x, delta = mlp_block(pl["mlp"], cfg, x, delta)
+    x, delta, nkvg = attn_block(pg["attn"], cfg, x, delta, mode=mode,
+                                layer_kv=kvg, pos=pos)
+    x, delta = mlp_block(pg["mlp"], cfg, x, delta)
+    return x, delta, nkvl, nkvg
+
+
+def _enc_layer(pb, cfg, x, delta):
+    """A whisper encoder layer: non-causal self-attention without RoPE
+    (the plain path: the JAX package runs it in its train mode in every
+    mode), then the MLP: -> (x, pending delta)."""
+    x, delta, _ = attn_block(pb["attn"], cfg, x, delta, mode="train",
+                             causal=False, rope=False)
+    return mlp_block(pb["mlp"], cfg, x, delta)
+
+
+def _dec_layer(pb, cfg, x, delta, cross_kv, mode, layer_kv=None, pos=None):
+    """A whisper decoder layer: causal self-attention with RoPE over the
+    cache (``mode``), the cross-attention to the encoder's K/V (plain,
+    non-causal), then the MLP: -> (x, pending delta, the self-attention's
+    new (k, v) or None)."""
+    x, delta, nkv = attn_block(pb["self_attn"], cfg, x, delta, mode=mode,
+                               layer_kv=layer_kv, pos=pos)
+    x, delta, _ = attn_block(pb["cross_attn"], cfg, x, delta, mode="train",
+                             cross_kv=cross_kv, rope=False)
+    x, delta = mlp_block(pb["mlp"], cfg, x, delta)
+    return x, delta, nkv
+
+
 def _shared_train_block(shared, cfg, x, delta):
     """One application of zamba2's shared attention + MLP in train mode:
     -> (x, pending delta)."""
@@ -570,10 +599,15 @@ def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, delta,
     return x, out
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked ``[L, ...]`` param tree (views)."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+def _layers(tree) -> list:
+    """The layers of a stacked ``[L, ...]`` param tree, one dict of views
+    each, from one ``torch.unbind`` per leaf: autograd stacks the layers'
+    gradients into the leaf's once, where indexing layer by layer would
+    build a full-size gradient for every layer (L^2 traffic)."""
+    cols = {k: (_layers(v) if isinstance(v, dict) else torch.unbind(v))
             for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def _paged_stack(params, cfg, x, cache, positions, kv_lens, active, *,
@@ -593,8 +627,7 @@ def _paged_stack(params, cfg, x, cache, positions, kv_lens, active, *,
                             device=table.device)[:, None],
             table, torch.zeros((), dtype=table.dtype, device=table.device))
     d = None
-    for i in range(cfg.num_layers):
-        pb = _layer(params["blocks"], i)
+    for i, pb in enumerate(_layers(params["blocks"])):
         pools = (cache["k"][i], cache["v"][i])
         x, d = _paged_attn_block(pb["attn"], cfg, x, d, pools, table,
                                  write_table, positions, kv_lens,
@@ -668,7 +701,8 @@ def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor):
 
 
 def _dense_stack(params, cfg, x, mode, cache=None):
-    """Dense / moe / vlm decoder stack, one layer at a time. Returns (h,
+    """Dense / moe / vlm decoder stack, one layer at a time (gemma2's
+    goes to ``_local_global_stack``). Returns (h,
     the last block's pending output (see ``_paged_stack``), new_cache_kv,
     aux).  Decode writes layer ``l``'s token into
     ``cache["k"][l]`` / ``["v"][l]`` in place; prefill stacks the
@@ -676,13 +710,12 @@ def _dense_stack(params, cfg, x, mode, cache=None):
     load-balancing loss in train mode and stays zero in the serving
     modes, which never read it."""
     if cfg.local_global:
-        raise _not_ported("the local/global dense stack", "local_global")
+        return _local_global_stack(params, cfg, x, mode, cache)
     pos = None if cache is None else cache["len"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     d = None
-    for i in range(cfg.num_layers):
-        pb = _layer(params["blocks"], i)
+    for i, pb in enumerate(_layers(params["blocks"])):
         if mode == "train":
             x, d, a = _maybe_remat(_dense_train_layer, cfg, mode)(pb, cfg, x,
                                                                   d)
@@ -701,6 +734,82 @@ def _dense_stack(params, cfg, x, mode, cache=None):
     if mode == "prefill":
         return x, d, {"k": torch.stack(ks), "v": torch.stack(vs)}, aux
     return x, d, {"k": cache["k"], "v": cache["v"]}, aux
+
+
+def _local_global_stack(params, cfg, x, mode, cache=None):
+    """gemma2: ``num_layers // 2`` (local, global) layer pairs
+    (``_pair_layer``).  Caches ``local_k/v`` and ``global_k/v``
+    ``[L/2, B, S, Hkv, hd]``: decode writes in place, prefill stacks the
+    pairs' (k, v); the train mode keeps none, each pair under
+    ``cfg.remat``.  Returns (h, the last block's pending output, new cache
+    kv, aux)."""
+    pos = None if cache is None else cache["len"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new = {key: [] for key in ("local_k", "local_v", "global_k",
+                               "global_v")}
+    d = None
+    for i, (pl, pg) in enumerate(zip(_layers(params["local"]),
+                                     _layers(params["global"]))):
+        kvl, kvg = ((cache["local_k"][i], cache["local_v"][i]),
+                    (cache["global_k"][i], cache["global_v"][i])) \
+            if cache else (None, None)
+        x, d, nkvl, nkvg = _maybe_remat(_pair_layer, cfg, mode)(
+            pl, pg, cfg, x, d, mode, kvl, kvg, pos)
+        if mode == "prefill":
+            for pre, (k, v) in (("local", nkvl), ("global", nkvg)):
+                new[f"{pre}_k"].append(k)
+                new[f"{pre}_v"].append(v)
+    if mode == "train":
+        return x, d, None, aux
+    if mode == "prefill":
+        return x, d, {k: torch.stack(v) for k, v in new.items()}, aux
+    return x, d, {k: cache[k] for k in new}, aux
+
+
+def _encdec_stacks(params, cfg, enc_x, dec_x, mode, cache=None):
+    """Whisper backbone.  enc_x: [B, S_enc, d] frame embeddings (the
+    frontend is a stub), or None in decode, which reads the cross K/V
+    from the cache; dec_x: [B, S_dec, d] decoder token embeddings.  The
+    encoder (its layers under ``cfg.remat`` in train mode only), its
+    final norm and each decoder layer's cross K/V from the encoder's
+    output; then the decoder over the self-attention cache ``k``/``v``
+    ``[L, B, S, Hkv, hd]`` (in place in decode), its cross-attention to
+    ``cross_k``/``cross_v`` ``[L, B, S_enc, Hkv, hd]``.  Returns (h, the
+    last block's pending output, new cache, aux)."""
+    pos = None if cache is None else cache["len"]
+    dec = _layers(params["dec_blocks"])
+    if enc_x is not None:
+        d = None
+        for pb in _layers(params["enc_blocks"]):
+            enc_x, d = _maybe_remat(_enc_layer, cfg, mode)(pb, cfg, enc_x, d)
+        enc_h, _ = add_rms_norm(enc_x, d, params["enc_final_ln_w"],
+                                cfg.norm_eps)
+        B, S = enc_h.shape[:2]
+        shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+        cross_k = [(enc_h @ pb["cross_attn"]["wk"]).reshape(shape)
+                   for pb in dec]
+        cross_v = [(enc_h @ pb["cross_attn"]["wv"]).reshape(shape)
+                   for pb in dec]
+    else:
+        cross_k, cross_v = cache["cross_k"], cache["cross_v"]
+    x, d = dec_x, None
+    ks, vs = [], []
+    for i, pb in enumerate(dec):
+        kv = (cache["k"][i], cache["v"][i]) if cache else None
+        x, d, nkv = _maybe_remat(_dec_layer, cfg, mode)(
+            pb, cfg, x, d, (cross_k[i], cross_v[i]), mode, kv, pos)
+        if mode == "prefill":
+            ks.append(nkv[0])
+            vs.append(nkv[1])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        return x, d, None, aux
+    if mode == "prefill":
+        return x, d, {"k": torch.stack(ks), "v": torch.stack(vs),
+                      "cross_k": torch.stack(cross_k),
+                      "cross_v": torch.stack(cross_v)}, aux
+    return x, d, {"k": cache["k"], "v": cache["v"], "cross_k": cross_k,
+                  "cross_v": cross_v}, aux
 
 
 def _mamba_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, delta, cache,
@@ -731,8 +840,7 @@ def _ssm_stack(params, cfg, x, mode, cache=None):
     train mode takes no cache and writes no state (new cache None).
     Returns (h, the last block's pending output, cache, aux)."""
     d = None
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"]["mamba"], i)
+    for i, p in enumerate(_layers(params["blocks"]["mamba"])):
         if mode == "train":
             x, d = _maybe_remat(_mamba_train_layer, cfg, mode)(p, cfg, x, d)
         else:
@@ -754,6 +862,7 @@ def _hybrid_stack(params, cfg, x, mode, cache=None):
     aux)."""
     n_apps, per = cfg.num_layers // cfg.attn_every, cfg.attn_every
     shared = params["shared"]
+    mamba = _layers(params["blocks"]["mamba"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     d = None
     if mode == "train":
@@ -762,7 +871,7 @@ def _hybrid_stack(params, cfg, x, mode, cache=None):
                                                                 x, d)
             for i in range(app * per, (app + 1) * per):
                 x, d = _maybe_remat(_mamba_train_layer, cfg, mode)(
-                    _layer(params["blocks"]["mamba"], i), cfg, x, d)
+                    mamba[i], cfg, x, d)
         return x, d, None, aux
     decode = mode == "decode"
     pos = cache["len"]
@@ -776,8 +885,7 @@ def _hybrid_stack(params, cfg, x, mode, cache=None):
             ks.append(nkv[0])
             vs.append(nkv[1])
         for i in range(app * per, (app + 1) * per):
-            x, d = _mamba_layer(_layer(params["blocks"]["mamba"], i), cfg, x,
-                                d, cache, i, decode)
+            x, d = _mamba_layer(mamba[i], cfg, x, d, cache, i, decode)
     new_cache = {"ssm": cache["ssm"], "conv": cache["conv"]}
     if decode:
         new_cache["k"], new_cache["v"] = cache["k"], cache["v"]
@@ -790,9 +898,8 @@ _STACKS = {"dense": _dense_stack, "moe": _dense_stack, "vlm": _dense_stack,
            "ssm": _ssm_stack, "hybrid": _hybrid_stack}
 
 
-def _check_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family == "encdec":
-        raise _not_ported(f"{what} of the {cfg.family} family", cfg.family)
+def _enc_embeds(cfg: ModelConfig, batch):
+    return batch["enc_embeds"].to(torch_dtype(cfg.compute_dtype))
 
 
 def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
@@ -800,12 +907,17 @@ def forward_train(params: Params, cfg: ModelConfig, batch: Dict[str, Any]):
     train/loss.py.
 
     ``batch``: {"tokens": [B, S] int, ...}; the vlm family prepends
-    ``batch["patch_embeds"]`` [B, S_img, d] to the token embeddings.  The
+    ``batch["patch_embeds"]`` [B, S_img, d] to the token embeddings, and
+    the encdec family's encoder reads ``batch["enc_embeds"]``.  The
     hidden returned is the sum the JAX function returns (the last block's
     pending output added).  No cache is read or written, and attention
     and the SSD scan take their plain versions (the JAX training path;
     see the module docstring)."""
-    _check_dense(cfg, "training")
+    if cfg.family == "encdec":
+        dec_x = _embed(params, cfg, batch["tokens"])
+        h, d, _, aux = _encdec_stacks(params, cfg, _enc_embeds(cfg, batch),
+                                      dec_x, "train")
+        return h + d, aux
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm":
         pe = batch["patch_embeds"].to(x.dtype)
@@ -818,9 +930,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token: torch.Tensor):
     """One-token decode. token: [B, 1] int. Returns (logits [B,1,V] fp32,
     cache); the cache's KV arrays and SSM/conv states are updated in
     place and its ``len`` advances by one on the device."""
-    _check_dense(cfg, "dense decode")
     x = _embed(params, cfg, token)
-    h, d, nc, _ = _STACKS[cfg.family](params, cfg, x, "decode", cache)
+    if cfg.family == "encdec":
+        h, d, nc, _ = _encdec_stacks(params, cfg, None, x, "decode", cache)
+    else:
+        h, d, nc, _ = _STACKS[cfg.family](params, cfg, x, "decode", cache)
     nc["len"] = cache["len"] + 1
     # carry across non-updated fields
     for key in cache:
@@ -833,8 +947,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_len: int):
     """Process a prompt, build the cache. Returns (last_logits [B,1,V],
     cache with KV arrays ``[L, B, max_len, Hkv, hd]`` (the hybrid's
-    ``[n_apps, ...]``), SSM/conv states for ssm/hybrid, and ``len`` = S)."""
-    _check_dense(cfg, "prefill")
+    ``[n_apps, ...]``, gemma2's ``local_k/v`` and ``global_k/v``
+    ``[L/2, ...]``, whisper's ``cross_k/v`` ``[L, B, S_enc, Hkv, hd]``
+    unpadded), SSM/conv states for ssm/hybrid, and ``len`` = S)."""
+    if cfg.family == "encdec":
+        S = batch["tokens"].shape[1]
+        dec_x = _embed(params, cfg, batch["tokens"])
+        h, d, nc, _ = _encdec_stacks(params, cfg, _enc_embeds(cfg, batch),
+                                     dec_x, "prefill")
+        nc = _pad_kv_cache(nc, max_len, S)
+        nc["len"] = torch.tensor(S, dtype=torch.int32, device=dec_x.device)
+        return _unembed(params, cfg, h[:, -1:], d[:, -1:]), nc
     x = _embed(params, cfg, batch["tokens"])
     if cfg.family == "vlm":
         pe = batch["patch_embeds"].to(x.dtype)

@@ -89,15 +89,18 @@ def adamw_update(params, grads, state: OptState, tc: TrainConfig
     sdt = torch_dtype(tc.adam_dtype)
 
     def upd(p, g, m, v):
+        # the same arithmetic in the same order, each fp32 temporary freed
+        # as soon as it is used: a 1.2-billion-entry leaf (gemma2's tied
+        # embedding) holds five fp32 copies at a time, not eight
         gf = g.float()
         mf = m.float() * b1 + gf * (1 - b1)
         vf = v.float() * b2 + gf * gf * (1 - b2)
-        mhat = mf / bc1
-        vhat = vf / bc2
-        step = mhat / (torch.sqrt(vhat) + eps) + tc.weight_decay * (
-            p.float())
-        newp = p.float() - lr * step
-        return newp.to(p.dtype), mf.to(sdt), vf.to(sdt)
+        del gf
+        step = (mf / bc1) / (torch.sqrt(vf / bc2) + eps) \
+            + tc.weight_decay * p.float()
+        newp = (p.float() - lr * step).to(p.dtype)
+        del step
+        return newp, mf.to(sdt), vf.to(sdt)
 
     out = [upd(p, g, m, v) for p, g, m, v in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),

@@ -69,11 +69,11 @@ def test_attention_bf16_logits_branch():
     _close(out_t, out_j, atol=2e-2)
 
 
-def test_flash_branch_and_dense_decode_raise():
+def test_flash_branch_and_dense_decode_on_cpu():
     """The flash branch of ``attention`` (Q == K > 1, causal, no kv_len)
     and ``decode_attention`` compute on the CPU (the plain path, as the
-    JAX package's XLA path does), and the dense model path still raises
-    for the family whose slice has not landed (whisper's encdec)."""
+    JAX package's XLA path does), and whisper's encdec decode step, which
+    the dense path once refused, runs its decoder through them."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as tm
     q, k, v = _qkv(1, 4, 4, 2, 1, 8, seed=5)
@@ -86,6 +86,12 @@ def test_flash_branch_and_dense_decode_raise():
     dec_j = ja.decode_attention(jnp.asarray(q[:, :1]), jnp.asarray(k),
                                 jnp.asarray(v), 2)
     _close(dec_t, dec_j)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tm.decode_step({}, get_config("whisper-large-v3", smoke=True), {},
-                       torch.zeros(1, 1).long())
+    cfg = get_config("whisper-large-v3", smoke=True).replace(
+        param_dtype="float32", compute_dtype="float32")
+    p = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.full((1, 4), 7),
+             "enc_embeds": torch.zeros((1, 8, cfg.d_model))}
+    logits, cache = tm.prefill(p, cfg, batch, 8)
+    logits, cache = tm.decode_step(p, cfg, cache, logits.argmax(-1))
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and int(cache["len"]) == 5

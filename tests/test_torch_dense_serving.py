@@ -87,21 +87,29 @@ def test_prefill_then_decode_match_jax(arch):
         assert not tc[key][:, :, n:].any()
 
 
-def test_dense_path_raises_for_families_not_ported():
-    """ssm, hybrid (tests/test_torch_ssm.py) and moe
-    (tests/test_torch_moe.py) serve on the dense path now; whisper's
-    encdec and gemma2's local/global layers still raise, naming their
-    slices."""
-    cfg = t_get_config("whisper-large-v3", smoke=True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tm.prefill({}, cfg, {"tokens": torch.zeros(1, 4).long()}, 8)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tm.decode_step({}, cfg, {}, torch.zeros(1, 1).long())
-    cfg = t_get_config("gemma2-27b", smoke=True)
-    params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError,
-                       match="remaining-families slice"):
-        tm.prefill(params, cfg, {"tokens": torch.zeros(1, 4).long()}, 8)
+@pytest.mark.parametrize("arch", ["gemma2-27b", "whisper-large-v3"])
+def test_dense_path_serves_the_remaining_families(arch):
+    """Every family serves on the dense path now: gemma2's local/global
+    layers and whisper's encoder-decoder prefill and decode like the JAX
+    package (test_torch_gemma2.py and test_torch_encdec.py hold every
+    cache leaf and the backends' streams)."""
+    jcfg, tcfg, jp, tp = _setup(arch)
+    toks = np.random.default_rng(5).integers(3, jcfg.vocab_size, (2, 11))
+    jb = {"tokens": jnp.asarray(toks, jnp.int32)}
+    tb = {"tokens": torch.from_numpy(toks).long()}
+    if jcfg.family == "encdec":
+        e = np.random.default_rng(6).normal(0, 0.02, (2, 8, jcfg.d_model))
+        jb["enc_embeds"] = jnp.asarray(e, jnp.float32)
+        tb["enc_embeds"] = torch.from_numpy(e).float()
+    lj, jc = jm.prefill(jp, jcfg, jb, 16)
+    lt, tc = tm.prefill(tp, tcfg, tb, 16)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=ATOL,
+                               rtol=ATOL)
+    token = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+    lj, _ = jm.decode_step(jp, jcfg, jc, jnp.asarray(token))
+    lt, _ = tm.decode_step(tp, tcfg, tc, torch.from_numpy(token).long())
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=ATOL,
+                               rtol=ATOL)
 
 
 def _requests(cls):

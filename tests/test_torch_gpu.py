@@ -315,6 +315,119 @@ def test_decode_kernel_vs_plain_on_card(case, dtype):
                                rtol=TOL[dtype])
 
 
+#: the remaining families' served launches, with their attention scale:
+#: (name, (B, S, Hq, Hkv, D), causal, window, softcap, scale) of the
+#: flash kernel -- gemma2-27b's local and global layers (scale 144^-0.5,
+#: softcap 50; the window binds at S 4160), whisper-large-v3's decoder
+#: (D 64, G 1), pixtral-12b's prompt with its 4 patches (S 132)
+SERVED_FLASH_CASES = [
+    ("gemma2-local", (8, 128, 32, 16, 128), True, 4096, 50.0, 144 ** -0.5),
+    ("gemma2-global", (8, 128, 32, 16, 128), True, 0, 50.0, 144 ** -0.5),
+    ("gemma2-local-4160", (1, 4160, 32, 16, 128), True, 4096, 50.0,
+     144 ** -0.5),
+    ("whisper-decoder", (8, 128, 20, 20, 64), True, 0, 0.0, 64 ** -0.5),
+    ("pixtral-s132", (8, 132, 32, 8, 128), True, 0, 0.0, 128 ** -0.5),
+]
+#: (name, (B, S, Hq, Hkv, D), positions, window, softcap, scale) of the
+#: dense-decode kernel; a position past S - 1 is a write clamped onto the
+#: last slot (pixtral's patches), with a window measured from it
+SERVED_DECODE_CASES = [
+    ("gemma2-local", (8, 161, 32, 16, 128), 144, 4096, 50.0, 144 ** -0.5),
+    ("gemma2-local-4177", (2, 4177, 32, 16, 128), 4170, 4096, 50.0,
+     144 ** -0.5),
+    ("whisper-decoder", (8, 161, 20, 20, 64), 144, 0, 0.0, 64 ** -0.5),
+    ("pixtral-clamped", (8, 161, 32, 8, 128), 163, 0, 0.0, 128 ** -0.5),
+    ("clamped-window", (2, 96, 8, 2, 64), 99, 40, 30.0, 64 ** -0.5),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SERVED_FLASH_CASES,
+                         ids=[c[0] for c in SERVED_FLASH_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_served_shapes(case, dtype):
+    _cuda_or_skip()
+    _, (B, S, Hq, Hkv, D), causal, window, cap, scale = case
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in flash_case(B, S, Hq, Hkv, D))
+    out = t_fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   attn_softcap=cap, scale=scale)
+    ref = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                        scale=scale, causal=causal, window=window,
+                        softcap=cap).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SERVED_DECODE_CASES,
+                         ids=[c[0] for c in SERVED_DECODE_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_the_served_shapes(case, dtype):
+    """Every row at the shared position, as the dense cache is; past the
+    last slot the kernel gets lens = S and the window's end apart."""
+    _cuda_or_skip()
+    _, (B, S, Hq, Hkv, D), pos, window, cap, scale = case
+    arrs = decode_case(B, S, Hq, Hkv, D, [pos + 1] * B)
+    q, kc, vc = (torch.from_numpy(a).to("cuda", dtype) for a in arrs[:3])
+    ends = torch.from_numpy(arrs[3])
+    before = t_da_ops.decode_attention_fwd.launches
+    out = t_da_ops.decode_attention(
+        q, kc, vc, torch.tensor(pos, dtype=torch.int32, device="cuda"),
+        window=window, attn_softcap=cap, scale=scale)
+    ref = decode_attention_ref(q.transpose(1, 2).cpu(), kc.cpu(), vc.cpu(),
+                               torch.clamp(ends, max=S), scale=scale,
+                               window=window, softcap=cap,
+                               ends=ends).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert t_da_ops.decode_attention_fwd.launches == before + 1
+    torch.testing.assert_close(out.cpu().float(), ref.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["pixtral-12b", "gemma2-27b",
+                                  "whisper-large-v3"])
+def test_dense_decode_past_the_cache_on_card_matches_the_cpu(arch):
+    """Smoke size in f32 (TF32 off): a prefill of 10 positions (pixtral's
+    6 tokens and 4 patches) and decode steps into a cache of 12 slots to
+    position 13, the last two past its end (clamped onto slot 11, as JAX
+    clamps them), on the card (kernels) and on the CPU (plain): greedy
+    tokens equal, logits within 2e-4."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    from repro_torch.utils.tree import tree_map
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32",
+                                               compute_dtype="float32")
+    params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(3)
+    S = 6 if cfg.family == "vlm" else 10
+    batch = {"tokens": torch.from_numpy(
+        r.integers(3, cfg.vocab_size, (2, S)).astype(np.int64))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(
+            r.normal(0, 0.02, (2, 4, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(
+            r.normal(0, 0.02, (2, 8, cfg.d_model)).astype(np.float32))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        logits, cache = tm.prefill(p, cfg, {k: v.to(dev) for k, v in
+                                            batch.items()}, 12)
+        seq = [logits.cpu()]
+        for _ in range(4):
+            logits, cache = tm.decode_step(p, cfg, cache, logits.argmax(-1))
+            seq.append(logits.cpu())
+        outs[dev] = seq
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(g.argmax(-1), c.argmax(-1))
+        torch.testing.assert_close(g, c, atol=2e-4, rtol=2e-4)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SSD_CASES, ids=[c[0] for c in SSD_CASES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -576,7 +689,7 @@ def _train_launches(arch, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "zamba2-2.7b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "gemma2-27b"])
 def test_train_step_on_card_runs_the_norm_kernels_and_no_other(arch):
     """A train step on the card raises nothing, runs every norm's
     forward and backward kernel and no attention or SSD kernel (the train
@@ -601,7 +714,8 @@ def test_train_step_on_card_runs_the_norm_kernels_and_no_other(arch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m", "zamba2-2.7b",
-                                  "qwen3-moe-30b-a3b", "pixtral-12b"])
+                                  "qwen3-moe-30b-a3b", "pixtral-12b",
+                                  "gemma2-27b", "whisper-large-v3"])
 def test_train_grads_on_card_match_the_cpu(arch):
     """``value_and_grad`` of the loss at smoke size in f32 (TF32 off):
     the card's loss within 1e-5 and every gradient leaf within 1e-4 of
@@ -624,6 +738,9 @@ def test_train_grads_on_card_match_the_cpu(arch):
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.from_numpy(
             r.normal(0, 0.02, (2, 8, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(
+            r.normal(0, 0.02, (2, 16, cfg.d_model)).astype(np.float32))
     out = {}
     for dev in ("cuda", "cpu"):
         p = tree_map(lambda t: t.to(dev), params)
