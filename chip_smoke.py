@@ -152,9 +152,26 @@ and any failure exits non-zero:
     and depth, 8 x 512, half of it encoder frames) for 6 steps each: the
     loss falls (mean of the last 3 below the first 3), each norm kernel
     launches exactly its count and no attention or SSD kernel;
-25. phase 18's card-vs-CPU train step for both.
+25. phase 18's card-vs-CPU train step for both;
+26. scale-out on the card machine's torch: 4 gloo ranks spawned on the
+    CPU as a (2, 2) mesh (``tests/scaleout_ranks.py``, no JAX) run
+    ``moe_ffn_ep`` against ``moe_ffn`` at factor 32 with ``tp_dispatch``
+    off and on (outputs and the gradients of x and all four weights),
+    ``pipeline_apply`` against sequential application, the sharded train
+    step against the one-rank step (the dense smoke, and the MoE smoke
+    under expert parallelism) and ``restore(..., shardings=)`` onto the
+    mesh (``SCALEOUT_TOL``);
+27. training on a one-rank NCCL mesh: ``repro_torch.launch.train.main``
+    with ``--mesh 1x1 --ep-moe`` trains full-width qwen3-moe-30b-a3b (2
+    of its 48 layers, 128 experts, k 8, bf16 params, fp32 moments) for 6
+    steps of 8 x 512: each loss equal to the run without a mesh (within
+    ``TRAIN_LOSS_ATOL``), ``moe_ffn_ep`` in every MoE layer of every step
+    (twice under remat) with two forward all-to-alls each, each RMSNorm
+    kernel exactly its count; step time, peak memory and a profiled step
+    (idle share, the NCCL kernels' share), each beside the card's name
+    and power limit.
 
-Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22 and 24) runs an
+Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24 and 27) runs an
 RMSNorm kernel for every norm (the fused ones wherever a neighbour is
 absorbed), and each runs with every kernel's launch count set to 0 just
 before it and read
@@ -2166,21 +2183,23 @@ def check_train_run(label: str, out, counts, cfg, steps: int) -> None:
         raise AssertionError(f"{label}: losses {losses}")
 
 
-def train_step_profile(out, label: str, step_s: float) -> None:
+def train_step_profile(out, label: str, step_s: float,
+                       argv=TRAIN_ARGV) -> dict:
     """``torch.profiler`` over one train step from the run's final state
-    (the next step's batch): host ms, device busy, the idle share of an
-    unprofiled step (``step_s``, the run's median) and of the profiled
-    one, kernels per step, the RMSNorm kernels' share of busy and the top
-    device ops."""
+    (the next step's batch; ``argv`` the run's): host ms, device busy,
+    the idle share of an unprofiled step (``step_s``, the run's median)
+    and of the profiled one, kernels per step, the RMSNorm kernels' and
+    the NCCL collectives' shares of busy and the top device ops.
+    Returns the device ms by kernel name (empty where the profiler saw
+    no device time)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, make_batch
     cfg, step_fn = out["cfg"], out["step_fn"]
-    B, S = (int(a) for a in (TRAIN_ARGV[TRAIN_ARGV.index("--batch") + 1],
-                             TRAIN_ARGV[TRAIN_ARGV.index("--seq") + 1]))
+    B, S, at = (int(argv[argv.index(a) + 1])
+                for a in ("--batch", "--seq", "--steps"))
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in make_batch(
-        cfg, ShapeConfig("t", "train", S, B), DataConfig(),
-        TRAIN_STEPS).items()}
+        cfg, ShapeConfig("t", "train", S, B), DataConfig(), at).items()}
     state = [out["params"], out["opt"]]
     out["params"] = out["opt"] = None
     torch.cuda.synchronize()
@@ -2196,7 +2215,7 @@ def train_step_profile(out, label: str, step_s: float) -> None:
         print(f"{label}: {1e3 * wall:.1f} ms per step (host clock, under "
               f"the profiler); the profiler saw no device time: busy and "
               f"idle share not measured")
-        return
+        return {}
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -2205,6 +2224,7 @@ def train_step_profile(out, label: str, step_s: float) -> None:
     norm = sum(t for n, t in by_name.items()
                if "norm_kernel" in n or "norm_bwd_kernel" in n
                or "sum_partials_kernel" in n or "qk_norm_rope" in n)
+    nccl = sum(t for n, t in by_name.items() if "nccl" in n.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label}: {1e3 * step_s:.1f} ms per step (host clock; "
           f"{1e3 * wall:.1f} under the profiler), device busy {busy:.1f} ms "
@@ -2212,11 +2232,13 @@ def train_step_profile(out, label: str, step_s: float) -> None:
           f"{max(0.0, 1 - busy / (1e3 * step_s)):.3f} of an unprofiled "
           f"step, {1 - busy / (1e3 * wall):.3f} of the profiled one; "
           f"RMSNorm kernels "
-          f"{norm:.2f} ms, {norm / busy:.4f} of busy; top device ops ms: "
+          f"{norm:.2f} ms, {norm / busy:.4f} of busy; NCCL kernels "
+          f"{nccl:.3f} ms, {nccl / busy:.4f} of busy; top device ops ms: "
           + "; ".join(f"{n[:90]} {t:.2f}" for n, t in top))
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    return by_name
 
 
 def phase_train_path() -> dict:
@@ -2576,6 +2598,265 @@ def phase_family_train() -> list:
     return out_counts
 
 
+# --- phases 26 and 27: scale-out -------------------------------------------
+
+#: phase 26: the sharded steps (arch, expert-parallel, config overrides),
+#: each 2 steps of 4 x 16 tokens at smoke size in f32: the dense model,
+#: and the MoE under expert parallelism at a capacity where nothing drops
+#: without the aux term (whose mean over shards is not the global
+#: batch's: tests/test_torch_sharded_train.py holds it to JAX's sharded
+#: step), each against the one-rank step within SCALEOUT_TOL
+SCALEOUT_RUNS = [("qwen3-0.6b", False, {}),
+                 ("qwen3-moe-30b-a3b", True,
+                  {"capacity_factor": 4.0, "router_aux_weight": 0.0})]
+#: phase 26's bounds, f32: the expert-parallel MoE's output (its
+#: gradients 10x), the pipeline's output, the sharded steps' losses and
+#: parameters (tests/test_distributed.py's bounds)
+SCALEOUT_TOL = {"moe_y": 1e-5, "moe_grad": 1e-4, "pipeline": 1e-5,
+                "step": 1e-4}
+#: phase 27: full-width qwen3-moe-30b-a3b at 2 of its 48 layers on a
+#: one-rank NCCL mesh with the expert-parallel MoE, and the same run
+#: without a mesh
+EP_STEPS = 6
+EP_ARGV = ["--arch", MOE, "--layers", "2", "--device", "cuda", "--steps",
+           str(EP_STEPS), "--batch", "8", "--seq", "512", "--seed", "0",
+           "--ckpt-every", "1000"]
+
+
+def _max_err(a, b) -> float:
+    return float((torch.as_tensor(a).float()
+                  - torch.as_tensor(b).float()).abs().max())
+
+
+def _check(label: str, err: float, tol: float) -> float:
+    if not err <= tol:
+        raise AssertionError(f"phase 26 {label}: max err {err:.3g} > {tol}")
+    return err
+
+
+def phase_scaleout_ranks() -> None:
+    """Four gloo ranks on the CPU as a (2, 2) mesh, spawned from this
+    process with the card machine's torch (``tests/scaleout_ranks.py``,
+    which imports no JAX): ``moe_ffn_ep`` against the port's ``moe_ffn``
+    at factor 32 with ``tp_dispatch`` off and on (outputs and the
+    gradients of x and all four weights), ``pipeline_apply`` against
+    sequential application (2 stages on (2, 2), 4 on (4, 1), the stage
+    parameters as slices and as DTensors), the sharded train steps of
+    ``SCALEOUT_RUNS`` against the one-rank step, and ``restore(...,
+    shardings=)`` of a checkpoint saved without a mesh onto the (2, 2)
+    mesh.  Any failing rank or check fails the phase."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import scaleout_ranks
+    from repro_torch.checkpoint.checkpoint import save
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.utils.tree import flatten_with_paths
+    tmp = ROOT / "build" / "scaleout"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    # tests/test_torch_moe_ep.py's shapes and distributions
+    N, d, E, f, k = 64, 16, 8, 24, 2
+    z = {"x": rng.normal(1, 1, (N, d)), "r": rng.normal(0, 1, (N, d)),
+         "wr": rng.normal(0, 1.0, (d, E)), "wg": rng.normal(0, 0.3, (E, d, f)),
+         "wu": rng.normal(0, 0.3, (E, d, f)),
+         "wd": rng.normal(0, 0.3, (E, f, d))}
+    z = {n: a.astype(np.float32) for n, a in z.items()}
+    np.savez(tmp / "moe.npz", **z)
+    pz = {"W": rng.normal(0, 0.3, (4, 16, 16)),
+          "b": rng.normal(0, 0.1, (4, 16)),
+          "x": rng.normal(0, 1, (6, 2, 16))}
+    pz = {n: a.astype(np.float32) for n, a in pz.items()}
+    np.savez(tmp / "pipe.npz", **pz)
+    saved = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+             "b": torch.ones(8), "h": torch.randn(4, 6).to(torch.bfloat16)}
+    save(str(tmp / "ckpt"), 1, saved)
+    B, S, steps = 4, 16, 2
+    t0 = time.perf_counter()
+    ranks = scaleout_ranks.spawn(
+        "smoke_rank", tmp, str(tmp / "moe.npz"), k, str(tmp / "pipe.npz"),
+        str(tmp / "ckpt"), SCALEOUT_RUNS, B, S, steps)
+    t_ranks = time.perf_counter() - t0
+    # the expert-parallel MoE against the dense path on the whole input
+    w = {n: torch.from_numpy(z[n]).requires_grad_(True)
+         for n in ("x", "wr", "wg", "wu", "wd")}
+    y = moe_ffn(*w.values(), k=k, capacity_factor=32.0).y
+    torch.sum(y * torch.from_numpy(z["r"])).backward()
+    moe_y = moe_g = 0.0
+    for r in ranks:
+        di, mi = r["moe_ep"]["coord"]
+        rows, e = slice(32 * di, 32 * di + 32), slice(4 * di, 4 * di + 4)
+        c = slice(12 * mi, 12 * mi + 12)
+        want = {"x": w["x"].grad[rows], "wr": w["wr"].grad,
+                "wg": w["wg"].grad[e, :, c], "wu": w["wu"].grad[e, :, c],
+                "wd": w["wd"].grad[e, c, :]}
+        for case, o in r["moe_ep"]["out"].items():
+            moe_y = max(moe_y, _check(f"moe_ffn_ep {case} y", _max_err(
+                o["y"], y.detach()[rows]), SCALEOUT_TOL["moe_y"]))
+            for n, g in want.items():
+                moe_g = max(moe_g, _check(f"moe_ffn_ep {case} grad {n}",
+                                          _max_err(o[n], g),
+                                          SCALEOUT_TOL["moe_grad"]))
+    # the pipeline against sequential application
+    pipe = 0.0
+    for stages in (2, 4):
+        ref = torch.from_numpy(pz["x"])
+        for st in range(stages):
+            ref = torch.tanh(ref @ torch.from_numpy(pz["W"][st])
+                             + torch.from_numpy(pz["b"][st]))
+        for r in ranks:
+            for held in ("", "_dtensor"):
+                pipe = max(pipe, _check(f"pipeline {stages}{held}", _max_err(
+                    r["pipeline"][f"pipe{stages}{held}"], ref),
+                    SCALEOUT_TOL["pipeline"]))
+    # the sharded steps against the one-rank step
+    lines = []
+    for i, (arch, ep, over) in enumerate(SCALEOUT_RUNS):
+        ms, params = scaleout_ranks.one_rank_steps(arch, over, B, S, steps)
+        got = ranks[0]["steps"][i]
+        loss = max(abs(a["total_loss"] - b["total_loss"])
+                   for a, b in zip(got["metrics"], ms))
+        _check(f"{arch} sharded step loss", loss, SCALEOUT_TOL["step"])
+        perr = max(_max_err(a, b) for (_, a), (_, b) in zip(
+            flatten_with_paths(got["params"]), flatten_with_paths(params)))
+        _check(f"{arch} sharded step params", perr, SCALEOUT_TOL["step"])
+        for r in ranks:
+            if r["steps"][i]["metrics"] != got["metrics"]:
+                raise AssertionError(f"phase 26 {arch}: the ranks' metrics "
+                                     f"differ")
+        lines.append(f"{arch}{' --ep-moe' if ep else ''} loss |d| "
+                     f"{loss:.3g}, params {perr:.3g}")
+    # the elastic restore: every rank's slices, and the whole leaves
+    for r in ranks:
+        di, mi = r["restore"]["coord"]
+        got = r["restore"]["tree"]
+        want = {"w": saved["w"][:, 4 * mi:4 * mi + 4], "b": saved["b"],
+                "h": saved["h"][2 * di:2 * di + 2, 3 * mi:3 * mi + 3]}
+        for n, leaf in saved.items():
+            if not (torch.equal(got[n][0].view(torch.int16)
+                                if leaf.dtype == torch.bfloat16
+                                else got[n][0],
+                                want[n].view(torch.int16)
+                                if leaf.dtype == torch.bfloat16 else want[n])
+                    and torch.equal(got[n][2].float(), leaf.float())):
+                raise AssertionError(f"phase 26 restore {n} on rank "
+                                     f"{(di, mi)}: {got[n][1]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 26 scale-out on 4 gloo ranks (CPU, torch "
+          f"{torch.__version__}), (2, 2) mesh: moe_ffn_ep vs moe_ffn at "
+          f"factor 32, tp_dispatch off and on, y max err {moe_y:.3g} (<= "
+          f"{SCALEOUT_TOL['moe_y']}), grads {moe_g:.3g} (<= "
+          f"{SCALEOUT_TOL['moe_grad']}); pipeline_apply vs sequential "
+          f"(2 and 4 stages) {pipe:.3g}; sharded steps vs one rank, "
+          f"{steps} steps of {B} x {S}: " + "; ".join(lines)
+          + f"; restore onto the mesh: 4 ranks' slices exact; ranks "
+          f"{t_ranks:.1f}s")
+
+
+def ep_launches(cfg, steps: int) -> dict:
+    """moe_ffn_ep's calls in ``steps`` train steps under ``remat="full"``
+    (each MoE layer's forward, then its recompute in the backward) and
+    its forward all-to-alls (two per call: the exchange and its
+    reverse)."""
+    assert cfg.remat == "full", cfg.remat
+    calls = 2 * cfg.num_layers * steps
+    return {"calls": calls, "all_to_all": 2 * calls}
+
+
+def phase_ep_train() -> dict:
+    """``repro_torch.launch.train.main`` with ``--mesh 1x1 --ep-moe``:
+    full-width qwen3-moe-30b-a3b (2 of its 48 layers, 128 experts, k 8,
+    bf16 params, fp32 moments) on a one-rank NCCL mesh, ``EP_STEPS``
+    steps of 8 x 512 tokens, then the same run without a mesh.  With D =
+    1 the capacity per source shard is the global one, so each step's
+    loss must equal the run without a mesh within TRAIN_LOSS_ATOL;
+    ``moe_ffn_ep`` must run in every MoE layer of every step (twice
+    under remat) with two forward all-to-alls each, and each RMSNorm
+    kernel exactly its count.  Prints the state's size, step time, peak
+    memory and a profiled step (idle share, the NCCL kernels' share),
+    each beside the card's name and power limit.  Returns the mesh run's
+    launch counts."""
+    import socket
+    import torch.distributed as dist
+    # the process group outlives the run (its state and step function are
+    # profiled after it): set up here, so the driver takes it over
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        return _ep_train()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ep_train() -> dict:
+    from repro_torch.models import moe_ep
+    from repro_torch.train.sharded import gather_state
+    from repro_torch.utils.tree import tree_bytes, tree_size
+    card = card_line()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    argv = EP_ARGV + ["--ckpt-dir", str(TRAIN_CKPT)]
+    mesh_argv = argv + ["--mesh", "1x1", "--ep-moe"]
+    moe_ep.moe_ffn_ep.calls = moe_ep._exchange.launches = 0
+    out, counts = train_counted(mesh_argv)
+    ep = {"calls": moe_ep.moe_ffn_ep.calls,
+          "all_to_all": moe_ep._exchange.launches}
+    cfg = out["cfg"]
+    check_train_run("phase 27 --mesh 1x1 --ep-moe", out, counts, cfg,
+                    EP_STEPS)
+    if ep != ep_launches(cfg, EP_STEPS):
+        raise AssertionError(f"phase 27: moe_ffn_ep {ep}; want "
+                             f"{ep_launches(cfg, EP_STEPS)}")
+    whole = gather_state(out["params"])
+    n_params, p_bytes = tree_size(whole), tree_bytes(whole)
+    del whole
+    losses, peak = out["losses"], max(out["peak_bytes"])
+    med = sorted(out["step_s"][1:])[len(out["step_s"][1:]) // 2]
+    tok = out["tokens_per_step"]
+    by_name = train_step_profile(
+        out, f"phase 27 --mesh 1x1 --ep-moe train-step profile [{card}]",
+        med, mesh_argv)
+    a2a = sum(t for n, t in by_name.items()
+              if "sendrecv" in n.lower() or "alltoall" in n.lower())
+    busy = sum(by_name.values())
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, ref_counts = train_counted(argv)
+    check_train_run("phase 27 without a mesh", ref, ref_counts, ref["cfg"],
+                    EP_STEPS)
+    diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    if not diff <= TRAIN_LOSS_ATOL:
+        raise AssertionError(f"phase 27: losses {losses} on the mesh, "
+                             f"{ref['losses']} without (|d| {diff:.3g})")
+    ref_med = sorted(ref["step_s"][1:])[len(ref["step_s"][1:]) // 2]
+    ref_peak = max(ref["peak_bytes"])
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    a2a_share = (f"{a2a:.3f} ms, {a2a / busy:.4f} of device busy"
+                 if busy else "not measured (no device time)")
+    print(f"phase 27 --mesh 1x1 --ep-moe: {MOE} full width (d "
+          f"{cfg.d_model}, {cfg.num_experts} experts, k "
+          f"{cfg.experts_per_token}), {cfg.num_layers} of its 48 layers, "
+          f"{n_params / 1e9:.3f} B params ({p_bytes / 2**30:.2f} GiB bf16, "
+          f"fp32 moments {8 * n_params / 2**30:.2f} GiB), one NCCL rank, "
+          f"{EP_STEPS} steps of 8 x 512: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; without a mesh max |d| {diff:.3g} (<= {TRAIN_LOSS_ATOL}); "
+          f"moe_ffn_ep calls {ep['calls']}, forward all-to-alls "
+          f"{ep['all_to_all']} = {ep_launches(cfg, 1)} x {EP_STEPS}; norm "
+          f"launches {train_norm_launches(cfg, 1)} x {EP_STEPS}; median "
+          f"step (from step 1) {med:.3f} s, {tok / med:.0f} tokens/s "
+          f"[{card}]; without a mesh {ref_med:.3f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB, without a mesh {ref_peak / 2**30:.2f} "
+          f"GiB [{card}]; the all-to-alls' kernels {a2a_share} [{card}]")
+    return counts
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -2670,9 +2951,13 @@ def main() -> None:
     done(24)
     phase_train_parity(25, FAMILY_TRAIN_PARITY, init_device=DEVICE)
     done(25)
+    phase_scaleout_ranks()
+    done(26)
+    paths.append(phase_ep_train())
+    done(27)
     # launches on the main paths: each path's own run, summed over the
     # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, and the training
-    # paths, 17 and 24)
+    # paths, 17, 24 and 27's mesh run)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")

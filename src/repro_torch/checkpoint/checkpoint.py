@@ -19,7 +19,7 @@ import json
 import os
 import queue
 import threading
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -85,11 +85,18 @@ def _from_numpy(arr: np.ndarray, bf16: bool) -> torch.Tensor:
 
 
 def restore(ckpt_dir: str, template, step: Optional[int] = None,
-            device=None):
+            device=None, shardings: Any = None):
     """Restore into the structure of ``template`` (a tree of tensors;
     ``device="meta"`` ones will do).  Each leaf takes its template's
     dtype and goes to ``device``, or, when that is None, to its
-    template's device.  Returns (tree, step)."""
+    template's device.  Returns (tree, step).
+
+    ``shardings``: one ``launch.sharding.NamedSharding`` (a mesh and a
+    spec) for every leaf, or a tree of them like ``template`` — the
+    elastic-resume path: each leaf is distributed over its mesh
+    (``distribute_tensor``, from rank 0's copy) as a DTensor, so a
+    checkpoint saved without a mesh, or on another, resumes onto any
+    mesh.  Every rank of the mesh must call it."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -102,6 +109,13 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
             else:
                 by_path[k] = _from_numpy(data[k], False)
 
+    shard_of = None
+    if shardings is not None:
+        if hasattr(shardings, "placements"):
+            shard_of = {p: shardings for p, _ in flatten_with_paths(template)}
+        else:
+            shard_of = dict(flatten_with_paths(shardings))
+
     def leaf(p, tmpl):
         if p not in by_path:
             raise KeyError(f"checkpoint missing leaf {p!r}")
@@ -110,6 +124,11 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
             raise ValueError(
                 f"shape mismatch for {p}: ckpt {tuple(arr.shape)} vs "
                 f"template {tuple(tmpl.shape)}")
+        if shard_of is not None:
+            from torch.distributed.tensor import distribute_tensor
+            sh = shard_of[p]
+            return distribute_tensor(arr.to(dtype=tmpl.dtype), sh.mesh,
+                                     sh.placements)
         return arr.to(device=tmpl.device if device is None else device,
                       dtype=tmpl.dtype)
     return tree_map_with_path(leaf, template), step

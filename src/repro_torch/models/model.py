@@ -9,8 +9,8 @@ runs: the paged pair (``prefill_chunk`` / ``decode_step_paged``) for the
 dense (but gemma2's local/global layers), moe and vlm families, as in the
 JAX package, which refuses the others there; the dense-cache pair
 (``prefill`` / ``decode_step``) for every family; and ``forward_train``
-for every family.  Expert parallelism comes with a later slice of the
-port (ROADMAP.md, Queue 1).
+for every family.  Under ``moe_ep.ep_mesh_context`` the MoE layers take
+the expert-parallel path (``models/moe_ep.py``), as in the JAX package.
 
 The train mode (``forward_train``) keeps no cache and writes no state.
 Its attention and SSD scan take their plain versions on any device (the
@@ -44,6 +44,8 @@ from repro_torch.models.attention import (attention, decode_attention,
 from repro_torch.models.layers import (add_rms_norm, mlp, qk_norm_rope,
                                        rms_norm, softcap)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe_ep import (current_ep_mesh, ep_mesh_context,
+                                       moe_ffn_ep)
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
 
@@ -404,14 +406,16 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """Pre-norm MoE FFN (plus a shared dense expert, if given), its
     pre-norm adding the pending ``delta`` to x.  Returns (x + delta, the
     block's pending output, aux_loss), the loss None unless ``with_aux``
-    (serving never reads it).  The expert-parallel branch of the JAX
-    version (``moe_ep``) comes with a later slice."""
+    (serving never reads it).  Under ``ep_mesh_context`` the expert-
+    parallel ``moe_ffn_ep`` runs, on this rank's tokens and expert
+    shards, as in the JAX version."""
     B, S, d = x.shape
     h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
-    out = moe_ffn(h.reshape(B * S, d), p["w_router"], p["w_gate"],
-                  p["w_up"], p["w_down"], k=cfg.experts_per_token,
-                  capacity_factor=cfg.capacity_factor, act=cfg.act,
-                  with_aux=with_aux)
+    impl = moe_ffn_ep if current_ep_mesh() is not None else moe_ffn
+    out = impl(h.reshape(B * S, d), p["w_router"], p["w_gate"],
+               p["w_up"], p["w_down"], k=cfg.experts_per_token,
+               capacity_factor=cfg.capacity_factor, act=cfg.act,
+               with_aux=with_aux)
     y = out.y.reshape(B, S, d)
     if shared_mlp is not None:
         hs = rms_norm(x, shared_mlp["ln_w"], cfg.norm_eps)
@@ -470,8 +474,20 @@ def _maybe_remat(fn, cfg, mode):
     extra = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **extra)
+        # the recompute runs in the backward, on the card on autograd's
+        # own thread, where the thread-local expert-parallel mesh is not
+        # set: it re-enters the one the forward ran under
+        ep = current_ep_mesh()
+        body = fn if ep is None else _under_ep(fn, ep)
+        return checkpoint(body, *args, use_reentrant=False, **extra)
     return run
+
+
+def _under_ep(fn, ep):
+    def body(*args):
+        with ep_mesh_context(*ep):
+            return fn(*args)
+    return body
 
 
 def _dense_train_layer(pb, cfg, x, delta):

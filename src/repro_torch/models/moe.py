@@ -51,31 +51,17 @@ def capacity(n_tokens: int, k: int, capacity_factor: float,
     return -(-c // 8) * 8
 
 
-def moe_ffn(
-    x: torch.Tensor,          # [N, d] flattened tokens
-    w_router: torch.Tensor,   # [d, E]
-    w_gate: torch.Tensor,     # [E, d, f]
-    w_up: torch.Tensor,       # [E, d, f]
-    w_down: torch.Tensor,     # [E, f, d]
-    *,
-    k: int,
-    capacity_factor: float,
-    act: str = "silu",
-    with_aux: bool = False,
-) -> MoEOutput:
-    """The MoE FFN of ``N`` tokens.  ``aux_loss`` and
-    ``fraction_dropped`` are computed only ``with_aux`` (serving never
-    reads them; JAX's jit drops them as dead code there), else None."""
+def _local_dispatch(x: torch.Tensor, weights: torch.Tensor,
+                    idx: torch.Tensor, E: int, C: int):
+    """Group the ``N`` tokens of ``x`` by expert into ``buf [E, C, d]``.
+
+    Returns ``(buf, src, wgt, keep)``: for each (token, choice) pair in
+    the tokens' top-k order, ``src`` its slot ``e * C + c`` in the
+    flattened buffer and ``wgt`` its router weight (0 where dropped);
+    ``keep`` marks the pairs inside capacity, in expert order."""
     N, d = x.shape
-    E = w_router.shape[1]
-    C = capacity(N, k, capacity_factor, E)
+    k = idx.shape[1]
     dev = x.device
-
-    # the router in fp32: JAX promotes the bf16 activations to w_router's
-    # fp32 in its einsum
-    logits = x.float() @ w_router.float()
-    weights, idx = router_topk(logits, k)              # [N, k]
-
     # ---- slot assignment: position of each (token, expert) pair within
     # its expert's buffer, by a stable sort over expert ids
     flat_e = idx.reshape(-1)                           # [N*k]
@@ -104,19 +90,54 @@ def moe_ffn(
     buf.index_copy_(0, dest, x[tok])
     buf = buf[:E * C].view(E, C, d)
 
+    # each pair's slot and weight back in the tokens' top-k order (the
+    # inverse of ``order``)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(N * k, device=dev)
+    return buf, (sorted_e * C + slot)[inv], wgt[inv], keep
+
+
+def _combine(y_buf: torch.Tensor, src: torch.Tensor, wgt: torch.Tensor,
+             k: int, dtype) -> torch.Tensor:
+    """Each token's k slots of the flattened expert outputs ``y_buf
+    [E*C, d]``, weighted and summed in fp32 in the token's top-k order
+    (the JAX version scatter-adds them in expert order: the same
+    products, summed in another order)."""
+    y_slots = y_buf[src].float() * wgt[:, None]
+    return y_slots.view(-1, k, y_buf.shape[1]).sum(1).to(dtype)
+
+
+def moe_ffn(
+    x: torch.Tensor,          # [N, d] flattened tokens
+    w_router: torch.Tensor,   # [d, E]
+    w_gate: torch.Tensor,     # [E, d, f]
+    w_up: torch.Tensor,       # [E, d, f]
+    w_down: torch.Tensor,     # [E, f, d]
+    *,
+    k: int,
+    capacity_factor: float,
+    act: str = "silu",
+    with_aux: bool = False,
+) -> MoEOutput:
+    """The MoE FFN of ``N`` tokens.  ``aux_loss`` and
+    ``fraction_dropped`` are computed only ``with_aux`` (serving never
+    reads them; JAX's jit drops them as dead code there), else None."""
+    N, d = x.shape
+    E = w_router.shape[1]
+    C = capacity(N, k, capacity_factor, E)
+
+    # the router in fp32: JAX promotes the bf16 activations to w_router's
+    # fp32 in its einsum
+    logits = x.float() @ w_router.float()
+    weights, idx = router_topk(logits, k)              # [N, k]
+
+    buf, src, wgt, keep = _local_dispatch(x, weights, idx, E, C)
+
     # ---- expert computation (batched products)
     g = activation(torch.bmm(buf, w_gate), act)
     u = torch.bmm(buf, w_up)
     y_buf = torch.bmm((g * u).to(x.dtype), w_down).view(E * C, d)
-
-    # ---- combine: each token's k slots, in the token's top-k order (the
-    # inverse of ``order``), summed in fp32 (the JAX version scatter-adds
-    # them in expert order: the same products, summed in another order)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(N * k, device=dev)
-    src = (sorted_e * C + slot)[inv]
-    y_slots = y_buf[src].float() * wgt[inv][:, None]
-    y = y_slots.view(N, k, d).sum(1).to(x.dtype)
+    y = _combine(y_buf, src, wgt, k, x.dtype)
     if not with_aux:
         return MoEOutput(y, None, None)
     probs = torch.softmax(logits, dim=-1)

@@ -70,17 +70,22 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``norm``
+    is that norm when ``grads`` holds only a slice of the gradients (the
+    sharded step), else it is computed from them."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: OptState, tc: TrainConfig
-                 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
-    """One AdamW step. Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+def adamw_update(params, grads, state: OptState, tc: TrainConfig,
+                 norm=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+    """One AdamW step. Returns (new_params, new_state, metrics).
+    ``norm``: the gradients' global norm when the trees hold only this
+    rank's slices of them (``clip_by_global_norm``)."""
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, norm)
     count = state.count + 1
     lr = cosine_schedule(tc, count)
     b1, b2, eps = tc.beta1, tc.beta2, tc.eps

@@ -1,0 +1,140 @@
+"""The JAX side of the port's scale-out tests, run in a process of its
+own with 4 host devices (``XLA_FLAGS=--xla_force_host_platform_device_
+count=4``, which must be set before JAX starts):
+
+    python jax_scaleout_ref.py CASE IN.npz OUT.npz
+
+CASE ``moe_ep``: ``moe_ffn_ep`` on a (2, 2) (data, model) mesh for each
+capacity factor and dispatch mode, y, aux, the gradients of
+sum(y * r) + 0.37 * aux, and the assignments each source shard drops;
+``pipeline``: ``pipeline_apply`` on a (2, 2) (pipe, dp) mesh and a
+(4, 1) one."""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+AUX_W = 0.37
+
+
+def moe_ep(z):
+    from repro.models.moe import router_topk
+    from repro.models.moe_ep import (_local_dispatch, ep_mesh_context,
+                                     moe_ffn_ep)
+    mesh = jax.make_mesh((2, 2), ("data", "model"))
+    k = int(z["k"])
+    x, r = jnp.asarray(z["x"]), jnp.asarray(z["r"])
+    ws = tuple(jnp.asarray(z[n]) for n in ("wr", "wg", "wu", "wd"))
+    E = ws[0].shape[1]
+    out = {}
+    for cf in z["cfs"]:
+        cf = float(cf)
+        for tp in (False, True):
+            def loss(x, *w):
+                with ep_mesh_context(mesh, tp_dispatch=tp):
+                    o = moe_ffn_ep(x, *w, k=k, capacity_factor=cf)
+                return jnp.sum(o.y * r) + AUX_W * o.aux_loss, (o.y,
+                                                               o.aux_loss)
+            with mesh:
+                (_, (y, aux)), g = jax.jit(jax.value_and_grad(
+                    loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(x, *ws)
+            key = f"cf{cf}_tp{int(tp)}"
+            out[key + "_y"], out[key + "_aux"] = np.asarray(y), np.asarray(aux)
+            for n, gi in zip(("x", "wr", "wg", "wu", "wd"), g):
+                out[f"{key}_g{n}"] = np.asarray(gi)
+            # the drops of each source shard's dispatch (moe_ffn_ep's own
+            # buffers; the function returns no count)
+            shards = 4 if tp else 2
+            rows = x.shape[0] // shards
+            C = max(int(rows * k * cf / E), 1)
+            C = -(-C // 8) * 8
+            dropped = 0
+            for s in range(shards):
+                xs = x[s * rows:(s + 1) * rows]
+                logits = jnp.einsum("nd,de->ne", xs, ws[0],
+                                    preferred_element_type=jnp.float32)
+                w, idx = router_topk(logits, k)
+                keep = _local_dispatch(xs, w, idx, E, C)[-1]
+                dropped += int(np.sum(~np.asarray(keep)))
+            out[key + "_dropped"] = np.asarray(dropped)
+    return out
+
+
+def pipeline(z):
+    from repro.launch.pipeline import pipeline_apply
+    W, b, x = (jnp.asarray(z[n]) for n in ("W", "b", "x"))
+
+    def stage(p, a):
+        w, bb = p
+        return jnp.tanh(a @ w + bb)
+    out = {}
+    for shape in ((2, 2), (4, 1)):
+        mesh = jax.make_mesh(shape, ("pipe", "dp"))
+        S = shape[0]
+        with mesh:
+            y = jax.jit(lambda p, xx: pipeline_apply(
+                stage, mesh, "pipe", p, xx))((W[:S], b[:S]), x)
+        out[f"pipe{S}"] = np.asarray(y)
+    return out
+
+
+def ep_step(z):
+    """The JAX launcher's sharded step (``train_shardings`` on a (2, 2)
+    mesh under ``ep_mesh_context``) from the port's checkpoint of step 0:
+    the losses and the params after each step."""
+    from jax.sharding import PartitionSpec as P
+    from repro.checkpoint.checkpoint import restore
+    from repro.configs import TrainConfig, get_config
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import DataConfig, make_batch
+    from repro.launch import sharding as shd
+    from repro.models import model as jm
+    from repro.models.moe_ep import ep_mesh_context
+    from repro.train import optim
+    from repro.train.step import build_train_step
+    from repro.utils.tree import flatten_with_paths
+    cfg = get_config(str(z["arch"]), smoke=True).replace(
+        param_dtype="float32", compute_dtype="float32",
+        capacity_factor=float(z["capacity_factor"]))
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    abst = jm.abstract(cfg)
+    opt = optim.abstract_opt_state(abst, tc)
+    tree, _ = restore(str(z["ckpt"]), {"params": abst, "m": opt.m,
+                                       "v": opt.v, "count": opt.count})
+    params = tree["params"]
+    opt = optim.OptState(m=tree["m"], v=tree["v"], count=tree["count"])
+    shape = ShapeConfig("t", "train", int(z["S"]), int(z["B"]))
+    # GSPMD's propagation (Auto axes), as the launcher's jit relies on
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    batch = [{k: jnp.asarray(v) for k, v in
+              make_batch(cfg, shape, DataConfig(), i).items()}
+             for i in range(int(z["steps"]))]
+    ps = shd.param_specs(cfg, abst, mesh, kind="train")
+    zs = shd.zero1_opt_specs(ps, abst, mesh)
+    bs = shd.batch_specs(batch[0], mesh)
+    opt_spec = optim.OptState(m=zs, v=zs, count=P())
+    out = {}
+    with mesh, ep_mesh_context(mesh):
+        fn = jax.jit(build_train_step(cfg, tc),
+                     in_shardings=(shd.to_named(ps, mesh),
+                                   shd.to_named(opt_spec, mesh),
+                                   shd.to_named(bs, mesh)),
+                     out_shardings=(shd.to_named(ps, mesh),
+                                    shd.to_named(opt_spec, mesh), None))
+        for i, b in enumerate(batch):
+            params, opt, m = fn(params, opt, b)
+            out[f"loss{i}"] = np.asarray(m["total_loss"])
+            out[f"aux{i}"] = np.asarray(m["aux_loss"])
+            out[f"gnorm{i}"] = np.asarray(m["grad_norm"])
+            for path, leaf in flatten_with_paths(params):
+                out[f"step{i}/{path}"] = np.asarray(leaf)
+    return out
+
+
+if __name__ == "__main__":
+    case, src, dst = sys.argv[1:4]
+    assert jax.device_count() == 4, jax.devices()
+    np.savez(dst, **{"moe_ep": moe_ep, "pipeline": pipeline,
+                     "ep_step": ep_step}[case](dict(np.load(src))))

@@ -1,0 +1,246 @@
+"""Multi-rank harness of the port's scale-out tests: ``spawn`` runs a
+function of this module in ``world`` gloo ranks on the CPU (one process
+each, over a ``FileStore``), and the rank functions below run the port's
+side of each check and return what the test compares.  Imports no JAX:
+the JAX side runs in its own process (``jax_scaleout_ref.py``)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _entry(rank, world, store, name, args, out_dir):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        res = globals()[name](rank, *args)
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(name: str, tmp_path, *args, world: int = 4) -> list:
+    """``name(rank, *args)`` in ``world`` spawned gloo ranks; each rank's
+    return value, in rank order.  A failing rank fails the call."""
+    out_dir = os.path.join(str(tmp_path), f"ranks_{name}")
+    os.makedirs(out_dir, exist_ok=True)
+    mp.start_processes(_entry, args=(world, os.path.join(out_dir, "store"),
+                                     name, args, out_dir),
+                       nprocs=world, start_method="spawn", join=True)
+    # written by the ranks above (placements and tuples: not weights only)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def jax_process(case, inp, out):
+    """Start ``jax_scaleout_ref.py CASE`` on 4 host devices."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu")
+    return subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tests", "jax_scaleout_ref.py"),
+         case, str(inp), str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def jax_result(proc, out, timeout=300):
+    _, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-4000:]
+    return dict(np.load(out))
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+#: moe_ffn_ep's loss for gradients: sum(y * r) + AUX_W * aux
+AUX_W = 0.37
+
+
+def moe_ep_rank(rank, inp_path, k, cases, aux_w=AUX_W):
+    """On a (2, 2) (data, model) mesh: for each (capacity_factor,
+    tp_dispatch) of ``cases``, moe_ffn_ep on this rank's shards of the
+    inputs, and the gradients of sum(y * r) + aux_w * aux."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.moe_ep import ep_mesh_context, moe_ffn_ep
+    mesh = make_debug_mesh((2, 2))
+    di, mi = mesh.get_coordinate()
+    z = np.load(inp_path)
+    N, E, f = z["x"].shape[0], z["wg"].shape[0], z["wg"].shape[2]
+    rows, ne, nf = N // 2, E // 2, f // 2
+    out = {}
+    for cf, tp in cases:
+        x = _t(z["x"][di * rows:(di + 1) * rows], True)
+        r = _t(z["r"][di * rows:(di + 1) * rows])
+        wr = _t(z["wr"], True)
+        e, c = slice(di * ne, (di + 1) * ne), slice(mi * nf, (mi + 1) * nf)
+        wg, wu = _t(z["wg"][e, :, c], True), _t(z["wu"][e, :, c], True)
+        wd = _t(z["wd"][e, c, :], True)
+        with ep_mesh_context(mesh, tp_dispatch=tp):
+            o = moe_ffn_ep(x, wr, wg, wu, wd, k=k, capacity_factor=cf,
+                           with_aux=True)
+        (torch.sum(o.y * r) + aux_w * o.aux_loss).backward()
+        out[(cf, tp)] = {"y": o.y.detach(), "aux": o.aux_loss.detach(),
+                         "dropped": o.fraction_dropped, "x": x.grad,
+                         "wr": wr.grad, "wg": wg.grad, "wu": wu.grad,
+                         "wd": wd.grad}
+    return {"coord": (di, mi), "out": out}
+
+
+def pipeline_rank(rank, inp_path):
+    """``pipeline_apply`` of a tanh-affine stage on a (2, 2) (pipe, dp)
+    mesh and a (4, 1) one, the stage parameters as this rank's plain
+    slice and as DTensors sharded over 'pipe'."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.pipeline import pipeline_apply
+    from repro_torch.launch.sharding import NamedSharding, P
+    from repro_torch.train.sharded import distribute
+    z = np.load(inp_path)
+    W, b, x = (_t(z[n]) for n in ("W", "b", "x"))
+
+    def stage(p, a):
+        w, bb = p
+        return torch.tanh(a @ w + bb)
+    out = {}
+    for shape in ((2, 2), (4, 1)):
+        mesh = make_debug_mesh(shape, ("pipe", "dp"))
+        S, s = shape[0], mesh.get_coordinate()[0]
+        out[f"pipe{S}"] = pipeline_apply(stage, mesh, "pipe",
+                                         (W[s:s + 1], b[s:s + 1]), x)
+        sh = NamedSharding(mesh, P("pipe"))
+        held = (distribute(W[:S].contiguous(), sh),
+                distribute(b[:S].contiguous(), sh))
+        out[f"pipe{S}_dtensor"] = pipeline_apply(stage, mesh, "pipe", held,
+                                                 x)
+    return out
+
+
+def restore_rank(rank, ckpt_dir):
+    """``restore`` of a checkpoint saved without a mesh onto a (2, 2)
+    mesh, with a tree of shardings and with one for every leaf: each
+    leaf's local shard, placements and whole value."""
+    from repro_torch.checkpoint.checkpoint import restore
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import NamedSharding, P
+    mesh = make_debug_mesh((2, 2))
+    tmpl = {"w": torch.empty(8, 8), "b": torch.empty(8),
+            "h": torch.empty(4, 6, dtype=torch.bfloat16)}
+    tree = {"w": NamedSharding(mesh, P(None, "model")),
+            "b": NamedSharding(mesh, P()),
+            "h": NamedSharding(mesh, P("data", "model"))}
+    out = {"coord": mesh.get_coordinate()}
+    for name, sh in (("tree", tree), ("one", NamedSharding(mesh, P("data")))):
+        got, step = restore(ckpt_dir, tmpl, shardings=sh)
+        out[name] = {key: (v.to_local().clone(), tuple(v.placements),
+                           v.full_tensor()) for key, v in got.items()}
+        out["step"] = step
+    return out
+
+
+def sharded_steps_rank(rank, runs, B, S, steps):
+    """For each (arch, ep, config overrides) of ``runs``: ``steps``
+    sharded train steps of the arch's smoke config in f32 on a (2, 2)
+    mesh from the seed-0 params, batches of B x S: the metrics of each
+    step, the stored placements of the first layer's leaves and moments
+    and, on rank 0, the final params gathered whole."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import train_shardings
+    from repro_torch.models import model as tm
+    from repro_torch.train import optim
+    from repro_torch.train.sharded import (build_sharded_train_step,
+                                           gather_state, shard_state)
+    from repro_torch.utils.tree import flatten_with_paths
+    mesh = make_debug_mesh((2, 2))
+    tc = TrainConfig(**STEP_TC)
+    outs = []
+    for arch, ep, over in runs:
+        cfg = get_config(arch, smoke=True).replace(**F32, **over)
+        params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        opt = optim.init_opt_state(params, tc)
+        shape, dc = ShapeConfig("t", "train", S, B), DataConfig()
+
+        def batch(i):
+            return {n: torch.from_numpy(v) for n, v in
+                    make_batch(cfg, shape, dc, i).items()}
+        sh = train_shardings(cfg, mesh, params, opt, batch(0), tc)
+        params, opt = shard_state(params, opt, sh)
+        step = build_sharded_train_step(cfg, tc, sh, ep=ep)
+        out = {"metrics": []}
+        for i in range(steps):
+            params, opt, m = step(params, opt, batch(i))
+            out["metrics"].append({n: float(v) for n, v in m.items()})
+        out["placements"] = {
+            p: (tuple(a.placements), tuple(b.placements)) for (p, a), (_, b)
+            in zip(flatten_with_paths(params), flatten_with_paths(opt.m))}
+        full = gather_state(params)
+        if rank == 0:
+            out["params"] = full
+        outs.append(out)
+    return outs
+
+
+#: the sharded-step tests' optimizer and dtypes
+STEP_TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+
+
+def one_rank_steps(arch, over, B, S, steps):
+    """The port's one-rank steps of ``sharded_steps_rank``'s runs, from
+    the same params and batches: the metrics of each step and the final
+    params."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as tm
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_train_step
+    cfg = get_config(arch, smoke=True).replace(**F32, **over)
+    tc = TrainConfig(**STEP_TC)
+    p = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    o = optim.init_opt_state(p, tc)
+    step = build_train_step(cfg, tc)
+    ms = []
+    for i in range(steps):
+        b = {n: torch.from_numpy(v) for n, v in make_batch(
+            cfg, ShapeConfig("t", "train", S, B), DataConfig(), i).items()}
+        p, o, m = step(p, o, b)
+        ms.append({n: float(v) for n, v in m.items()})
+    return ms, p
+
+
+def cli_rank(rank, argvs):
+    """``repro_torch.launch.train.main(argv)`` for each of ``argvs`` on
+    the ranks' process group: each run's losses and the calls of
+    ``moe_ffn_ep`` it made."""
+    from repro_torch.launch import train
+    from repro_torch.models.moe_ep import moe_ffn_ep
+    out = []
+    for argv in argvs:
+        before = moe_ffn_ep.calls
+        res = train.main(argv)
+        out.append({"losses": res["losses"], "start": res["start"],
+                    "ep_calls": moe_ffn_ep.calls - before,
+                    "layers": res["cfg"].num_layers})
+    return out
+
+
+def smoke_rank(rank, moe_inp, k, pipe_inp, ckpt_dir, runs, B, S, steps):
+    """The checks of ``chip_smoke.py``'s phase 26 in one spawn: the
+    expert-parallel MoE at factor 32 without the aux term, the pipeline,
+    the sharded steps of ``runs`` and the elastic restore."""
+    return {"moe_ep": moe_ep_rank(rank, moe_inp, k,
+                                  [(32.0, False), (32.0, True)], 0.0),
+            "pipeline": pipeline_rank(rank, pipe_inp),
+            "steps": sharded_steps_rank(rank, runs, B, S, steps),
+            "restore": restore_rank(rank, ckpt_dir)}

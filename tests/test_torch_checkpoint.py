@@ -168,3 +168,45 @@ def test_restore_resume_matches_uninterrupted_training(tmp_path):
     pr, _ = run(restored["params"], opt_r, step, 6)
     for a, b in zip(tree_leaves(pu), tree_leaves(pr)):
         assert torch.equal(a, b)
+
+
+def test_elastic_restore_onto_a_2x2_mesh(tmp_path):
+    """A checkpoint saved without a mesh resumes onto a (2, 2) (data,
+    model) mesh of 4 gloo ranks (``restore(..., shardings=)``): a tree of
+    shardings and one sharding for every leaf; each rank holds its slice
+    of every leaf as a DTensor at the spec's placements, whose whole
+    value is the saved one (bf16 bit for bit)."""
+    import sys
+    from torch.distributed.tensor import Replicate, Shard
+    sys.path.insert(0, os.path.dirname(__file__))
+    import scaleout_ranks
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "b": torch.ones(8),
+            "h": torch.randn(4, 6, generator=torch.Generator().manual_seed(
+                1)).to(torch.bfloat16)}
+    save(str(tmp_path / "ckpt"), 1, tree)
+    ranks = scaleout_ranks.spawn("restore_rank", tmp_path,
+                                 str(tmp_path / "ckpt"))
+    R = Replicate()
+    assert sorted(tuple(r["coord"]) for r in ranks) == [(0, 0), (0, 1),
+                                                        (1, 0), (1, 1)]
+    for r in ranks:
+        di, mi = r["coord"]
+        assert r["step"] == 1
+        got = r["tree"]
+        assert got["w"][1] == (R, Shard(1))
+        assert torch.equal(got["w"][0], tree["w"][:, 4 * mi:4 * mi + 4])
+        assert got["b"][1] == (R, R) and torch.equal(got["b"][0], tree["b"])
+        assert got["h"][1] == (Shard(0), Shard(1))
+        assert torch.equal(got["h"][0].view(torch.int16), tree["h"][
+            2 * di:2 * di + 2, 3 * mi:3 * mi + 3].view(torch.int16))
+        for name, leaf in tree.items():
+            assert torch.equal(got[name][2].view(torch.int16)
+                               if leaf.dtype == torch.bfloat16
+                               else got[name][2],
+                               leaf.view(torch.int16)
+                               if leaf.dtype == torch.bfloat16 else leaf)
+        one = r["one"]
+        assert all(v[1] == (Shard(0), R) for v in one.values())
+        assert torch.equal(one["w"][0], tree["w"][4 * di:4 * di + 4])
+        assert torch.equal(one["b"][0], tree["b"][4 * di:4 * di + 4])

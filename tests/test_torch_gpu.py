@@ -753,3 +753,139 @@ def test_train_grads_on_card_match_the_cpu(arch):
     for (path, g), (_, c) in zip(out["cuda"][1], out["cpu"][1]):
         scale = max(float(c.abs().max()), 1e-30)
         assert float((g - c).abs().max()) <= 1e-4 * scale, path
+
+
+# --- scale-out on the card: one NCCL rank -----------------------------------
+
+@pytest.fixture
+def nccl_mesh():
+    """A (1, 1) (data, model) mesh of one NCCL rank on card 0, torn down
+    after the test."""
+    _cuda_or_skip()
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_debug_mesh((1, 1), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp", [False, True], ids=["ep", "ep-tp-dispatch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_ep_on_one_nccl_rank_equals_moe_ffn(nccl_mesh, dtype, tp):
+    """At D = M = 1 the capacity per source shard is the global one and
+    every collective runs over one rank: ``moe_ffn_ep`` at
+    qwen3-moe-30b-a3b's widths (d 2048, 128 experts, f 768, k 8; 1,024
+    tokens, factor 1.25, so some drop) gives ``moe_ffn``'s output, aux
+    and gradients, at the repo's tolerances (TF32 off)."""
+    from repro_torch.models import moe_ep
+    from repro_torch.models.moe import moe_ffn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    N, d, E, f, k = 1024, 2048, 128, 768, 8
+    shapes = [(N, d), (d, E), (E, d, f), (E, d, f), (E, f, d)]
+    base = [(torch.randn(s, generator=g, device="cuda")
+             * (1.0 if i == 0 else 0.02)).to(dtype)
+            for i, s in enumerate(shapes)]
+    base[1] = base[1].float()               # the router is fp32
+    cot = torch.randn(N, d, generator=g, device="cuda").to(dtype)
+    outs = []
+    for ep in (False, True):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        kw = dict(k=k, capacity_factor=1.25, with_aux=True)
+        calls = moe_ep.moe_ffn_ep.calls
+        if ep:
+            with moe_ep.ep_mesh_context(nccl_mesh, tp_dispatch=tp):
+                o = moe_ep.moe_ffn_ep(*ins, **kw)
+            assert moe_ep.moe_ffn_ep.calls == calls + 1
+        else:
+            o = moe_ffn(*ins, **kw)
+        torch.autograd.backward([o.y, o.aux_loss],
+                                [cot, torch.ones((), device="cuda")])
+        outs.append((o, [t.grad for t in ins]))
+    (ref, ref_g), (got, got_g) = outs
+    tol = TOL[dtype]
+    assert float(ref.fraction_dropped) > 0
+    assert float(got.fraction_dropped) == float(ref.fraction_dropped)
+    torch.testing.assert_close(got.y, ref.y, atol=tol, rtol=tol)
+    torch.testing.assert_close(got.aux_loss, ref.aux_loss, atol=1e-6,
+                               rtol=1e-6)
+    for a, b in zip(got_g, ref_g):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a - b).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_sharded_step_on_one_nccl_rank_equals_the_one_rank_step(nccl_mesh):
+    """The sharded step on a (1, 1) NCCL mesh (DTensor state, the
+    gradient all-reduce and the ZeRO-1 slices over one rank) gives the
+    plain step's loss and parameters: the MoE smoke in f32 under expert
+    parallelism, two steps."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.sharding import train_shardings
+    from repro_torch.models import model as tm
+    from repro_torch.train import optim
+    from repro_torch.train.sharded import (build_sharded_train_step,
+                                           gather_state, shard_state)
+    from repro_torch.train.step import build_train_step
+    from repro_torch.utils.tree import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True).replace(
+        param_dtype="float32", compute_dtype="float32")
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+    batches = [{n: torch.from_numpy(v).cuda() for n, v in make_batch(
+        cfg, ShapeConfig("t", "train", 32, 4), DataConfig(), i).items()}
+        for i in range(2)]
+    p = tm.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    o = optim.init_opt_state(p, tc)
+    sh = train_shardings(cfg, nccl_mesh, p, o, batches[0], tc)
+    dp, do = shard_state(p, o, sh)
+    step = build_sharded_train_step(cfg, tc, sh, ep=True)
+    plain = build_train_step(cfg, tc)
+    for b in batches:
+        p, o, m = plain(p, o, b)
+        dp, do, dm = step(dp, do, b)
+        assert abs(float(dm["total_loss"]) - float(m["total_loss"])) <= 1e-5
+    for a, b in zip(tree_leaves(gather_state(dp)), tree_leaves(p)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_cli_sets_up_and_tears_down_its_nccl_rank(tmp_path):
+    """``--mesh 1x1 --ep-moe`` with no process group: the driver sets up
+    one NCCL rank (never gloo), trains on the card, gives the losses of
+    the run without a mesh and tears the group down."""
+    _cuda_or_skip()
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cuda",
+            "--steps", "3", "--batch", "4", "--seq", "32", "--ckpt-every",
+            "100", "--ckpt-dir", str(tmp_path)]
+    seen = {}
+    real = train._train
+
+    def spy(args_, dev, mesh):
+        seen["backend"] = dist.get_backend()
+        seen["device"] = mesh.device_type
+        return real(args_, dev, mesh)
+    train._train = spy
+    try:
+        meshed = train.main(args + ["--mesh", "1x1", "--ep-moe"])
+    finally:
+        train._train = real
+    assert seen == {"backend": "nccl", "device": "cuda"}
+    assert not dist.is_initialized()
+    plain = train.main(args)
+    np.testing.assert_allclose(meshed["losses"], plain["losses"],
+                               atol=1e-5, rtol=0)

@@ -1,11 +1,13 @@
 """The port's training driver (``repro_torch.launch.train``) on the CPU
 at smoke size: it lowers the loss over 30 steps of the synthetic stream;
 SIGTERM checkpoints the next step and stops, and ``--resume`` continues
-from there to the same parameters as an uninterrupted run; the scale-out
-flags and a missing card raise (no quiet fall-back)."""
+from there to the same parameters as an uninterrupted run; ``--mesh``
+and ``--ep-moe`` run on 4 gloo ranks; a missing card raises (no quiet
+fall-back)."""
 import os
 import signal
 
+import numpy as np
 import pytest
 import torch
 
@@ -64,23 +66,92 @@ def test_sigterm_checkpoints_and_resume_continues(tmp_path, monkeypatch,
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("flag,match", [(["--mesh", "2x4"], "--mesh 2x4"),
-                                        (["--ep-moe"], "--ep-moe")])
-def test_scale_out_flags_raise(flag, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"{match} comes with the "
-                                                  f"scale-out slice"):
-        train.main(SMOKE + ["--steps", "1", "--ckpt-dir", str(tmp_path)]
-                   + flag)
+MOE = ["--arch", "qwen3-moe-30b-a3b"] + SMOKE[2:]
 
 
-def test_the_default_device_is_the_card(tmp_path):
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """The CLI on a (2, 2) mesh of 4 spawned gloo ranks (one spawn for
+    every case) beside the runs without a mesh: qwen3 for 4 steps, qwen3
+    resuming onto the mesh from a checkpoint of step 2 written without
+    one (a run stopped by SIGTERM), the MoE for 3 steps with and without
+    ``--ep-moe``."""
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import scaleout_ranks
+    tmp = tmp_path_factory.mktemp("mesh_cli")
+    args = SMOKE + ["--steps", "4", "--ckpt-every", "100"]
+    whole = train.main(args + ["--ckpt-dir", str(tmp / "whole")])
+    with pytest.MonkeyPatch.context() as m:
+        _signal_at(m, 1)
+        train.main(args + ["--ckpt-dir", str(tmp / "stopped")])
+    assert latest_step(str(tmp / "stopped")) == 2
+    moe = MOE + ["--steps", "3", "--ckpt-every", "100", "--mesh", "2x2"]
+    ranks = scaleout_ranks.spawn("cli_rank", tmp, [
+        args + ["--mesh", "2x2", "--ckpt-dir", str(tmp / "mesh")],
+        args + ["--mesh", "2x2", "--resume", "--ckpt-dir",
+                str(tmp / "stopped")],
+        moe + ["--ckpt-dir", str(tmp / "moe")],
+        moe + ["--ep-moe", "--ckpt-dir", str(tmp / "moe_ep")]])
+    for r in ranks:                     # every rank reports the same
+        assert [x["losses"] for x in r] == [x["losses"]
+                                            for x in ranks[0]]
+    return whole["losses"], ranks[0]
+
+
+@pytest.mark.parametrize("case", ["mesh 2x2", "resume onto the mesh",
+                                  "ep-moe"])
+def test_scale_out_flags_run(mesh_runs, case):
+    """``--mesh 2x2`` gives the losses of the run without a mesh (within
+    1e-4, the sharded step's bound); ``--resume`` onto the mesh from a
+    checkpoint written without one continues them; ``--ep-moe`` runs
+    ``moe_ffn_ep`` in every MoE layer of every step (twice under remat)
+    and gives the losses of the mesh run without it (both route each data
+    shard's tokens on their own)."""
+    whole, runs = mesh_runs
+    if case == "mesh 2x2":
+        np.testing.assert_allclose(runs[0]["losses"], whole, atol=1e-4,
+                                   rtol=0)
+        assert runs[0]["ep_calls"] == 0
+    elif case == "resume onto the mesh":
+        assert runs[1]["start"] == 2
+        np.testing.assert_allclose(runs[1]["losses"], whole[2:], atol=1e-4,
+                                   rtol=0)
+    else:
+        plain, ep = runs[2], runs[3]
+        assert plain["ep_calls"] == 0
+        assert ep["ep_calls"] == 3 * 2 * ep["layers"]
+        np.testing.assert_allclose(ep["losses"], plain["losses"],
+                                   atol=1e-5, rtol=0)
+
+
+def test_a_mesh_larger_than_the_process_group_raises(tmp_path):
+    """Without torchrun's environment the driver sets up one gloo rank of
+    its own, which cannot hold a 2x2 mesh: it raises and tears the group
+    down."""
+    with pytest.raises(ValueError, match="--mesh 2x2 needs 4 ranks"):
+        train.main(SMOKE + ["--steps", "1", "--ckpt-dir", str(tmp_path),
+                            "--mesh", "2x2"])
+    assert not torch.distributed.is_initialized()
+
+
+def test_ep_moe_needs_a_mesh(tmp_path):
+    with pytest.raises(ValueError, match="--ep-moe runs on a mesh"):
+        train.main(MOE + ["--steps", "1", "--ckpt-dir", str(tmp_path),
+                          "--ep-moe"])
+
+
+@pytest.mark.parametrize("mesh", [[], ["--mesh", "1x1"]], ids=["none", "1x1"])
+def test_the_default_device_is_the_card(tmp_path, mesh):
     """Without ``--device`` the driver trains on the card, and without a
-    card it raises rather than fall back to the CPU."""
+    card it raises rather than fall back to the CPU (or to gloo)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default would train on it")
     args = [a for a in SMOKE if a not in ("--device", "cpu")]
     with pytest.raises(RuntimeError, match="--device cuda needs a CUDA"):
-        train.main(args + ["--steps", "1", "--ckpt-dir", str(tmp_path)])
+        train.main(args + ["--steps", "1", "--ckpt-dir", str(tmp_path)]
+                   + mesh)
+    assert not torch.distributed.is_initialized()
 
 
 #: the norm ops of the model, by name in ``kernels/rmsnorm/ops.py`` (on
