@@ -157,10 +157,12 @@ and any failure exits non-zero:
     CPU as a (2, 2) mesh (``tests/scaleout_ranks.py``, no JAX) run
     ``moe_ffn_ep`` against ``moe_ffn`` at factor 32 with ``tp_dispatch``
     off and on (outputs and the gradients of x and all four weights),
-    ``pipeline_apply`` against sequential application, the sharded train
-    step against the one-rank step (the dense smoke, and the MoE smoke
-    under expert parallelism) and ``restore(..., shardings=)`` onto the
-    mesh (``SCALEOUT_TOL``);
+    ``pipeline_apply`` and its gradients against sequential application,
+    the sharded train step against the one-rank step (the dense smoke,
+    the MoE smoke under expert parallelism, and the dense smoke
+    accumulated over 2 microbatches of a loss mask that counts different
+    tokens in each) and ``restore(..., shardings=)`` onto the mesh
+    (``SCALEOUT_TOL``);
 27. training on a one-rank NCCL mesh: ``repro_torch.launch.train.main``
     with ``--mesh 1x1 --ep-moe`` trains full-width qwen3-moe-30b-a3b (2
     of its 48 layers, 128 experts, k 8, bf16 params, fp32 moments) for 6
@@ -169,9 +171,25 @@ and any failure exits non-zero:
     (twice under remat) with two forward all-to-alls each, each RMSNorm
     kernel exactly its count; step time, peak memory and a profiled step
     (idle share, the NCCL kernels' share), each beside the card's name
-    and power limit.
+    and power limit;
+28. the feature probe: ``repro_torch.core.features.extract_features``
+    (the port's step run once on fake tensors by
+    ``utils/step_analyzer.py``) of the train and the serve step of
+    full-width qwen3-0.6b, qwen3-moe-30b-a3b, mamba2-780m and gemma2-27b
+    at 2 x 64 tokens: 22 finite values each, no kernel launched and no
+    device memory allocated, each vector's FLOPs, bytes and peak
+    temporaries with its seconds; then the memory model against the
+    card: the probe's argument + peak temporary + output bytes of
+    full-width qwen3-0.6b (bf16) training at 8 x 1,024 and decoding at
+    batch 8 against a 161-slot cache, beside ``max_memory_allocated`` of
+    one real step of each on the card (the argument bytes must be the
+    bytes the inputs hold, and what the allocator gave them no more than
+    its blocks' slack), and each real step's time beside the probe's roofline
+    ``max(compute_s, memory_s)``, with the card's name and power limit;
+    the real steps launch exactly their RMSNorm and dense-decode counts.
 
-Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24 and 27) runs an
+Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24, 27 and 28's
+real steps) runs an
 RMSNorm kernel for every norm (the fused ones wherever a neighbour is
 absorbed), and each runs with every kernel's launch count set to 0 just
 before it and read
@@ -2600,15 +2618,19 @@ def phase_family_train() -> list:
 
 # --- phases 26 and 27: scale-out -------------------------------------------
 
-#: phase 26: the sharded steps (arch, expert-parallel, config overrides),
-#: each 2 steps of 4 x 16 tokens at smoke size in f32: the dense model,
-#: and the MoE under expert parallelism at a capacity where nothing drops
-#: without the aux term (whose mean over shards is not the global
-#: batch's: tests/test_torch_sharded_train.py holds it to JAX's sharded
-#: step), each against the one-rank step within SCALEOUT_TOL
+#: phase 26: the sharded steps (arch, expert-parallel, config overrides[,
+#: options]), each 2 steps of 4 x 16 tokens at smoke size in f32: the
+#: dense model, the MoE under expert parallelism at a capacity where
+#: nothing drops without the aux term (whose mean over shards is not the
+#: global batch's: tests/test_torch_sharded_train.py holds it to JAX's
+#: sharded step), and the dense model accumulated over 2 microbatches of
+#: batches whose rows count different tokens, each against the one-rank
+#: step within SCALEOUT_TOL
 SCALEOUT_RUNS = [("qwen3-0.6b", False, {}),
                  ("qwen3-moe-30b-a3b", True,
-                  {"capacity_factor": 4.0, "router_aux_weight": 0.0})]
+                  {"capacity_factor": 4.0, "router_aux_weight": 0.0}),
+                 ("qwen3-0.6b", False, {},
+                  {"microbatch": 2, "masked": True})]
 #: phase 26's bounds, f32: the expert-parallel MoE's output (its
 #: gradients 10x), the pipeline's output, the sharded steps' losses and
 #: parameters (tests/test_distributed.py's bounds)
@@ -2664,7 +2686,8 @@ def phase_scaleout_ranks() -> None:
     np.savez(tmp / "moe.npz", **z)
     pz = {"W": rng.normal(0, 0.3, (4, 16, 16)),
           "b": rng.normal(0, 0.1, (4, 16)),
-          "x": rng.normal(0, 1, (6, 2, 16))}
+          "x": rng.normal(0, 1, (6, 2, 16)),
+          "r": rng.normal(0, 1, (6, 2, 16))}
     pz = {n: a.astype(np.float32) for n, a in pz.items()}
     np.savez(tmp / "pipe.npz", **pz)
     saved = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
@@ -2696,22 +2719,34 @@ def phase_scaleout_ranks() -> None:
                 moe_g = max(moe_g, _check(f"moe_ffn_ep {case} grad {n}",
                                           _max_err(o[n], g),
                                           SCALEOUT_TOL["moe_grad"]))
-    # the pipeline against sequential application
-    pipe = 0.0
+    # the pipeline and its gradients against sequential application
+    pipe = pipe_g = 0.0
     for stages in (2, 4):
-        ref = torch.from_numpy(pz["x"])
+        seq = {n: torch.from_numpy(pz[n][:stages] if n != "x" else pz[n])
+               .requires_grad_(True) for n in ("W", "b", "x")}
+        ref = seq["x"]
         for st in range(stages):
-            ref = torch.tanh(ref @ torch.from_numpy(pz["W"][st])
-                             + torch.from_numpy(pz["b"][st]))
+            ref = torch.tanh(ref @ seq["W"][st] + seq["b"][st])
+        torch.sum(ref * torch.from_numpy(pz["r"])).backward()
         for r in ranks:
+            st = r["pipeline"][f"stage{stages}"]
             for held in ("", "_dtensor"):
-                pipe = max(pipe, _check(f"pipeline {stages}{held}", _max_err(
-                    r["pipeline"][f"pipe{stages}{held}"], ref),
+                key = f"pipe{stages}{held}"
+                pipe = max(pipe, _check(f"pipeline {key}", _max_err(
+                    r["pipeline"][key], ref.detach()),
                     SCALEOUT_TOL["pipeline"]))
+                for n, want in (("W", seq["W"].grad[st]),
+                                ("b", seq["b"].grad[st]),
+                                ("x", seq["x"].grad)):
+                    pipe_g = max(pipe_g, _check(
+                        f"pipeline {key} grad {n}",
+                        _max_err(r["pipeline"][f"{key}_g{n}"], want),
+                        SCALEOUT_TOL["pipeline"]))
     # the sharded steps against the one-rank step
     lines = []
-    for i, (arch, ep, over) in enumerate(SCALEOUT_RUNS):
-        ms, params = scaleout_ranks.one_rank_steps(arch, over, B, S, steps)
+    for i, (arch, ep, over, *opts) in enumerate(SCALEOUT_RUNS):
+        ms, params = scaleout_ranks.one_rank_steps(arch, over, B, S, steps,
+                                                   dict(*opts))
         got = ranks[0]["steps"][i]
         loss = max(abs(a["total_loss"] - b["total_loss"])
                    for a, b in zip(got["metrics"], ms))
@@ -2723,7 +2758,8 @@ def phase_scaleout_ranks() -> None:
             if r["steps"][i]["metrics"] != got["metrics"]:
                 raise AssertionError(f"phase 26 {arch}: the ranks' metrics "
                                      f"differ")
-        lines.append(f"{arch}{' --ep-moe' if ep else ''} loss |d| "
+        lines.append(f"{arch}{' --ep-moe' if ep else ''}"
+                     f"{' ' + str(dict(*opts)) if opts else ''} loss |d| "
                      f"{loss:.3g}, params {perr:.3g}")
     # the elastic restore: every rank's slices, and the whole leaves
     for r in ranks:
@@ -2746,7 +2782,8 @@ def phase_scaleout_ranks() -> None:
           f"factor 32, tp_dispatch off and on, y max err {moe_y:.3g} (<= "
           f"{SCALEOUT_TOL['moe_y']}), grads {moe_g:.3g} (<= "
           f"{SCALEOUT_TOL['moe_grad']}); pipeline_apply vs sequential "
-          f"(2 and 4 stages) {pipe:.3g}; sharded steps vs one rank, "
+          f"(2 and 4 stages) {pipe:.3g}, its gradients (stage W, b and x) "
+          f"{pipe_g:.3g}; sharded steps vs one rank, "
           f"{steps} steps of {B} x {S}: " + "; ".join(lines)
           + f"; restore onto the mesh: 4 ranks' slices exact; ranks "
           f"{t_ranks:.1f}s")
@@ -2857,6 +2894,161 @@ def _ep_train() -> dict:
     return counts
 
 
+# --- phase 28: the feature probe -------------------------------------------
+
+#: the archs phase 28 probes at full width (a dense, an MoE, an SSM and a
+#: local/global model), each for the train and the serve step
+PROBE_ARCHS = ["qwen3-0.6b", MOE, "mamba2-780m", GEMMA2]
+#: the memory model's steps of full-width qwen3-0.6b: (kind, seq, batch):
+#: phase 17's train shape, and a decode at batch 8 against the 161-slot
+#: cache of the dense serving paths; real steps timed per kind
+MEMORY_STEPS = [("train", 1024, 8), ("decode", 161, 8)]
+MEMORY_STEP_RUNS = 3
+
+
+def _allocator_slack(tensors) -> int:
+    """The most bytes the caching allocator may hold for ``tensors``
+    beyond their own: each rounded up to a 512-byte block, and a block
+    from the large pool (above 1 MiB) kept whole when what would be left
+    after splitting it is at most 1 MiB."""
+    return sum(511 + (2**20 if t.numel() * t.element_size() > 2**20 else 0)
+               for t in tensors)
+
+
+def phase_feature_probe() -> list:
+    """The feature probe on full-width models, then the memory model and
+    the roofline against real steps on the card.  Returns the real
+    steps' launch counts (train, then decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.features import (features_from_record,
+                                           probe_record)
+    card = card_line()
+    fns = launchers()
+    before = {n: f.launches for n, f in fns.items()}
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    for arch in PROBE_ARCHS:
+        cfg = get_config(arch)
+        for kind in ("train", "decode"):
+            t0 = time.perf_counter()
+            rec = probe_record(cfg, kind)
+            sec = time.perf_counter() - t0
+            f = features_from_record(rec)
+            if f.shape != (22,) or not np.all(np.isfinite(f)):
+                raise AssertionError(f"phase 28 {arch} {kind}: {f}")
+            c = rec["step_cost"]
+            print(f"phase 28 probe {arch} {kind} (full width, 2 x 64, "
+                  f"torch {torch.__version__}): {c.flops:.6g} FLOPs, "
+                  f"{c.hbm_bytes:.6g} bytes, peak temporaries "
+                  f"{c.peak_temp_bytes / 2**30:.3f} GiB, arguments "
+                  f"{c.argument_bytes / 2**30:.3f} GiB, {c.op_count} ops, "
+                  f"loops {[lp['trip'] for lp in c.loops]}; {sec:.1f}s")
+    after = {n: f.launches for n, f in fns.items()}
+    torch.cuda.synchronize()
+    if after != before or torch.cuda.memory_allocated() != mem0:
+        raise AssertionError(f"phase 28: the probes launched {after} "
+                             f"(before {before}) or allocated "
+                             f"{torch.cuda.memory_allocated() - mem0} B")
+    counts = [_memory_step(kind, seq, batch, card)
+              for kind, seq, batch in MEMORY_STEPS]
+    print(f"phase 28: {len(PROBE_ARCHS) * 2} probes, no kernel launched, "
+          f"device memory unchanged [{card}]")
+    return counts
+
+
+def _memory_step(kind: str, seq: int, batch: int, card: str) -> dict:
+    """Full-width qwen3-0.6b (bf16): the probe's record of the ``kind``
+    step at ``batch`` x ``seq``, then the same step on the card from
+    ``concrete_inputs``, its peak memory and time beside the record's;
+    returns its launch counts."""
+    from repro_torch.configs import concrete_inputs, get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.features import probe_record
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optim
+    from repro_torch.train.step import build_serve_step, build_train_step
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config("qwen3-0.6b")
+    t0 = time.perf_counter()
+    rec = probe_record(cfg, kind, seq, batch)
+    probe_s = time.perf_counter() - t0
+    c, rl = rec["step_cost"], rec["roofline"]
+    predicted = c.argument_bytes + c.peak_temp_bytes + c.output_bytes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = model_lib.init(cfg, torch.Generator().manual_seed(0), DEVICE)
+    inputs = concrete_inputs(cfg, ShapeConfig("probe", kind, seq, batch),
+                             device=DEVICE)
+    if kind == "train":
+        tc = TrainConfig()
+        args = [params, optim.init_opt_state(params, tc), inputs]
+        step = build_train_step(cfg, tc)
+        want = train_norm_launches(cfg, 1)
+    else:
+        args = [params, inputs["token"], inputs["cache"]]
+        step = build_serve_step(cfg)
+        want = {"decode_attention_fwd": cfg.num_layers,
+                **norm_launches("qwen3-0.6b", 0, 1)}
+    torch.cuda.synchronize()
+    arg_alloc = torch.cuda.memory_allocated() - base
+    leaves = [t for a in args for t in tree_leaves(a)]
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    if arg_bytes != c.argument_bytes or not (
+            0 <= arg_alloc - arg_bytes <= _allocator_slack(leaves)):
+        raise AssertionError(
+            f"phase 28 {kind}: the probe's argument bytes "
+            f"{c.argument_bytes}, the inputs' {arg_bytes}, allocated "
+            f"{arg_alloc} (at most {_allocator_slack(leaves)} more)")
+    fns = launchers()
+    for f in fns.values():
+        f.launches = 0
+    peaks, secs = [], []
+    for i in range(MEMORY_STEP_RUNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del out
+    counts = {name: f.launches for name, f in fns.items()}
+    full = {name: want.get(name, 0) * MEMORY_STEP_RUNS for name in counts}
+    if counts != full:
+        raise AssertionError(f"phase 28 {kind} step: launches {counts}; "
+                             f"want {full}")
+    del args, params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first run builds the kernels and warms cuBLAS: the last runs'
+    peak, sec = max(peaks[1:]), min(secs[1:])
+    bound = max(rl["compute_s"], rl["memory_s"])
+    G = 2**30
+    print(f"phase 28 memory model, qwen3-0.6b full (bf16) {kind} at "
+          f"{batch} x {seq} [{card}]: probe (torch {torch.__version__}, "
+          f"{probe_s:.1f}s) arguments {c.argument_bytes / G:.3f} + peak "
+          f"temporaries {c.peak_temp_bytes / G:.3f} + outputs "
+          f"{c.output_bytes / G:.3f} = {predicted / G:.3f} GiB; the card's "
+          f"max_memory_allocated over a step {peak / G:.3f} GiB (runs "
+          + ", ".join(f"{p / G:.3f}" for p in peaks)
+          + f"), measured / predicted {peak / predicted:.3f}; the "
+          f"inputs hold the probe's {arg_bytes} argument bytes exactly "
+          f"(the allocator {arg_alloc}: {arg_alloc - arg_bytes} of "
+          f"blocks' slack); step {1e3 * sec:.2f} ms (host "
+          f"clock after synchronize, runs "
+          + ", ".join(f"{1e3 * x:.2f}" for x in secs)
+          + f") beside the probe's roofline max(compute "
+          f"{1e3 * rl['compute_s']:.3f}, memory {1e3 * rl['memory_s']:.3f}"
+          f") = {1e3 * bound:.3f} ms, ratio {sec / bound:.2f}; "
+          f"{c.flops:.6g} FLOPs, {c.hbm_bytes:.6g} eager bytes; launches "
+          f"{ {k: v for k, v in counts.items() if v} } = per step "
+          f"{want} x {MEMORY_STEP_RUNS}")
+    return counts
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -2955,9 +3147,11 @@ def main() -> None:
     done(26)
     paths.append(phase_ep_train())
     done(27)
+    paths.extend(phase_feature_probe())
+    done(28)
     # launches on the main paths: each path's own run, summed over the
-    # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, and the training
-    # paths, 17, 24 and 27's mesh run)
+    # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, the training paths,
+    # 17, 24 and 27's mesh run, and 28's real steps)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")

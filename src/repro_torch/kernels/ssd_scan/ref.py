@@ -4,11 +4,15 @@ oracle ``kernels/ssd_scan/ref.py``): the same padding of S to the chunk,
 cumsum, tril mask, ``exp(seg)`` under the mask and sequential
 inter-chunk recurrence, all in fp32.  The mask is applied to the
 exponent (the same values), so that the gradient, which the train mode
-takes through this version, stays finite at full-size chunks."""
+takes through this version, stays finite at full-size chunks.  The
+recurrence declares itself to ``utils/step_analyzer.py`` (JAX's
+``lax.scan`` over chunks is a loop of the compiled program)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils.step_analyzer import note_loop
 
 
 def ssd_scan_ref(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
@@ -61,6 +65,7 @@ def ssd_scan_ref(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
     s = (torch.zeros((B, H, P, N), dtype=torch.float32, device=xb.device)
          if initial_state is None else initial_state.float())
     prev = []
+    note_loop("ssd_chunks", nc)
     for c in range(nc):
         prev.append(s)
         s = s * torch.exp(a_last[:, c])[:, :, None, None] + states[:, c]

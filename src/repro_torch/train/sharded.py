@@ -14,7 +14,13 @@ takes its rows of the global batch by ``batch_specs``.  One step:
 2. computes the loss and its gradients on the rank's batch shard, the
    CE weighted by the shard's share of the global batch's counted tokens
    (``lm_loss`` divides by the tokens it counts), not a plain mean of
-   the shards' means;
+   the shards' means.  With ``tc.microbatch`` set, as the JAX step's
+   reshape to ``(n, microbatch)``: microbatch j is the global rows
+   ``[j mb, (j + 1) mb)``, each data rank takes an equal share of them
+   (a ``ValueError`` where mb does not split evenly), each microbatch's
+   CE is the token-weighted mean over its own tokens on all data ranks,
+   the fp32 gradients are summed over the n microbatches and divided
+   by n, and the metrics are the microbatches' mean;
 3. sums the dense leaves' gradients over the batch's axes, which gives
    the gradient of the global batch's loss (the expert shards' and the
    router's come out of ``moe_ffn_ep``'s backward already summed over
@@ -109,7 +115,8 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
     train_shardings``), every rank passing the same global batch.  ``ep``:
     the MoE layers run ``moe_ffn_ep`` on the mesh.  The metrics are the
     global batch's (``ce_loss``, ``tokens``, ``aux_loss``,
-    ``total_loss``) with ``grad_norm`` and ``lr``."""
+    ``total_loss``; with ``tc.microbatch`` the microbatches' means) with
+    ``grad_norm`` and ``lr``."""
     mesh = shardings["metrics"].mesh
     names = mesh.mesh_dim_names
     loss_fn = build_loss_fn(cfg)
@@ -145,11 +152,11 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
             return ep_mesh_context(mesh, extra_batch_axes=extra)
     w = cfg.router_aux_weight
 
-    def step(params, opt_state, batch):
-        flat = flatten_with_paths(params)
-        compute = [p.to_local() if path in local else p.full_tensor()
-                   for path, p in flat]
-        lb = {k: local_block(v, bshard[k]) for k, v in batch.items()}
+    def micro_grads(params, compute, mb):
+        """The loss and gradients of the global rows ``mb``: this rank's
+        block of them, its CE weighted by its share of their counted
+        tokens over the data ranks."""
+        lb = {k: local_block(v, bshard[k]) for k, v in mb.items()}
         mask = lb.get("loss_mask")
         cnt = (mask.float().sum() if mask is not None else torch.tensor(
             float(lb["labels"].numel()), device=lb["labels"].device))
@@ -165,9 +172,43 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
         with ctx():
             (_, m), grads = value_and_grad(shard_loss, tree_unflatten(
                 params, compute), lb)
+        ce = _sum_over(m["ce_share"].clone(), dgroups)
+        aux = m["aux_loss"] if ep else _sum_over(m["aux_share"].clone(),
+                                                 dgroups)
+        metrics = {"ce_loss": ce, "tokens": tokens, "aux_loss": aux,
+                   "total_loss": ce + w * aux}
+        return [g for _, g in flatten_with_paths(grads)], metrics
+
+    def step(params, opt_state, batch):
+        B, mbs = batch["tokens"].shape[0], tc.microbatch
+        if mbs and (B % mbs or mbs % n_data):
+            raise ValueError(
+                f"microbatch {mbs} must divide the global batch {B} and "
+                f"split evenly over the {n_data} data ranks")
+        flat = flatten_with_paths(params)
+        compute = [p.to_local() if path in local else p.full_tensor()
+                   for path, p in flat]
+        if mbs:
+            # JAX's reshape to (n, mb): microbatch j is the global rows
+            # [j mb, (j + 1) mb), each data rank taking an equal share
+            n = B // mbs
+            grads, ms = None, []
+            for j in range(n):
+                g, m = micro_grads(params, compute, {
+                    k: v[j * mbs:(j + 1) * mbs] for k, v in batch.items()})
+                grads = ([x.float() for x in g] if grads is None else
+                         [a.add_(b.float()) for a, b in zip(grads, g)])
+                ms.append(m)
+            m = {k: torch.mean(torch.stack([x[k] for x in ms]), dim=0)
+                 for k in ms[0]}
+        else:
+            grads, m = micro_grads(params, compute, batch)
+            n = 1
         paths = [path for path, _ in flat]
         grads = [g if path in reduced else _sum_over(g, dgroups)
-                 for path, (_, g) in zip(paths, flatten_with_paths(grads))]
+                 for path, g in zip(paths, grads)]
+        if n > 1:
+            grads = [g / n for g in grads]
         sq = [torch.sum(torch.square(g.float())) for g in grads]
         sq = [_sum_over(s, everywhere) if path in local else s
               for path, s in zip(paths, sq)]
@@ -200,11 +241,6 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
             count=DTensor.from_local(new_s.count, mesh,
                                      shardings["opt"].count.placements,
                                      run_check=False))
-        ce = _sum_over(m["ce_share"].clone(), dgroups)
-        aux = m["aux_loss"] if ep else _sum_over(m["aux_share"].clone(),
-                                                 dgroups)
-        metrics = {"ce_loss": ce, "tokens": tokens, "aux_loss": aux,
-                   "total_loss": ce + w * aux, **om}
-        return params, opt_state, metrics
+        return params, opt_state, dict(m, **om)
 
     return step

@@ -4,7 +4,7 @@ Function factories that close over the static configs, as in the JAX
 package's ``train/step.py``; PyTorch runs them eagerly (no ``jit``).
 Gradients come from ``torch.autograd.grad`` over the parameter tree's
 leaves (``value_and_grad``), in the leaves' dtypes, as ``jax.grad`` gives
-them.  The dry-run's ``build_serve_step`` comes with the dry-run slice.
+them.
 """
 from __future__ import annotations
 
@@ -158,3 +158,15 @@ def build_prefill_chunk_step(cfg: ModelConfig) -> Callable:
         return model_lib.prefill_chunk(params, cfg, cache, tokens,
                                        start, chunk_lens, active)
     return prefill_chunk_step
+
+
+def build_serve_step(cfg: ModelConfig) -> Callable:
+    """The dry-run's decode entry: one new token, greedy sample.
+
+    (params, token [B,1], cache) -> (next_token [B,1] int32, cache); the
+    cache is updated in place."""
+    def serve_step(params, token, cache):
+        logits, cache = model_lib.decode_step(params, cfg, cache, token)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        return nxt, cache
+    return serve_step

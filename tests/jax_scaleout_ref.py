@@ -8,7 +8,8 @@ CASE ``moe_ep``: ``moe_ffn_ep`` on a (2, 2) (data, model) mesh for each
 capacity factor and dispatch mode, y, aux, the gradients of
 sum(y * r) + 0.37 * aux, and the assignments each source shard drops;
 ``pipeline``: ``pipeline_apply`` on a (2, 2) (pipe, dp) mesh and a
-(4, 1) one."""
+(4, 1) one, and its gradients; ``sharded_step``: the launcher's sharded
+train step."""
 import sys
 
 import jax
@@ -63,7 +64,7 @@ def moe_ep(z):
 
 def pipeline(z):
     from repro.launch.pipeline import pipeline_apply
-    W, b, x = (jnp.asarray(z[n]) for n in ("W", "b", "x"))
+    W, b, x, r = (jnp.asarray(z[n]) for n in ("W", "b", "x", "r"))
 
     def stage(p, a):
         w, bb = p
@@ -72,17 +73,27 @@ def pipeline(z):
     for shape in ((2, 2), (4, 1)):
         mesh = jax.make_mesh(shape, ("pipe", "dp"))
         S = shape[0]
+
+        def loss(p, xx):
+            y = pipeline_apply(stage, mesh, "pipe", p, xx)
+            return jnp.sum(y * r), y
         with mesh:
-            y = jax.jit(lambda p, xx: pipeline_apply(
-                stage, mesh, "pipe", p, xx))((W[:S], b[:S]), x)
+            (_, y), ((gW, gb), gx) = jax.jit(jax.value_and_grad(
+                loss, argnums=(0, 1), has_aux=True))((W[:S], b[:S]), x)
         out[f"pipe{S}"] = np.asarray(y)
+        out[f"pipe{S}_gW"], out[f"pipe{S}_gb"] = np.asarray(gW), np.asarray(gb)
+        out[f"pipe{S}_gx"] = np.asarray(gx)
     return out
 
 
-def ep_step(z):
+def sharded_step(z):
     """The JAX launcher's sharded step (``train_shardings`` on a (2, 2)
-    mesh under ``ep_mesh_context``) from the port's checkpoint of step 0:
-    the losses and the params after each step."""
+    mesh, under ``ep_mesh_context`` where ``z["ep"]``, with
+    ``z["microbatch"]``) from the port's checkpoint of step 0, on
+    batches with the first 3 r + 1 tokens of row r masked where
+    ``z["masked"]`` (``scaleout_ranks.masked``): the losses and the
+    params after each step."""
+    from contextlib import nullcontext
     from jax.sharding import PartitionSpec as P
     from repro.checkpoint.checkpoint import restore
     from repro.configs import TrainConfig, get_config
@@ -95,9 +106,11 @@ def ep_step(z):
     from repro.train.step import build_train_step
     from repro.utils.tree import flatten_with_paths
     cfg = get_config(str(z["arch"]), smoke=True).replace(
-        param_dtype="float32", compute_dtype="float32",
-        capacity_factor=float(z["capacity_factor"]))
-    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10)
+        param_dtype="float32", compute_dtype="float32")
+    if "capacity_factor" in z:
+        cfg = cfg.replace(capacity_factor=float(z["capacity_factor"]))
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+                     microbatch=int(z["microbatch"]))
     abst = jm.abstract(cfg)
     opt = optim.abstract_opt_state(abst, tc)
     tree, _ = restore(str(z["ckpt"]), {"params": abst, "m": opt.m,
@@ -108,22 +121,29 @@ def ep_step(z):
     # GSPMD's propagation (Auto axes), as the launcher's jit relies on
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    batch = [{k: jnp.asarray(v) for k, v in
-              make_batch(cfg, shape, DataConfig(), i).items()}
-             for i in range(int(z["steps"]))]
+
+    def batch(i):
+        b = make_batch(cfg, shape, DataConfig(), i)
+        if bool(z["masked"]):
+            b["loss_mask"] = b["loss_mask"].copy()
+            for r in range(b["loss_mask"].shape[0]):
+                b["loss_mask"][r, :3 * r + 1] = 0
+        return {k: jnp.asarray(v) for k, v in b.items()}
+    batches = [batch(i) for i in range(int(z["steps"]))]
     ps = shd.param_specs(cfg, abst, mesh, kind="train")
     zs = shd.zero1_opt_specs(ps, abst, mesh)
-    bs = shd.batch_specs(batch[0], mesh)
+    bs = shd.batch_specs(batches[0], mesh)
     opt_spec = optim.OptState(m=zs, v=zs, count=P())
     out = {}
-    with mesh, ep_mesh_context(mesh):
+    ep = ep_mesh_context(mesh) if bool(z["ep"]) else nullcontext()
+    with mesh, ep:
         fn = jax.jit(build_train_step(cfg, tc),
                      in_shardings=(shd.to_named(ps, mesh),
                                    shd.to_named(opt_spec, mesh),
                                    shd.to_named(bs, mesh)),
                      out_shardings=(shd.to_named(ps, mesh),
                                     shd.to_named(opt_spec, mesh), None))
-        for i, b in enumerate(batch):
+        for i, b in enumerate(batches):
             params, opt, m = fn(params, opt, b)
             out[f"loss{i}"] = np.asarray(m["total_loss"])
             out[f"aux{i}"] = np.asarray(m["aux_loss"])
@@ -137,4 +157,5 @@ if __name__ == "__main__":
     case, src, dst = sys.argv[1:4]
     assert jax.device_count() == 4, jax.devices()
     np.savez(dst, **{"moe_ep": moe_ep, "pipeline": pipeline,
-                     "ep_step": ep_step}[case](dict(np.load(src))))
+                     "sharded_step": sharded_step}[case](
+                         dict(np.load(src))))

@@ -95,16 +95,44 @@ def moe_ep_rank(rank, inp_path, k, cases, aux_w=AUX_W):
     return {"coord": (di, mi), "out": out}
 
 
+def analyze_moe_ep_rank(rank, arch):
+    """``step_analyzer.analyze`` of ``moe_ffn_ep``'s forward at the smoke
+    config of ``arch`` on a (2, 2) (data, model) mesh, each rank's shards
+    ``device="meta"`` (64 tokens a rank): the collectives it counted, and
+    the bytes of the rank's ``[E, C, d]`` dispatch buffer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.moe_ep import ep_mesh_context, moe_ffn_ep
+    from repro_torch.utils.step_analyzer import analyze
+    cfg = get_config(arch, smoke=True)
+    mesh = make_debug_mesh((2, 2))
+    N, d, E, f = 64, cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    k, cf = cfg.experts_per_token, cfg.capacity_factor
+    dt = torch.float32
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=dt, device="meta")
+    with ep_mesh_context(mesh):
+        cost = analyze(lambda *a: moe_ffn_ep(*a, k=k, capacity_factor=cf).y,
+                       meta(N, d), meta(d, E), meta(E // 2, d, f // 2),
+                       meta(E // 2, d, f // 2), meta(E // 2, f // 2, d))
+    return {"counts": cost.collective_counts,
+            "bytes": cost.collective_bytes,
+            "buffer": E * capacity(N, k, cf, E) * d * 4}
+
+
 def pipeline_rank(rank, inp_path):
     """``pipeline_apply`` of a tanh-affine stage on a (2, 2) (pipe, dp)
     mesh and a (4, 1) one, the stage parameters as this rank's plain
-    slice and as DTensors sharded over 'pipe'."""
+    slice and as DTensors sharded over 'pipe': the output, and the
+    gradients of sum(y * r) for this rank's stage (W, b) and for x."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.pipeline import pipeline_apply
     from repro_torch.launch.sharding import NamedSharding, P
     from repro_torch.train.sharded import distribute
     z = np.load(inp_path)
-    W, b, x = (_t(z[n]) for n in ("W", "b", "x"))
+    W, b, x, r = (_t(z[n]) for n in ("W", "b", "x", "r"))
 
     def stage(p, a):
         w, bb = p
@@ -113,13 +141,23 @@ def pipeline_rank(rank, inp_path):
     for shape in ((2, 2), (4, 1)):
         mesh = make_debug_mesh(shape, ("pipe", "dp"))
         S, s = shape[0], mesh.get_coordinate()[0]
-        out[f"pipe{S}"] = pipeline_apply(stage, mesh, "pipe",
-                                         (W[s:s + 1], b[s:s + 1]), x)
         sh = NamedSharding(mesh, P("pipe"))
-        held = (distribute(W[:S].contiguous(), sh),
-                distribute(b[:S].contiguous(), sh))
-        out[f"pipe{S}_dtensor"] = pipeline_apply(stage, mesh, "pipe", held,
-                                                 x)
+        out[f"stage{S}"] = s
+        for held, ps in (("", (W[s:s + 1].clone(), b[s:s + 1].clone())),
+                         ("_dtensor", (distribute(W[:S].contiguous(), sh),
+                                       distribute(b[:S].contiguous(),
+                                                  sh)))):
+            ps = tuple(p.requires_grad_(True) for p in ps)
+            xx = x.clone().requires_grad_(True)
+            y = pipeline_apply(stage, mesh, "pipe", ps, xx)
+            torch.sum(y * r).backward()
+            key = f"pipe{S}{held}"
+            out[key] = y.detach()
+            out[key + "_gx"] = xx.grad
+            for n, p in zip(("W", "b"), ps):
+                g = p.grad.to_local() if hasattr(p.grad, "to_local") \
+                    else p.grad
+                out[f"{key}_g{n}"] = g[0]
     return out
 
 
@@ -145,34 +183,55 @@ def restore_rank(rank, ckpt_dir):
     return out
 
 
-def sharded_steps_rank(rank, runs, B, S, steps):
-    """For each (arch, ep, config overrides) of ``runs``: ``steps``
-    sharded train steps of the arch's smoke config in f32 on a (2, 2)
-    mesh from the seed-0 params, batches of B x S: the metrics of each
-    step, the stored placements of the first layer's leaves and moments
-    and, on rank 0, the final params gathered whole."""
+def masked(batch: dict) -> dict:
+    """``batch`` with the first 3 r + 1 tokens of row r out of the loss
+    (``jax_scaleout_ref.py`` masks the same): the rows count different
+    tokens, so the microbatches of a global batch do too."""
+    mask = batch["loss_mask"].copy()
+    for r in range(mask.shape[0]):
+        mask[r, :3 * r + 1] = 0
+    return dict(batch, loss_mask=mask)
+
+
+def _step_inputs(arch, over, opts, B, S):
+    """The smoke config in f32 with ``over``, the TrainConfig with
+    ``opts``' microbatch, the seed-0 params and AdamW state, and the
+    batch of each step (``masked`` where ``opts`` asks)."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.launch.sharding import train_shardings
     from repro_torch.models import model as tm
     from repro_torch.train import optim
+    cfg = get_config(arch, smoke=True).replace(**F32, **over)
+    tc = TrainConfig(**STEP_TC, microbatch=opts.get("microbatch", 0))
+    params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = optim.init_opt_state(params, tc)
+    shape = ShapeConfig("t", "train", S, B)
+
+    def batch(i):
+        b = make_batch(cfg, shape, DataConfig(), i)
+        b = masked(b) if opts.get("masked") else b
+        return {n: torch.from_numpy(v) for n, v in b.items()}
+    return cfg, tc, params, opt, batch
+
+
+def sharded_steps_rank(rank, runs, B, S, steps):
+    """For each (arch, ep, config overrides[, options]) of ``runs``:
+    ``steps`` sharded train steps of the arch's smoke config in f32 on a
+    (2, 2) mesh from the seed-0 params, batches of B x S (options:
+    ``microbatch``, and ``masked`` batches): the metrics of each step,
+    the stored placements of the first layer's leaves and moments and,
+    on rank 0, the final params gathered whole."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import train_shardings
     from repro_torch.train.sharded import (build_sharded_train_step,
                                            gather_state, shard_state)
     from repro_torch.utils.tree import flatten_with_paths
     mesh = make_debug_mesh((2, 2))
-    tc = TrainConfig(**STEP_TC)
     outs = []
-    for arch, ep, over in runs:
-        cfg = get_config(arch, smoke=True).replace(**F32, **over)
-        params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        opt = optim.init_opt_state(params, tc)
-        shape, dc = ShapeConfig("t", "train", S, B), DataConfig()
-
-        def batch(i):
-            return {n: torch.from_numpy(v) for n, v in
-                    make_batch(cfg, shape, dc, i).items()}
+    for arch, ep, over, *opts in runs:
+        cfg, tc, params, opt, batch = _step_inputs(arch, over,
+                                                   dict(*opts), B, S)
         sh = train_shardings(cfg, mesh, params, opt, batch(0), tc)
         params, opt = shard_state(params, opt, sh)
         step = build_sharded_train_step(cfg, tc, sh, ep=ep)
@@ -190,31 +249,49 @@ def sharded_steps_rank(rank, runs, B, S, steps):
     return outs
 
 
+def uneven_microbatch_rank(rank, arch, B, S, mb):
+    """The sharded step with a microbatch that does not split over the
+    (2, 2) mesh's 2 data ranks: the ``ValueError``'s message."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import train_shardings
+    from repro_torch.train.sharded import (build_sharded_train_step,
+                                           shard_state)
+    mesh = make_debug_mesh((2, 2))
+    cfg, tc, params, opt, batch = _step_inputs(arch, {}, {"microbatch": mb},
+                                               B, S)
+    sh = train_shardings(cfg, mesh, params, opt, batch(0), tc)
+    params, opt = shard_state(params, opt, sh)
+    step = build_sharded_train_step(cfg, tc, sh)
+    try:
+        step(params, opt, batch(0))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def sharded_checks_rank(rank, runs, B, S, steps, uneven_mb):
+    """``sharded_steps_rank`` of ``runs`` and ``uneven_microbatch_rank``
+    of the dense smoke, in one spawn."""
+    return {"steps": sharded_steps_rank(rank, runs, B, S, steps),
+            "uneven": uneven_microbatch_rank(rank, "qwen3-0.6b", B, S,
+                                             uneven_mb)}
+
+
 #: the sharded-step tests' optimizer and dtypes
 STEP_TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 
 
-def one_rank_steps(arch, over, B, S, steps):
+def one_rank_steps(arch, over, B, S, steps, opts=None):
     """The port's one-rank steps of ``sharded_steps_rank``'s runs, from
     the same params and batches: the metrics of each step and the final
     params."""
-    from repro_torch.configs import TrainConfig, get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.models import model as tm
-    from repro_torch.train import optim
     from repro_torch.train.step import build_train_step
-    cfg = get_config(arch, smoke=True).replace(**F32, **over)
-    tc = TrainConfig(**STEP_TC)
-    p = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    o = optim.init_opt_state(p, tc)
+    cfg, tc, p, o, batch = _step_inputs(arch, over, opts or {}, B, S)
     step = build_train_step(cfg, tc)
     ms = []
     for i in range(steps):
-        b = {n: torch.from_numpy(v) for n, v in make_batch(
-            cfg, ShapeConfig("t", "train", S, B), DataConfig(), i).items()}
-        p, o, m = step(p, o, b)
+        p, o, m = step(p, o, batch(i))
         ms.append({n: float(v) for n, v in m.items()})
     return ms, p
 

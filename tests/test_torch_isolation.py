@@ -102,13 +102,16 @@ PORTED = {
     "serve/paged.py": {"PagedJaxBackend": "TorchPagedBackend"},
     "serve/__init__.py": {"JaxBackend": "TorchBackend",
                           "PagedJaxBackend": "TorchPagedBackend"},
-    "configs/registry.py": {"input_specs": None, "concrete_inputs": None},
+    "configs/registry.py": _rewritten("input_specs", "concrete_inputs"),
+    "configs/__init__.py": {},
+    # TPU_FEATURE_NAMES, _safe_log and features_from_record are verbatim
+    "core/features.py": _rewritten("extract_features"),
     "launch/serve.py": {"main": "main"},
     "launch/train.py": {"main": "main"},
-    "train/step.py": {"build_serve_step": None, **_rewritten(
+    "train/step.py": _rewritten(
         "build_loss_fn", "build_train_step", "build_train_step_compressed",
         "build_prefill_step", "build_decode_step", "build_paged_decode_step",
-        "build_prefill_chunk_step")},
+        "build_prefill_chunk_step", "build_serve_step"),
     "train/loss.py": _rewritten("_ce_from_hidden", "lm_loss"),
     "train/optim.py": _rewritten(
         "OptState", "init_opt_state", "abstract_opt_state", "cosine_schedule",

@@ -9,8 +9,12 @@ step under ``ep_mesh_context`` on 4 host devices, the same function
 (its aux loss is the mean of the shards', JAX's ``pmean``), and, with the
 aux term's weight at 0, against the one-rank step; the MoE without
 expert parallelism (each data shard routing its own tokens) equal to
-it; the stored placements those of the rule tables.  One spawn of the
-ranks and one JAX process serve the whole file."""
+it; the dense smoke with ``microbatch`` set and a loss mask that counts
+different tokens in each microbatch against the one-rank step and JAX's
+sharded step with the same microbatch, and the ``ValueError`` of a
+microbatch that does not split over the data ranks; the stored
+placements those of the rule tables.  One spawn of the ranks and two
+JAX processes serve the whole file."""
 import os
 import sys
 
@@ -33,38 +37,52 @@ B, S, STEPS = 4, 16, 2
 DENSE, MOE = "qwen3-0.6b", "qwen3-moe-30b-a3b"
 #: every expert can take every token of a shard (E / k): nothing drops
 NO_DROP = {"capacity_factor": 4.0}
+#: the dense smoke accumulated over 2 microbatches of the global 4 rows
+#: (one row per data rank each), on batches whose rows count 15, 12, 9
+#: and 6 tokens (``scaleout_ranks.masked``)
+MICRO = {"microbatch": 2, "masked": True}
 RUNS = [(DENSE, False, {}), (MOE, True, NO_DROP),
         (MOE, True, dict(NO_DROP, router_aux_weight=0.0)),
-        (MOE, False, NO_DROP)]
+        (MOE, False, NO_DROP), (DENSE, False, {}, MICRO)]
+#: a microbatch of 1 row cannot split over the 2 data ranks
+UNEVEN_MB = 1
 
 
 def _cfg(arch, over):
     return get_config(arch, smoke=True).replace(**scaleout_ranks.F32, **over)
 
 
-def one_rank(arch, over):
-    return scaleout_ranks.one_rank_steps(arch, over, B, S, STEPS)
+def one_rank(arch, over, opts=None):
+    return scaleout_ranks.one_rank_steps(arch, over, B, S, STEPS, opts)
+
+
+def _jax_step(tmp, name, arch, over, ep, microbatch=0, masked=False):
+    """Start JAX's sharded step of ``arch`` from the port's seed-0
+    checkpoint."""
+    tc = TrainConfig(**scaleout_ranks.STEP_TC)
+    p = tm.init(_cfg(arch, over), torch.Generator().manual_seed(0), "cpu")
+    o = optim.init_opt_state(p, tc)
+    save(str(tmp / f"ckpt_{name}"), 0, {"params": p, "m": o.m, "v": o.v,
+                                        "count": o.count})
+    np.savez(tmp / f"in_{name}.npz", arch=arch, ckpt=str(tmp / f"ckpt_{name}"),
+             B=B, S=S, steps=STEPS, ep=ep, microbatch=microbatch,
+             masked=masked, **over)
+    return scaleout_ranks.jax_process("sharded_step", tmp / f"in_{name}.npz",
+                                      tmp / f"jax_{name}.npz")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
-    cfg = _cfg(MOE, NO_DROP)
-    tc = TrainConfig(**scaleout_ranks.STEP_TC)
-    p = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    o = optim.init_opt_state(p, tc)
-    save(str(tmp / "ckpt"), 0, {"params": p, "m": o.m, "v": o.v,
-                                "count": o.count})
-    np.savez(tmp / "in.npz", arch=MOE, ckpt=str(tmp / "ckpt"), B=B, S=S,
-             steps=STEPS, capacity_factor=NO_DROP["capacity_factor"])
-    proc = scaleout_ranks.jax_process("ep_step", tmp / "in.npz",
-                                      tmp / "jax.npz")
+    procs = {"ep": _jax_step(tmp, "ep", MOE, NO_DROP, True),
+             "micro": _jax_step(tmp, "micro", DENSE, {}, False, **MICRO)}
     try:
-        ranks = scaleout_ranks.spawn("sharded_steps_rank", tmp, RUNS, B, S,
-                                     STEPS)
+        out = scaleout_ranks.spawn("sharded_checks_rank", tmp, RUNS, B, S,
+                                   STEPS, UNEVEN_MB)
     finally:
-        ref = scaleout_ranks.jax_result(proc, tmp / "jax.npz")
-    return ranks, ref
+        ref = {k: scaleout_ranks.jax_result(p, tmp / f"jax_{k}.npz")
+               for k, p in procs.items()}
+    return [r["steps"] for r in out], ref, [r["uneven"] for r in out]
 
 
 def _same_on_every_rank(ranks, i):
@@ -84,7 +102,7 @@ def _assert_params_close(got, want, tol=1e-4):
 
 @pytest.mark.parametrize("i", [0, 2], ids=["dense", "moe-ep-no-aux"])
 def test_sharded_step_equals_the_one_rank_step(runs, i):
-    ranks, _ = runs
+    ranks, _, _ = runs
     arch, _, over = RUNS[i]
     ms, params = _same_on_every_rank(ranks, i)
     ref_ms, ref_p = one_rank(arch, over)
@@ -100,7 +118,8 @@ def test_ep_sharded_step_equals_jax_ep_step(runs):
     (as JAX's ``pmean``), so the function is JAX's sharded EP step, not
     the one-rank step: loss, aux, grad norm and every parameter after
     each step."""
-    ranks, ref = runs
+    ranks, ref, _ = runs
+    ref = ref["ep"]
     ms, params = _same_on_every_rank(ranks, 1)
     for i, m in enumerate(ms):
         assert abs(m["total_loss"] - float(ref[f"loss{i}"])) <= 1e-4
@@ -118,7 +137,7 @@ def test_ep_sharded_step_equals_jax_ep_step(runs):
 def test_moe_without_ep_routes_each_shard_as_ep_does(runs):
     """Without expert parallelism each data shard runs the dense MoE on
     its own tokens: capacity and aux per shard, the EP step's function."""
-    ranks, _ = runs
+    ranks, _, _ = runs
     ep_ms, ep_p = _same_on_every_rank(ranks, 1)
     ms, params = _same_on_every_rank(ranks, 3)
     for a, b in zip(ms, ep_ms):
@@ -131,7 +150,7 @@ def test_the_state_follows_the_rule_tables(runs):
     """Parameters at ``param_specs(kind="train")``, moments at
     ``zero1_opt_specs`` (the data axis added to the largest free dim of
     a big leaf: at smoke size none is 16 MiB, so they equal)."""
-    ranks, _ = runs
+    ranks, _, _ = runs
     R = Replicate()
     pl = ranks[0][1]["placements"]
     assert pl["blocks/attn/wq"] == ((R, Shard(2)), (R, Shard(2)))
@@ -142,3 +161,33 @@ def test_the_state_follows_the_rule_tables(runs):
     assert pl["embed"][0] == (R, Shard(0))
     for r in ranks:
         assert r[1]["placements"] == pl
+
+
+def test_microbatched_sharded_step_equals_one_rank_and_jax(runs):
+    """``tc.microbatch`` on the mesh: each microbatch's CE is the
+    token-weighted mean over its own tokens (15 + 12 and 9 + 6 counted),
+    the gradients their fp32 mean, the metrics the microbatches' mean:
+    loss, grad norm and every parameter within 1e-4 of the port's
+    one-rank step and of JAX's sharded step with the same microbatch."""
+    ranks, ref, _ = runs
+    ref = ref["micro"]
+    ms, params = _same_on_every_rank(ranks, 4)
+    one_ms, one_p = one_rank(DENSE, {}, MICRO)
+    for i, (m, r) in enumerate(zip(ms, one_ms)):
+        assert abs(m["total_loss"] - r["total_loss"]) <= 1e-4, (m, r)
+        assert abs(m["total_loss"] - float(ref[f"loss{i}"])) <= 1e-4
+        for gn in (r["grad_norm"], float(ref[f"gnorm{i}"])):
+            assert abs(m["grad_norm"] - gn) <= 1e-4 * gn
+        assert m["tokens"] == r["tokens"] == (15 + 12 + 9 + 6) / 2
+    _assert_params_close(params, one_p)
+    for path, a in flatten_with_paths(params):
+        d = float((a - torch.from_numpy(ref[f"step{STEPS - 1}/{path}"]))
+                  .abs().max())
+        assert d <= 1e-4, (path, d)
+
+
+def test_uneven_microbatch_raises(runs):
+    _, _, uneven = runs
+    for msg in uneven:
+        assert msg is not None and f"microbatch {UNEVEN_MB}" in msg \
+            and "2 data ranks" in msg, msg
