@@ -36,7 +36,9 @@ and any failure exits non-zero:
    then each timed at every served launch shape (qwen3-0.6b, zamba2-2.7b,
    qwen3-moe-30b-a3b, gemma2-27b at 128 and 4,160 tokens with its window,
    softcap and scale, whisper-large-v3's D 64 and G 1, pixtral-12b's S
-   132 and its decode past the cache) beside its bound, the share of the
+   132 and its decode past the cache, and qwen3-0.6b's heads on one of
+   two model ranks, Hq 8 / Hkv 4, as phase 30 launches them) beside its
+   bound, the share of the
    bound reached, the plain version and ``scaled_dot_product_attention``
    (none where the launch has a softcap), with the decode split plan
    (splits, cluster, blocks);
@@ -186,10 +188,28 @@ and any failure exits non-zero:
     bytes the inputs hold, and what the allocator gave them no more than
     its blocks' slack), and each real step's time beside the probe's roofline
     ``max(compute_s, memory_s)``, with the card's name and power limit;
-    the real steps launch exactly their RMSNorm and dense-decode counts.
+    the real steps launch exactly their RMSNorm and dense-decode counts;
+29. tensor-parallel training on two ranks that share the card (spawned,
+    gloo: NCCL refuses two ranks on one card): full-width qwen3-0.6b
+    through ``launch/train.py --mesh 1x2``, (a) in f32 at 4 of its 28
+    layers, 2 steps of 4 x 256, held to the run without a mesh (losses
+    within ``TRAIN_LOSS_ATOL``, parameters by ``TP_PARAM_ATOL``), and (b)
+    in bf16 with fp32 moments at full depth, 6 steps of 4 x 1,024: the
+    loss falls, each rank launches exactly each RMSNorm kernel's count,
+    taking the compute tensors gathers no parameter; each rank's step
+    time and peak memory, and a step with its all-reduces timed (their
+    share of it), beside the card's name and power limit;
+30. tensor-parallel serving on the same two ranks: full-width,
+    full-depth qwen3-0.6b through the sharded prefill (8 rows x 128
+    tokens) and 16 greedy decode steps (``train/sharded_serve.py``), in
+    f32 (every token equal to the one-rank ``build_serve_step`` run's)
+    and in bf16 (logits within ``TP_BF16_LOGIT_RTOL`` of the one-rank
+    steps fed the same tokens); on each rank the flash kernel 28 times
+    per prefill and the dense decode kernel 28 times per step at Hq 8 /
+    Hkv 4, the KV cache held as the rank's 4 heads.
 
-Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24, 27 and 28's
-real steps) runs an
+Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24, 27, 28's
+real steps, 29 (b) and 30) runs an
 RMSNorm kernel for every norm (the fused ones wherever a neighbour is
 absorbed), and each runs with every kernel's launch count set to 0 just
 before it and read
@@ -214,6 +234,10 @@ unfused sequences at the paths' shapes), with the ``repro_torch``
 package of the checkout whose ``src`` directory is SRC (another commit
 unpacked with ``git archive``, say), so that two versions of the kernels
 are timed on one card in one call.
+
+    python3 chip_smoke.py --tp
+
+builds the kernels and runs phases 29 and 30 alone.
 
     python3 chip_smoke.py --prefill-profiles [SRC]
 
@@ -937,6 +961,7 @@ FLASH_CASES = [
      GEMMA2_SCALE),
     ("whisper", (8, 128, 20, 20, 64), True, 0, 0.0),
     ("pixtral", (8, 132, 32, 8, 128), True, 0, 0.0),
+    ("qwen3-tp2", (8, 128, 8, 4, 128), True, 0, 0.0),
 ]
 
 #: (name, (B, S, Hq, Hkv, D, lens), window, softcap[, scale]): lens
@@ -972,6 +997,7 @@ DECODE_CASES = [
     ("whisper", (8, 161, 20, 20, 64, [145] * 8), 0, 0.0),
     ("pixtral", (8, 161, 32, 8, 128, [163] * 8), 0, 0.0),
     ("clamped-window", (2, 96, 8, 2, 64, [100, 97]), 40, 30.0),
+    ("qwen3-tp2", (8, 144, 8, 4, 128, [144] * 8), 0, 0.0),
 ]
 
 #: the served launch shapes phase 5 times, by path: the case of that name
@@ -980,7 +1006,7 @@ DECODE_CASES = [
 TIMED = [("qwen3", "main"), ("zamba2", "zamba2-d80-mha32"),
          ("qwen3-moe", "qwen3-moe-g8"), ("gemma2", "gemma2"),
          ("gemma2-long", "gemma2-long"), ("whisper", "whisper"),
-         ("pixtral", "pixtral")]
+         ("pixtral", "pixtral"), ("qwen3-tp2", "qwen3-tp2")]
 
 
 def attended_pairs(S: int, causal: bool, window: int) -> int:
@@ -2812,16 +2838,13 @@ def phase_ep_train() -> dict:
     memory and a profiled step (idle share, the NCCL kernels' share),
     each beside the card's name and power limit.  Returns the mesh run's
     launch counts."""
-    import socket
     import torch.distributed as dist
     # the process group outlives the run (its state and step function are
     # profiled after it): set up here, so the driver takes it over
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=0, world_size=1)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+        world_size=1)
     try:
         return _ep_train()
     finally:
@@ -3049,6 +3072,527 @@ def _memory_step(kind: str, seq: int, batch: int, card: str) -> dict:
     return counts
 
 
+# --- phases 29 and 30: tensor parallelism, two ranks on one card ---------
+
+#: phase 29: full-width qwen3-0.6b through ``launch/train.py --mesh 1x2``
+#: by two ranks that share cuda:0 over gloo: (a) f32 at 4 of its 28
+#: layers, 2 steps of 4 x 256 tokens, against the run without a mesh; (b)
+#: bf16 params and fp32 moments at full depth, 6 steps of 4 x 1,024
+TP_MESH = ["--mesh", "1x2"]
+TP_F32_ARGV = ["--arch", "qwen3-0.6b", "--layers", "4", "--dtype",
+               "float32", "--device", "cuda", "--steps", "2", "--batch",
+               "4", "--seq", "256", "--seed", "0", "--ckpt-every", "1000"]
+TP_BF16_ARGV = ["--arch", "qwen3-0.6b", "--device", "cuda", "--steps", "6",
+                "--batch", "4", "--seq", "1024", "--seed", "0",
+                "--ckpt-every", "1000"]
+TP_CKPT = ROOT / "build" / "tp_ckpt"
+#: phase 29 (a)'s bounds: each loss within
+#: TRAIN_LOSS_ATOL of the run without a mesh, the grad norm within
+#: TRAIN_GRAD_RTOL of it; every parameter whose gradient is at least
+#: TP_CLEAR in both steps within TP_PARAM_ATOL, every other within 2 lr
+#: per step (AdamW divides such a gradient by one near its epsilon, 1e-8,
+#: so the last bits of the gradient, which another order of sums changes,
+#: move it by up to a step's size)
+TP_PARAM_ATOL, TP_CLEAR = 1e-4, 1e-6
+#: phase 30: full-width, full-depth qwen3-0.6b served by the same two
+#: ranks on a (1, 2) mesh: the sharded prefill of 8 rows x 128 tokens,
+#: then 16 greedy decode steps, in f32 and in bf16
+TP_SERVE_ROWS, TP_SERVE_PROMPT, TP_SERVE_STEPS = 8, 128, 16
+#: phase 30's bf16 bound: each step's logits
+#: on the mesh against the one-rank steps fed the same tokens, max abs
+#: error over the largest |logit| of the one-rank side.  The mesh sums
+#: each block's two partial products in bf16 where one rank sums the
+#: whole product in fp32 before rounding: one bf16 rounding (2^-8
+#: relative) more per block output, 56 of them through 28 layers,
+#: compounding as a random walk to ~0.03 of the activations' scale.
+TP_BF16_LOGIT_RTOL = 0.1
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _tp_rank_init(rank: int, world: int, port: int) -> None:
+    """A spawned rank: ``src`` importable, torchrun's environment (every
+    rank local, more ranks than cards), cuda:0, TF32 off, and the gloo
+    process group (NCCL refuses two ranks on one card)."""
+    import os
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+
+
+def _spawn_tp(fn, *args, world: int = 2) -> list:
+    """``fn(rank, world, port, out_dir, *args)`` in ``world`` spawned
+    ranks; each rank's saved result, in rank order.  A failing rank fails
+    the call (and the phase)."""
+    import torch.multiprocessing as mp
+    out_dir = ROOT / "build" / "tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    mp.start_processes(fn, args=(world, _free_port(), str(out_dir), *args),
+                       nprocs=world, start_method="spawn", join=True)
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _timed_collectives_step(out, argv) -> dict:
+    """One more train step from the run's final state (the next batch),
+    each ``torch.distributed.all_reduce`` timed between synchronizes: the
+    step's seconds, the collectives' seconds, count and bytes."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    B, S, at = (int(argv[argv.index(a) + 1])
+                for a in ("--batch", "--seq", "--steps"))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in make_batch(
+        out["cfg"], ShapeConfig("t", "train", S, B), DataConfig(),
+        at).items()}
+    orig, spent = dist.all_reduce, {"s": 0.0, "n": 0, "bytes": 0}
+
+    def timed(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(t, *a, **k)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["n"] += 1
+        spent["bytes"] += t.numel() * t.element_size()
+        return res
+    dist.all_reduce = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["step_fn"](out["params"], out["opt"], batch)
+        torch.cuda.synchronize()
+        spent["step_s"] = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = orig
+    return spent
+
+
+def _gloo_on_cuda(world: int) -> dict:
+    """Each collective the tensor-parallel steps issue, over the gloo
+    group on CUDA tensors, against its expected value: all-reduce (sum,
+    max, min; f32, bf16, int32), all-gather, and ``train/sharded.py::
+    gather`` of a DTensor split over 'model' (its all-gather over the
+    mesh's group).  Raises where gloo refuses one or it computes another
+    value."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.train.sharded import gather
+    r = dist.get_rank()
+    got = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        for op, want in ((dist.ReduceOp.SUM, sum(range(1, world + 1))),
+                         (dist.ReduceOp.MAX, world), (dist.ReduceOp.MIN, 1)):
+            t = torch.full((3,), r + 1, dtype=dt, device=DEVICE)
+            dist.all_reduce(t, op=op)
+            got[f"all_reduce {op} {str(dt)[6:]}"] = bool(
+                torch.all(t == want))
+    parts = [torch.empty(2, device=DEVICE) for _ in range(world)]
+    dist.all_gather(parts, torch.full((2,), float(r), device=DEVICE))
+    got["all_gather"] = all(bool(torch.all(p == i))
+                            for i, p in enumerate(parts))
+    mesh = init_device_mesh("cuda", (1, world),
+                            mesh_dim_names=("data", "model"))
+    d = DTensor.from_local(torch.full((2,), float(r), device=DEVICE), mesh,
+                           (Replicate(), Shard(0)), run_check=False)
+    full = gather(d)
+    got["gather of a DTensor"] = full.is_cuda and full.tolist() == [
+        float(i) for i in range(world) for _ in range(2)]
+    if not all(got.values()):
+        raise AssertionError(f"gloo on CUDA tensors: {got}")
+    return got
+
+
+def _tp_train_rank(rank, world, port, out_dir, f32_argv, bf16_argv):
+    """A rank of phase 29: ``train.main`` of ``f32_argv`` (rank 0 saves
+    the final params gathered whole) and of ``bf16_argv``, each with its
+    launch counts; the compute tensors of the bf16 state taken under a
+    collective counter; one more step with its collectives timed."""
+    import torch.distributed as dist
+    _tp_rank_init(rank, world, port)
+    from repro_torch.train.sharded import gather_state
+    from repro_torch.utils.step_analyzer import CollectiveCounter
+    from repro_torch.utils.tree import tree_map
+    res = {}
+    try:
+        res["gloo"] = _gloo_on_cuda(world)
+        out, counts = train_counted(f32_argv)
+        res["f32"] = {"losses": out["losses"],
+                      "grad_norms": out["grad_norms"], "counts": counts}
+        full = gather_state(out["params"])
+        if rank == 0:
+            torch.save(tree_map(lambda t: t.cpu(), full),
+                       Path(out_dir) / "f32_params.pt")
+        del out, full
+        out, counts = train_counted(bf16_argv)
+        with CollectiveCounter() as c:
+            compute = out["step_fn"].compute_leaves(out["params"])
+        del compute
+        res["bf16"] = {"losses": out["losses"], "step_s": out["step_s"],
+                       "peak_bytes": out["peak_bytes"], "counts": counts,
+                       "tokens": out["tokens_per_step"],
+                       "layers": out["cfg"].num_layers,
+                       "tp_leaves": out["step_fn"].tp_leaves,
+                       "gathers": dict(c.counts),
+                       "timed": _timed_collectives_step(out, bf16_argv)}
+        del out
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def _tp_grad_masks(cfg, tc, argv, steps: int):
+    """The run without a mesh stepped by hand: for each leaf, whether its
+    gradient is at least TP_CLEAR in every step (the phase's strict
+    elements)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optim
+    from repro_torch.train.step import (build_loss_fn, build_train_step,
+                                        value_and_grad)
+    from repro_torch.utils.tree import tree_map
+    B, S = (int(argv[argv.index(a) + 1]) for a in ("--batch", "--seq"))
+    p = model_lib.init(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                       DEVICE)
+    o = optim.init_opt_state(p, tc)
+    step, loss_fn, masks = build_train_step(cfg, tc), build_loss_fn(cfg), None
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(DEVICE) for k, v in make_batch(
+            cfg, ShapeConfig("t", "train", S, B), DataConfig(), i).items()}
+        g = value_and_grad(loss_fn, p, b)[1]
+        clear = tree_map(lambda t: t.abs() >= TP_CLEAR, g)
+        masks = clear if masks is None else tree_map(
+            torch.logical_and, masks, clear)
+        del g
+        p, o, _ = step(p, o, b)
+    return masks
+
+
+def phase_tp_train() -> dict:
+    """Two ranks that share cuda:0 train full-width qwen3-0.6b through
+    ``launch/train.py --mesh 1x2`` (``_tp_train_rank``): (a) in f32 at 4
+    layers, held to the run without a mesh by the bounds above; (b) in
+    bf16 at full depth, where the loss must fall (mean of the last 3
+    steps below the first 3), each rank launch exactly each RMSNorm
+    kernel's count and no attention or SSD kernel, and taking the
+    compute tensors gather nothing (every leaf is split or replicated on
+    (1, 2)).  Prints each rank's step time, peak memory and the timed
+    step's collectives, beside the card's name and power limit.  Returns
+    the bf16 runs' launch counts summed over the ranks."""
+    from repro_torch.utils.tree import flatten_with_paths
+    card = card_line()
+    shutil.rmtree(TP_CKPT, ignore_errors=True)
+    ck = ["--ckpt-dir", str(TP_CKPT)]
+    t0 = time.perf_counter()
+    ranks = _spawn_tp(_tp_train_rank, TP_F32_ARGV + TP_MESH + ck,
+                      TP_BF16_ARGV + TP_MESH + ck)
+    t_ranks = time.perf_counter() - t0
+    got = torch.load(ROOT / "build" / "tp" / "f32_params.pt",
+                     weights_only=False)
+    ref, ref_counts = train_counted(TP_F32_ARGV + ck)
+    cfg, tc, steps = ref["cfg"], ref["tc"], len(ref["losses"])
+    check_train_run("phase 29 (a) without a mesh", ref, ref_counts, cfg,
+                    steps)
+    for r in ranks:
+        check_train_run("phase 29 (a) on the mesh", r["f32"],
+                        r["f32"]["counts"], cfg, steps)
+        if r["f32"]["losses"] != ranks[0]["f32"]["losses"]:
+            raise AssertionError("phase 29 (a): the ranks' losses differ")
+    loss_d = max(abs(a - b) for a, b in zip(ranks[0]["f32"]["losses"],
+                                            ref["losses"]))
+    gn_d = max(abs(a - b) / b for a, b in zip(ranks[0]["f32"]["grad_norms"],
+                                              ref["grad_norms"]))
+    if not (loss_d <= TRAIN_LOSS_ATOL and gn_d <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"phase 29 (a): losses {ranks[0]['f32']} on "
+                             f"the mesh, {ref['losses']} without")
+    masks = dict(flatten_with_paths(_tp_grad_masks(cfg, tc, TP_F32_ARGV,
+                                                   steps)))
+    strict = loose = 0.0
+    n_strict = n_all = 0
+    for (path, a), (_, b) in zip(flatten_with_paths(got),
+                                 flatten_with_paths(ref["params"])):
+        d = (a.to(DEVICE) - b).abs()
+        m = masks[path]
+        strict = max(strict, d[m].max().item() if m.any() else 0.0)
+        loose = max(loose, d.max().item())
+        n_strict += int(m.sum())
+        n_all += m.numel()
+    if not (strict <= TP_PARAM_ATOL
+            and loose <= 2 * TRAIN_LR * steps + 1e-6):
+        raise AssertionError(f"phase 29 (a): params differ by {strict:.3g} "
+                             f"(clear gradients), {loose:.3g} (all)")
+    del got, ref, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b): bf16 at full depth
+    b_steps = int(TP_BF16_ARGV[TP_BF16_ARGV.index("--steps") + 1])
+    from repro_torch.configs import get_config
+    bcfg = get_config("qwen3-0.6b")
+    want = train_norm_launches(bcfg, b_steps)
+    lines, summed = [], {}
+    for i, r in enumerate(ranks):
+        b = r["bf16"]
+        check_train_run(f"phase 29 (b) rank {i}", b, b["counts"], bcfg,
+                        b_steps)
+        first, last = np.mean(b["losses"][:3]), np.mean(b["losses"][-3:])
+        if not last < first:
+            raise AssertionError(f"phase 29 (b) rank {i}: the loss did not "
+                                 f"fall: {b['losses']}")
+        if b["gathers"]:
+            raise AssertionError(f"phase 29 (b) rank {i}: taking the "
+                                 f"compute tensors issued {b['gathers']}")
+        med = sorted(b["step_s"][1:])[len(b["step_s"][1:]) // 2]
+        t = b["timed"]
+        lines.append(
+            f"rank {i}: losses " + ", ".join(f"{x:.4f}" for x in
+                                             b["losses"])
+            + f"; median step (from step 1) {med:.3f} s, "
+            f"{b['tokens'] / med:.0f} tokens/s per rank; peak "
+            f"{max(b['peak_bytes']) / 2**30:.2f} GiB; a timed step "
+            f"{t['step_s']:.3f} s, of it {t['n']} all-reduces "
+            f"({t['bytes'] / 2**20:.1f} MiB) {t['s']:.3f} s = "
+            f"{t['s'] / t['step_s']:.3f}")
+        for k, v in b["counts"].items():
+            summed[k] = summed.get(k, 0) + v
+    local, reduced = ranks[0]["bf16"]["tp_leaves"]
+    print(f"phase 29 gloo (torch {torch.__version__}) on CUDA tensors, "
+          f"each checked on both ranks: " + ", ".join(ranks[0]["gloo"]))
+    print(f"phase 29 (a) --mesh 1x2 f32, qwen3-0.6b full width, "
+          f"{cfg.num_layers} layers, {steps} steps of 4 x 256, two gloo "
+          f"ranks on one card vs the run without a mesh: loss |d| "
+          f"{loss_d:.3g} (<= {TRAIN_LOSS_ATOL}), grad norm {gn_d:.3g} of it "
+          f"(<= {TRAIN_GRAD_RTOL}); {n_strict} of {n_all} params with "
+          f"clear gradients within {strict:.3g} (<= {TP_PARAM_ATOL}), every "
+          f"param within {loose:.3g} (<= 2 lr x {steps}) [{card}]")
+    print(f"phase 29 (b) --mesh 1x2 bf16, full depth ({bcfg.num_layers} "
+          f"layers), {b_steps} steps of 4 x 1,024, two gloo ranks on "
+          f"cuda:0, {len(local)} leaves split over 'model' "
+          f"({sorted(p.rsplit('/', 1)[-1] for p in local)}), "
+          f"{len(reduced)} replicated with gradients summed over it; no "
+          f"parameter all-gather; norm launches per rank {want}: "
+          + "; ".join(lines) + f"; ranks {t_ranks:.1f}s [{card}]")
+    shutil.rmtree(TP_CKPT, ignore_errors=True)
+    return summed
+
+
+def _tp_prompts(cfg, rows: int, prompt: int):
+    rng = np.random.default_rng(29)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (rows, prompt)).astype(np.int32)).to(DEVICE)
+
+
+def _serve_cfg(dtype: str):
+    from repro_torch.configs import get_config
+    return get_config("qwen3-0.6b").replace(param_dtype=dtype,
+                                            compute_dtype=dtype)
+
+
+def _tp_serve_rank(rank, world, port, out_dir, rows, prompt, steps):
+    """A rank of phase 30: for f32 and bf16, the sharded prefill of the
+    prompts and ``steps`` decode steps, each greedy over the
+    vocab-parallel logits, on a (1, world) mesh: the tokens of each step,
+    (bf16) the logits gathered over 'model', the launch counts, the
+    seconds of the prefill and of each step, and the peak memory."""
+    import torch.distributed as dist
+    _tp_rank_init(rank, world, port)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.sharding import serve_shardings
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.tp import gather_last, tp_mesh_context
+    from repro_torch.train.sharded import distribute
+    from repro_torch.train.sharded_serve import (build_sharded_decode_step,
+                                                 build_sharded_prefill_step,
+                                                 greedy)
+    from repro_torch.utils.tree import tree_map
+    res = {}
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        for dtype in ("float32", "bfloat16"):
+            cfg = _serve_cfg(dtype)
+            params = model_lib.init(
+                cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+            max_len = prompt + steps
+            sh = serve_shardings(cfg, mesh, params, model_lib.init_cache(
+                cfg, rows, max_len, abstract_only=True), rows)
+            p = tree_map(distribute, params, sh["params"])
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            prefill = build_sharded_prefill_step(cfg, max_len, sh)
+            decode = build_sharded_decode_step(cfg, sh)
+            fns = launchers()
+            for f in fns.values():
+                f.launches = 0
+            tokens = _tp_prompts(cfg, rows, prompt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, {"tokens": tokens})
+            tok = greedy(logits, cfg)
+            torch.cuda.synchronize()
+            secs = [time.perf_counter() - t0]
+            toks, lgs = [tok.to_local().cpu()], []
+
+            def whole(lg):
+                with tp_mesh_context(mesh):
+                    return gather_last(lg.to_local()).cpu()
+            counts = {n: f.launches for n, f in fns.items()}
+            if dtype == "bfloat16":
+                lgs.append(whole(logits))
+            for f in fns.values():
+                f.launches = 0
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = decode(p, cache, tok)
+                tok = greedy(logits, cfg)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                toks.append(tok.to_local().cpu())
+                if dtype == "bfloat16":
+                    lgs.append(whole(logits))
+            res[dtype] = {"tokens": toks, "logits": lgs, "secs": secs,
+                          "prefill_counts": counts,
+                          "decode_counts": {n: f.launches
+                                            for n, f in fns.items()},
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "kv_local": tuple(cache["k"].to_local().shape)}
+            del p, cache, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_tp_serve() -> dict:
+    """Two ranks that share cuda:0 serve full-width, full-depth
+    qwen3-0.6b through the sharded prefill and decode steps
+    (``_tp_serve_rank``): on each rank the flash kernel once per layer
+    in the prefill and the dense decode kernel once per layer per step,
+    at the rank's Hq 8 / Hkv 4 heads (phase 5 held both to their plain
+    versions at those shapes, ``qwen3-tp2``), and each RMSNorm kernel its
+    count; the KV cache held as the rank's 4 heads.  In f32 every
+    greedy token equals the one-rank ``build_prefill_step`` /
+    ``build_serve_step`` run's; in bf16 each step's logits are within
+    ``TP_BF16_LOGIT_RTOL`` of the one-rank steps fed the same tokens.
+    Returns the launch counts summed over the ranks and both dtypes."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.train.step import (build_decode_step,
+                                        build_prefill_step,
+                                        build_serve_step)
+    card = card_line()
+    rows, prompt, steps = TP_SERVE_ROWS, TP_SERVE_PROMPT, TP_SERVE_STEPS
+    t0 = time.perf_counter()
+    ranks = _spawn_tp(_tp_serve_rank, rows, prompt, steps)
+    t_ranks = time.perf_counter() - t0
+    L = _serve_cfg("float32").num_layers
+    want_pre = dict(norm_launches("qwen3-0.6b", 1, 0),
+                    flash_attention_fwd=L)
+    want_dec = dict(norm_launches("qwen3-0.6b", 0, steps),
+                    decode_attention_fwd=L * steps)
+    summed = {}
+    for i, r in enumerate(ranks):
+        for dtype, x in r.items():
+            for counts, want in ((x["prefill_counts"], want_pre),
+                                 (x["decode_counts"], want_dec)):
+                full = {n: want.get(n, 0) for n in counts}
+                if counts != full:
+                    raise AssertionError(f"phase 30 rank {i} {dtype}: "
+                                         f"launches {counts}; want {full}")
+                for n, v in counts.items():
+                    summed[n] = summed.get(n, 0) + v
+            if x["kv_local"][3] != 4:
+                raise AssertionError(f"phase 30: rank {i}'s cache blocks "
+                                     f"{x['kv_local']}")
+            for a, b in zip(x["tokens"], ranks[0][dtype]["tokens"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"phase 30 {dtype}: the ranks' "
+                                         f"tokens differ")
+    max_len = prompt + steps
+    # f32: the one-rank steps' own greedy tokens
+    cfg = _serve_cfg("float32")
+    params = model_lib.init(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), DEVICE)
+    logits, cache = build_prefill_step(cfg, max_len)(
+        params, {"tokens": _tp_prompts(cfg, rows, prompt)})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    serve = build_serve_step(cfg)
+    f32_same = [torch.equal(tok.cpu(), ranks[0]["float32"]["tokens"][0])]
+    for _ in range(steps):
+        tok, cache = serve(params, tok, cache)
+        f32_same.append(torch.equal(tok.cpu(),
+                                    ranks[0]["float32"]["tokens"][
+                                        len(f32_same)]))
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(f32_same):
+        raise AssertionError(f"phase 30 f32: greedy tokens equal the one-"
+                             f"rank run's at steps {f32_same}")
+    # bf16: the one-rank steps fed the mesh's tokens
+    cfg = _serve_cfg("bfloat16")
+    params = model_lib.init(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), DEVICE)
+    got = ranks[0]["bfloat16"]
+    logits, cache = build_prefill_step(cfg, max_len)(
+        params, {"tokens": _tp_prompts(cfg, rows, prompt)})
+    decode = build_decode_step(cfg)
+    rel, agree = [], 0
+    for i in range(steps + 1):
+        ref = logits.float().cpu()
+        rel.append(float((got["logits"][i] - ref).abs().max()
+                         / ref.abs().max()))
+        agree += int((torch.argmax(ref, -1).to(torch.int32)
+                      == got["tokens"][i]).sum())
+        if i < steps:
+            logits, cache = decode(params, cache,
+                                   got["tokens"][i].to(DEVICE))
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not max(rel) <= TP_BF16_LOGIT_RTOL:
+        raise AssertionError(f"phase 30 bf16: logits differ by {rel} of "
+                             f"the largest")
+    times = []
+    for i, r in enumerate(ranks):
+        for dtype in ("float32", "bfloat16"):
+            s = r[dtype]["secs"]
+            dec = sorted(s[2:])[len(s[2:]) // 2]
+            times.append(f"rank {i} {dtype}: prefill {1e3 * s[0]:.1f} ms, "
+                         f"decode step (median from step 2) "
+                         f"{1e3 * dec:.1f} ms, peak "
+                         f"{r[dtype]['peak'] / 2**30:.2f} GiB")
+    print(f"phase 30 sharded serving, qwen3-0.6b full width and depth "
+          f"({L} layers) on a (1, 2) mesh of two gloo ranks on one card: "
+          f"prefill of {rows} x {prompt} tokens and {steps} greedy decode "
+          f"steps; per rank and dtype flash {want_pre['flash_attention_fwd']}"
+          f" launches, dense decode {want_dec['decode_attention_fwd']} = "
+          f"{L} x {steps}, at Hq 8 / Hkv 4, KV blocks "
+          f"{ranks[0]['bfloat16']['kv_local']}; f32 greedy tokens equal "
+          f"the one-rank run's at all {len(f32_same)} positions; bf16 "
+          f"logits vs one rank fed the same tokens, max err "
+          f"{max(rel):.4f} of the largest (<= {TP_BF16_LOGIT_RTOL}), "
+          f"argmax agreeing on {agree} of {rows * (steps + 1)}; "
+          + "; ".join(times) + f"; ranks {t_ranks:.1f}s [{card}]")
+    return summed
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -3149,9 +3693,14 @@ def main() -> None:
     done(27)
     paths.extend(phase_feature_probe())
     done(28)
+    paths.append(phase_tp_train())
+    done(29)
+    paths.append(phase_tp_serve())
+    done(30)
     # launches on the main paths: each path's own run, summed over the
     # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, the training paths,
-    # 17, 24 and 27's mesh run, and 28's real steps)
+    # 17, 24 and 27's mesh run, 28's real steps, and 29's bf16 and 30's
+    # runs on both ranks)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -3219,8 +3768,21 @@ def prefill_profiles(src: str) -> None:
     print(card)
 
 
+def tp_phases() -> None:
+    """``--tp``: build the kernels and run phases 29 and 30 alone (two
+    ranks on one card, training and serving); prints no JSON."""
+    phase_device_and_build()
+    for n, phase in ((29, phase_tp_train), (30, phase_tp_serve)):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {n} seconds: {time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--kernel-times"]:
+    if sys.argv[1:2] == ["--tp"]:
+        tp_phases()
+    elif sys.argv[1:2] == ["--kernel-times"]:
         kernel_times(sys.argv[2] if len(sys.argv) > 2 else "")
     elif sys.argv[1:2] == ["--prefill-profiles"]:
         prefill_profiles(sys.argv[2] if len(sys.argv) > 2 else "")

@@ -20,7 +20,9 @@ Adaptive choices:
     that divides, replicated otherwise.
 
 ``to_named`` turns specs into ``NamedSharding``s, whose ``placements``
-are the DTensor placements of the spec on the mesh.
+are the DTensor placements of the spec on the mesh.  ``tp_leaves`` says
+which stored leaves the port's tensor-parallel steps compute on this
+rank's shard (GSPMD derives that for the JAX package).
 """
 from __future__ import annotations
 
@@ -275,6 +277,59 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh):
         return fix_spec(s, leaf.shape, mesh)
 
     return tree_map_with_path(spec, cache_tree)
+
+
+#: the leaf names tensor parallelism may split (``tp_leaves``)
+TP_NAMES = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embed", "lm_head")
+
+
+def tp_leaves(cfg: ModelConfig, param_spec_tree, mesh):
+    """(the leaves the tensor-parallel compute takes as this rank's shard
+    over 'model', the replicated leaves whose gradients it sums over
+    'model'), as sets of paths, for the stored specs ``param_spec_tree``
+    (``param_specs``).  An attention block splits where M divides its q
+    heads and its kv groups line up with them: its ``wq`` and ``wo``
+    always, its ``wk`` / ``wv`` where M divides the kv heads too, else
+    they are gathered and their gradients summed (each rank reads only
+    its q heads' kv heads), as are its ``q_norm`` / ``k_norm``'s; a gated
+    MLP where M divides d_ff; the embedding and the LM head where M
+    divides the vocabulary.  Every other leaf (norms, router, experts,
+    Mamba2 layers, and leaves ``fix_spec`` leaves whole) is computed
+    whole.  Both sets are empty on a model axis of one rank."""
+    M = model_axis_size(mesh)
+    local, summed = set(), set()
+    if M == 1:
+        return local, summed
+    specs = dict(flatten_with_paths(param_spec_tree))
+
+    def on(path, dim):
+        return path in specs and specs[path][dim] == "model"
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    for path in specs:
+        pre, _, name = path.rpartition("/")
+        pre = pre + "/" if pre else ""
+        if name == "wq" and Hq % M == 0 and on(pre + "wq", -1) \
+                and on(pre + "wo", -2):
+            kv = {pre + "wk", pre + "wv"}
+            hl, G = Hq // M, Hq // Hkv
+            if Hkv % M == 0 and all(on(k, -1) for k in kv):
+                local |= kv
+            elif hl % G == 0 or G % hl == 0:
+                summed |= kv
+            else:
+                continue
+            local |= {pre + "wq", pre + "wo"}
+            summed |= {pre + n for n in ("q_norm", "k_norm")
+                       if pre + n in specs}
+        elif name == "wi_gate":
+            trio = (pre + "wi_gate", pre + "wi_up", pre + "wo")
+            if on(trio[0], -1) and on(trio[1], -1) and on(trio[2], -2):
+                local |= set(trio)
+    if on("embed", -2):
+        local.add("embed")
+    if on("lm_head", -1):
+        local.add("lm_head")
+    return local, summed
 
 
 class NamedSharding:

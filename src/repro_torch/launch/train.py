@@ -22,12 +22,16 @@ path).
 (parameters, ZeRO-1 moments and batch placed by ``launch/sharding.py``'s
 rules) over the default process group: the one the caller has set up,
 else one from ``torchrun``'s environment, else one rank of its own
-(``--mesh 1x1``).  Its backend is gloo with ``--device cpu`` and NCCL on
-the card, where a rank takes the card of its ``LOCAL_RANK``; a failed
-init raises.  ``--ep-moe`` runs the MoE layers expert-parallel on the
-mesh (``models/moe_ep.py``); it needs ``--mesh``.  ``--resume`` restores
-the checkpoint onto the mesh (``restore(..., shardings=)``), whatever
-mesh, or none, wrote it; rank 0 writes the checkpoints.
+(``--mesh 1x1``).  Its backend is gloo with ``--device cpu``; on the
+card a rank takes card ``LOCAL_RANK % device_count``, with NCCL where
+every local rank has a card of its own and gloo where ranks share one
+(``torchrun --nproc-per-node 2 ... --mesh 1x2`` on one card); a failed
+init raises.  On a mesh with a 'model' axis the dense blocks compute on
+their shards (``models/tp.py``).  ``--ep-moe`` runs the MoE layers
+expert-parallel on the mesh (``models/moe_ep.py``); it needs
+``--mesh``.  ``--resume`` restores the checkpoint onto the mesh
+(``restore(..., shardings=)``), whatever mesh, or none, wrote it; rank 0
+writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ from repro_torch.train import optim
 from repro_torch.train.sharded import (build_sharded_train_step,
                                        gather_state, shard_state)
 from repro_torch.train.step import build_train_step
+from repro_torch.utils.tree import flatten_with_paths
 
 
 def _device(name: str) -> torch.device:
@@ -73,14 +78,22 @@ def _free_port() -> int:
 
 def _mesh(spec: str, dev: torch.device):
     """(the ``DeviceMesh`` of ``--mesh DxM`` on axes (data, model), the
-    rank's device, whether this call set up the process group)."""
+    rank's device, whether this call set up the process group).  Local
+    rank r takes card ``r % device_count``: NCCL where every local rank
+    has a card of its own, gloo where ranks share one (NCCL refuses two
+    ranks on one card); the run prints which."""
     D, M = (int(x) for x in spec.split("x"))
     owned = not dist.is_initialized()
+    shared = False
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda",
+                           int(os.environ.get("LOCAL_RANK", 0)) % cards)
         torch.cuda.set_device(dev)
+        shared = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get(
+            "WORLD_SIZE", 1))) > cards
     if owned:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = "nccl" if dev.type == "cuda" and not shared else "gloo"
         if "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend)
         else:
@@ -92,12 +105,18 @@ def _mesh(spec: str, dev: torch.device):
             raise ValueError(f"--mesh {spec} needs {D * M} ranks; the "
                              f"process group has {dist.get_world_size()}")
         from torch.distributed.device_mesh import init_device_mesh
+        backend = dist.get_backend()
         mesh = init_device_mesh(dev.type, (D, M),
                                 mesh_dim_names=("data", "model"))
     except BaseException:
         if owned:
             dist.destroy_process_group()
         raise
+    if dist.get_rank() == 0:
+        print(f"mesh {spec}: {dist.get_world_size()} ranks, backend "
+              f"{backend}, rank 0 on {dev}"
+              + (" (the local ranks share the cards)" if shared else ""),
+              flush=True)
     return mesh, dev, owned
 
 
@@ -137,6 +156,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the arch's depth to this many layers "
                          "(widths stay the arch's)")
+    ap.add_argument("--dtype", default=None,
+                    help="params and compute in this dtype (e.g. float32; "
+                         "default: the arch's)")
     args = ap.parse_args(argv)
     if args.ep_moe and args.mesh == "none":
         raise ValueError("--ep-moe runs on a mesh: pass --mesh DxM")
@@ -157,6 +179,8 @@ def _train(args, dev: torch.device, mesh) -> dict:
         cfg = cfg.replace(param_dtype="float32", compute_dtype="float32")
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
+    if args.dtype is not None:
+        cfg = cfg.replace(param_dtype=args.dtype, compute_dtype=args.dtype)
     tc = TrainConfig(learning_rate=args.lr, warmup_steps=args.steps // 10,
                      total_steps=args.steps, checkpoint_every=args.ckpt_every,
                      checkpoint_dir=args.ckpt_dir)
@@ -184,6 +208,13 @@ def _train(args, dev: torch.device, mesh) -> dict:
         shardings = {"params": sh["params"], "m": sh["opt"].m,
                      "v": sh["opt"].v, "count": sh["opt"].count}
     lead = mesh is None or dist.get_rank() == 0
+    if lead and mesh is not None and shd.model_axis_size(mesh) > 1:
+        split = step_fn.tp_leaves[0]
+        whole = [p for p, _ in flatten_with_paths(params) if p not in split
+                 and p.rsplit("/", 1)[-1] in shd.TP_NAMES]
+        print(f"tensor parallel over 'model': {len(split)} leaves split"
+              + (f"; computed whole: {', '.join(whole)}" if whole else ""),
+              flush=True)
 
     start = 0
     if args.resume and latest_step(args.ckpt_dir) is not None:

@@ -11,6 +11,10 @@ JAX package, which refuses the others there; the dense-cache pair
 (``prefill`` / ``decode_step``) for every family; and ``forward_train``
 for every family.  Under ``moe_ep.ep_mesh_context`` the MoE layers take
 the expert-parallel path (``models/moe_ep.py``), as in the JAX package.
+Under ``tp.tp_mesh_context`` the attention and MLP blocks and the
+vocabulary compute on this rank's shards over 'model' wherever they are
+given shards (``models/tp.py``); the Mamba2 layers, the norms and the
+router always compute whole.
 
 The train mode (``forward_train``) keeps no cache and writes no state.
 Its attention and SSD scan take their plain versions on any device (the
@@ -31,6 +35,7 @@ Design rules:
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, Optional
 
 import torch
@@ -46,6 +51,9 @@ from repro_torch.models.layers import (add_rms_norm, mlp, qk_norm_rope,
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.moe_ep import (current_ep_mesh, ep_mesh_context,
                                        moe_ffn_ep)
+from repro_torch.models.tp import (copy_to, current_tp, local_kv_heads,
+                                   reduce_from, split, tp_mesh_context,
+                                   vocab_embed)
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
 
@@ -186,7 +194,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None):
     """Dense KV/SSM cache tree for every family: zeros on ``device``, or
     ``device="meta"`` tensors with ``abstract_only`` (what the footprint
-    estimator sizes)."""
+    estimator sizes).  Under the tensor-parallel context the KV leaves
+    hold this rank's Hkv/M heads where M divides Hkv."""
     dt = torch_dtype(cfg.compute_dtype)
     dev = "meta" if abstract_only else device
 
@@ -194,6 +203,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     hd, Hkv = cfg.head_dim, cfg.num_kv_heads
+    tp = current_tp()
+    if tp is not None and Hkv % tp.size == 0:
+        Hkv //= tp.size
     cache: Dict[str, Any] = {"len": mk((), torch.int32)}
     if cfg.family in ("dense", "vlm", "moe"):
         if cfg.local_global:
@@ -266,7 +278,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_pages: int,
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg, tokens):
-    x = params["embed"][tokens]  # gather [B,S,d]
+    # gather [B,S,d]; vocab-parallel where the embedding is a shard
+    x = vocab_embed(params["embed"], tokens, cfg.vocab_size)
     if getattr(cfg, "embed_scale", False) or cfg.local_global:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -276,9 +289,12 @@ def _unembed(params, cfg, h, delta=None):
     """Final norm + LM head (+ gemma2 final softcap). h: [..., d], and the
     last block's pending output ``delta`` (added in the final norm's
     launch).  Logits are fp32: the products of the weights' dtype, summed
-    in fp32."""
+    in fp32; under the tensor-parallel context, of this rank's vocabulary
+    columns where the weight is a shard."""
     h, _ = add_rms_norm(h, delta, params["final_ln_w"], cfg.norm_eps)
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if split(w.shape[-1], cfg.vocab_size):
+        h = copy_to(h)
     logits = h.float() @ w.float()
     if cfg.final_softcap > 0:
         logits = softcap(logits, cfg.final_softcap)
@@ -334,15 +350,27 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     shared position lags it and the last decode steps land there); the
     attention then sees every slot valid and measures a window from the
     unclamped position, as the JAX package's plain path does.
+
+    Given this rank's q heads under the tensor-parallel context
+    (``models/tp.py``), the block computes them and their kv heads (from
+    every kv head where ``wk``/``wv`` are whole: ``local_kv_heads``),
+    writes those into the cache, and sums ``wo``'s partial products over
+    'model' before the post-norm.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
     h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
-    q = (h @ p["wq"]).reshape(B, S, cfg.num_heads, hd)
+    Hq = p["wq"].shape[-1] // hd
+    tp = split(Hq, cfg.num_heads)
+    if tp:
+        h = copy_to(h)
+    q = (h @ p["wq"]).reshape(B, S, Hq, hd)
 
     new_kv = None
     if cross_kv is not None:
         k, v = cross_kv
+        if tp and k.shape[2] == cfg.num_kv_heads:
+            k, v = local_kv_heads(k, v, cfg.num_heads)
         q, k = _qk_normed(p, cfg, q, k)
         out = attention(q, k, v, causal=False, scale=_attn_scale(cfg),
                         attn_softcap=cfg.attn_softcap,
@@ -350,8 +378,10 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                         f32_logits=cfg.attn_f32_logits,
                         differentiable=mode == "train")
     else:
-        k = (h @ p["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-        v = (h @ p["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+        k = (h @ p["wk"]).reshape(B, S, -1, hd)
+        v = (h @ p["wv"]).reshape(B, S, -1, hd)
+        if tp and k.shape[2] == cfg.num_kv_heads:
+            k, v = local_kv_heads(k, v, cfg.num_heads)
         if not rope:
             q, k = _qk_normed(p, cfg, q, k)
         if mode == "decode":
@@ -383,17 +413,29 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
             if mode == "prefill":
                 new_kv = (k, v)
 
-    out = out.reshape(B, S, cfg.num_heads * hd) @ p["wo"]
+    out = out.reshape(B, S, Hq * hd) @ p["wo"]
+    if tp:
+        out = reduce_from(out)
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
     return x, out, new_kv
+
+
+def _mlp(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The gated MLP of ``p`` on the normed ``h``: column- and row-parallel
+    where it is given this rank's columns of ``wi_*`` and rows of ``wo``
+    under the tensor-parallel context."""
+    tp = split(p["wi_gate"].shape[-1], cfg.d_ff)
+    out = mlp(copy_to(h) if tp else h, p["wi_gate"], p["wi_up"], p["wo"],
+              cfg.act)
+    return reduce_from(out) if tp else out
 
 
 def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
               delta: Optional[torch.Tensor] = None):
     """Pre-norm gated MLP: -> (x + delta, the block's pending output)."""
     h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
-    out = mlp(h, p["wi_gate"], p["wi_up"], p["wo"], cfg.act)
+    out = _mlp(p, cfg, h)
     if cfg.use_post_norm:
         out = rms_norm(out, p["post_ln_w"], cfg.norm_eps)
     return x, out
@@ -419,8 +461,7 @@ def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = out.y.reshape(B, S, d)
     if shared_mlp is not None:
         hs = rms_norm(x, shared_mlp["ln_w"], cfg.norm_eps)
-        y = y + mlp(hs, shared_mlp["wi_gate"], shared_mlp["wi_up"],
-                    shared_mlp["wo"], cfg.act)
+        y = y + _mlp(shared_mlp, cfg, hs)
     return x, y, out.aux_loss
 
 
@@ -475,17 +516,19 @@ def _maybe_remat(fn, cfg, mode):
 
     def run(*args):
         # the recompute runs in the backward, on the card on autograd's
-        # own thread, where the thread-local expert-parallel mesh is not
-        # set: it re-enters the one the forward ran under
-        ep = current_ep_mesh()
-        body = fn if ep is None else _under_ep(fn, ep)
+        # own thread, where the thread-local expert-parallel and tensor-
+        # parallel meshes are not set: it re-enters the ones the forward
+        # ran under
+        ep, tp = current_ep_mesh(), current_tp()
+        body = fn if ep is None and tp is None else _under(fn, ep, tp)
         return checkpoint(body, *args, use_reentrant=False, **extra)
     return run
 
 
-def _under_ep(fn, ep):
+def _under(fn, ep, tp):
     def body(*args):
-        with ep_mesh_context(*ep):
+        with (ep_mesh_context(*ep) if ep else nullcontext()), \
+                (tp_mesh_context(tp.mesh) if tp else nullcontext()):
             return fn(*args)
     return body
 
@@ -801,7 +844,13 @@ def _encdec_stacks(params, cfg, enc_x, dec_x, mode, cache=None):
         enc_h, _ = add_rms_norm(enc_x, d, params["enc_final_ln_w"],
                                 cfg.norm_eps)
         B, S = enc_h.shape[:2]
-        shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+        # this rank's heads (or every head, where wk/wv are whole) under
+        # the tensor-parallel context, the encoder output's gradient then
+        # summed over 'model' once for every layer
+        if split(dec[0]["cross_attn"]["wq"].shape[-1],
+                 cfg.num_heads * cfg.head_dim):
+            enc_h = copy_to(enc_h)
+        shape = (B, S, -1, cfg.head_dim)
         cross_k = [(enc_h @ pb["cross_attn"]["wk"]).reshape(shape)
                    for pb in dec]
         cross_v = [(enc_h @ pb["cross_attn"]["wv"]).reshape(shape)

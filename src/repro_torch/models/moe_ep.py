@@ -19,9 +19,9 @@ through ``shard_map``: a replicated input's gradient is the sum over the
 ranks that computed with it, a sharded one's is its shard's.  Three ops
 make that so:
 
-  * entering the f-sharded expert GEMMs (``_CopyTo``): identity forward,
-    the gradient all-reduced over 'model' (each rank holds only its
-    f-slice's share of it); leaving them, the partial sum
+  * entering the f-sharded expert GEMMs (``_CopyTo``, ``models/tp.py``):
+    identity forward, the gradient all-reduced over 'model' (each rank
+    holds only its f-slice's share of it); leaving them, the partial sum
     (``_ReduceFrom``): all-reduce forward, identity backward;
   * the replicated router enters through ``_CopyTo`` over the token axes,
     so its gradient sums over the token shards;
@@ -53,6 +53,7 @@ from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.layers import activation
 from repro_torch.models.moe import (MoEOutput, _combine, _local_dispatch,
                                     capacity, load_balance_loss, router_topk)
+from repro_torch.models.tp import _CopyTo, _ReduceFrom, all_reduce
 
 _ctx = threading.local()
 
@@ -80,38 +81,6 @@ def ep_mesh_context(mesh, data_axis: str = "data",
 
 def current_ep_mesh():
     return getattr(_ctx, "info", None)
-
-
-def _all_reduce(t: torch.Tensor, groups) -> torch.Tensor:
-    t = t.clone()
-    for g in groups:
-        dist.all_reduce(t, group=g)
-    return t
-
-
-class _CopyTo(torch.autograd.Function):
-    """Identity forward; the gradient summed over ``groups``."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        ctx.groups = groups
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.groups), None
-
-
-class _ReduceFrom(torch.autograd.Function):
-    """Summed over ``groups`` forward; identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, groups):
-        return _all_reduce(x, groups)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 def _gather0(t: torch.Tensor, group) -> torch.Tensor:
@@ -228,7 +197,7 @@ def moe_ffn_ep(
     aux = _ReduceFrom.apply(load_balance_loss(probs, idx, E) / n_shards,
                             token_groups)
     with torch.no_grad():
-        dropped = _all_reduce(1.0 - keep.float().mean(),
+        dropped = all_reduce(1.0 - keep.float().mean(),
                               token_groups) / n_shards
     return MoEOutput(y, aux, dropped)
 

@@ -1,6 +1,9 @@
 """Next-token cross-entropy over fp32 logits, mirroring the JAX package's
 ``train/loss.py``.
 
+Under the tensor-parallel context (``models/tp.py``) the CE runs over
+this rank's vocabulary columns (``vocab_lse_gold``).
+
 Optional sequence chunking splits the logits into ``seq_chunks`` pieces,
 each normed and projected by its own ``lm_logits`` call, as the JAX
 function does.  In eager PyTorch autograd keeps every chunk's logits for
@@ -14,12 +17,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import model as model_lib
+from repro_torch.models.tp import vocab_lse_gold
 
 
 def _ce_from_hidden(params, cfg, hidden, labels, mask):
-    logits = model_lib.lm_logits(params, cfg, hidden)  # [B,S,V] fp32
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # [B,S,V] fp32, or this rank's [B,S,V/M] under the tensor-parallel
+    # context: no [B,S,V] is gathered
+    logits = model_lib.lm_logits(params, cfg, hidden)
+    lse, gold = vocab_lse_gold(logits, labels, cfg.vocab_size)
     nll = (lse - gold) * mask
     return torch.sum(nll), torch.sum(mask)
 

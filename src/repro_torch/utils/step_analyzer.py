@@ -270,6 +270,32 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
+class CollectiveCounter(TorchDispatchMode):
+    """The collectives the ops run under it issue, on real tensors (a
+    step on its ranks, or DTensor's gathers): ``counts`` and operand
+    ``bytes`` by JAX's kind names, as ``StepCost`` counts them.
+
+        with CollectiveCounter() as c:
+            step(...)
+        c.counts.get("all-gather", 0)
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.counts: Dict[str, int] = {}
+        self.bytes: Dict[str, float] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        kind = COLLECTIVE_KINDS.get(func.__name__.split(".")[0]) \
+            if func.namespace in _COLLECTIVE_NS else None
+        if kind is not None:
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.bytes[kind] = self.bytes.get(kind, 0.0) + float(
+                sum(_nbytes(t) for t in _tensors(args[:1])))
+        return out
+
+
 def _peak(events, skip) -> int:
     live = peak = 0
     for key, b in events:

@@ -9,7 +9,8 @@ capacity factor and dispatch mode, y, aux, the gradients of
 sum(y * r) + 0.37 * aux, and the assignments each source shard drops;
 ``pipeline``: ``pipeline_apply`` on a (2, 2) (pipe, dp) mesh and a
 (4, 1) one, and its gradients; ``sharded_step``: the launcher's sharded
-train step."""
+train step; ``serve_steps``: the dry-run's prefill and serve steps
+jitted under ``serve_shardings``."""
 import sys
 
 import jax
@@ -88,7 +89,8 @@ def pipeline(z):
 
 def sharded_step(z):
     """The JAX launcher's sharded step (``train_shardings`` on a (2, 2)
-    mesh, under ``ep_mesh_context`` where ``z["ep"]``, with
+    mesh, or on ``z["mesh"]``, under ``ep_mesh_context`` where
+    ``z["ep"]``, with
     ``z["microbatch"]``) from the port's checkpoint of step 0, on
     batches with the first 3 r + 1 tokens of row r masked where
     ``z["masked"]`` (``scaleout_ranks.masked``): the losses and the
@@ -119,7 +121,8 @@ def sharded_step(z):
     opt = optim.OptState(m=tree["m"], v=tree["v"], count=tree["count"])
     shape = ShapeConfig("t", "train", int(z["S"]), int(z["B"]))
     # GSPMD's propagation (Auto axes), as the launcher's jit relies on
-    mesh = jax.make_mesh((2, 2), ("data", "model"),
+    shape_ = tuple(int(x) for x in z["mesh"]) if "mesh" in z else (2, 2)
+    mesh = jax.make_mesh(shape_, ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
 
     def batch(i):
@@ -153,9 +156,64 @@ def sharded_step(z):
     return out
 
 
+def serve_steps(z):
+    """For each arch of ``z["archs"]`` (its smoke config in f32, with
+    ``z[arch + "/capacity_factor"]`` where given), from the port's
+    checkpoint ``z[arch + "/ckpt"]``: the dry-run's ``build_prefill_step``
+    jitted with ``serve_shardings``' params, ``batch_specs`` and
+    ``cache_specs`` on a (2, 2) mesh on the batch ``z[arch + "/" + key]``,
+    then ``z["steps"]`` of its ``build_serve_step`` from the prefill's
+    greedy token: each step's tokens and the last cache."""
+    from repro.checkpoint.checkpoint import restore
+    from repro.configs import get_config
+    from repro.launch import sharding as shd
+    from repro.models import model as jm
+    from repro.train.step import build_prefill_step, build_serve_step
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    max_len, steps = int(z["max_len"]), int(z["steps"])
+    out = {}
+    for arch in (str(a) for a in z["archs"]):
+        over = {"capacity_factor": float(z[arch + "/capacity_factor"])} \
+            if arch + "/capacity_factor" in z else {}
+        cfg = get_config(arch, smoke=True).replace(
+            param_dtype="float32", compute_dtype="float32", **over)
+        abst = jm.abstract(cfg)
+        params = restore(str(z[arch + "/ckpt"]), abst)[0]
+        batch = {k.split("/", 1)[1]: jnp.asarray(z[k]) for k in z
+                 if k.startswith(arch + "/") and k.split("/", 1)[1] in
+                 ("tokens", "patch_embeds", "enc_embeds")}
+        B = batch["tokens"].shape[0]
+        cross = batch["enc_embeds"].shape[1] if "enc_embeds" in batch \
+            else 1500
+        cache = jm.init_cache(cfg, B, max_len, abstract_only=True,
+                              cross_len=cross)
+        sh = shd.serve_shardings(cfg, mesh, abst, cache, B)
+        bs = shd.to_named(shd.batch_specs(batch, mesh), mesh)
+        with mesh:
+            pre = jax.jit(build_prefill_step(cfg, max_len),
+                          in_shardings=(sh["params"], bs),
+                          out_shardings=(None, sh["cache"]))
+            serve = jax.jit(build_serve_step(cfg),
+                            in_shardings=(sh["params"], sh["token"],
+                                          sh["cache"]),
+                            out_shardings=(sh["token"], sh["cache"]))
+            logits, cache = pre(params, batch)
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            out[f"{arch}/logits"] = np.asarray(logits)
+            out[f"{arch}/tok0"] = np.asarray(tok)
+            for i in range(steps):
+                tok, cache = serve(params, tok, cache)
+                out[f"{arch}/tok{i + 1}"] = np.asarray(tok)
+        for k, v in cache.items():
+            out[f"{arch}/cache/{k}"] = np.asarray(v)
+    return out
+
+
 if __name__ == "__main__":
     case, src, dst = sys.argv[1:4]
     assert jax.device_count() == 4, jax.devices()
     np.savez(dst, **{"moe_ep": moe_ep, "pipeline": pipeline,
-                     "sharded_step": sharded_step}[case](
+                     "sharded_step": sharded_step,
+                     "serve_steps": serve_steps}[case](
                          dict(np.load(src))))

@@ -282,18 +282,216 @@ STEP_TC = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 
 
-def one_rank_steps(arch, over, B, S, steps, opts=None):
+def one_rank_steps(arch, over, B, S, steps, opts=None, grads=False):
     """The port's one-rank steps of ``sharded_steps_rank``'s runs, from
     the same params and batches: the metrics of each step and the final
-    params."""
-    from repro_torch.train.step import build_train_step
+    params (and, with ``grads``, each step's gradients)."""
+    from repro_torch.train.step import (build_loss_fn, build_train_step,
+                                        value_and_grad)
     cfg, tc, p, o, batch = _step_inputs(arch, over, opts or {}, B, S)
     step = build_train_step(cfg, tc)
-    ms = []
+    ms, gs = [], []
     for i in range(steps):
+        if grads:
+            gs.append(value_and_grad(build_loss_fn(cfg), p, batch(i))[1])
         p, o, m = step(p, o, batch(i))
         ms.append({n: float(v) for n, v in m.items()})
-    return ms, p
+    return (ms, p, gs) if grads else (ms, p)
+
+
+def tp_train_rank(rank, shapes, runs, B, S, steps):
+    """For each mesh shape of ``shapes`` (axes data, model) and each
+    (arch, ep, config overrides) of ``runs``: ``steps`` sharded train
+    steps of the arch's smoke config in f32 from the seed-0 params,
+    batches of B x S: the metrics of each step, the step's
+    ``tp_leaves``, the shapes of this rank's compute tensors and the
+    leaves whose compute tensor took an all-gather, and on rank 0 the
+    final params gathered whole."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import train_shardings
+    from repro_torch.train.sharded import (build_sharded_train_step,
+                                           gather_state, shard_state)
+    from repro_torch.utils.step_analyzer import CollectiveCounter
+    from repro_torch.utils.tree import flatten_with_paths
+    outs = {}
+    for shape in shapes:
+        mesh = make_debug_mesh(shape)
+        for arch, ep, over in runs:
+            cfg, tc, params, opt, batch = _step_inputs(arch, over, {}, B, S)
+            sh = train_shardings(cfg, mesh, params, opt, batch(0), tc)
+            params, opt = shard_state(params, opt, sh)
+            step = build_sharded_train_step(cfg, tc, sh, ep=ep)
+            out = {"tp": step.tp_leaves, "compute": {}, "gathered": set(),
+                   "metrics": []}
+            for path, leaf in flatten_with_paths(params):
+                with CollectiveCounter() as c:
+                    t, = step.compute_leaves(_nest(path, leaf))
+                out["compute"][path] = tuple(t.shape)
+                if c.counts.get("all-gather"):
+                    out["gathered"].add(path)
+            for i in range(steps):
+                params, opt, m = step(params, opt, batch(i))
+                out["metrics"].append({n: float(v) for n, v in m.items()})
+            full = gather_state(params)
+            if rank == 0:
+                out["params"] = full
+            outs[(shape, arch, ep)] = out
+    return outs
+
+
+def _nest(path: str, leaf):
+    """A tree of one leaf at ``path``."""
+    for key in reversed(path.split("/")):
+        leaf = {key: leaf}
+    return leaf
+
+
+def tp_locality_rank(rank, arch, B, S):
+    """``step_analyzer.analyze`` on a (2, 2) mesh of the loss forward and
+    of the loss and gradients of the tensor-parallel train step (its
+    compute tensors, under its context) and of the gathered compute (the
+    whole params, no context), on this rank's block of the batch: each
+    one's collectives, argument bytes and peak temporary bytes."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import train_shardings
+    from repro_torch.train.sharded import (build_sharded_train_step,
+                                           local_block, shard_state)
+    from repro_torch.train.step import build_loss_fn, value_and_grad
+    from repro_torch.utils.step_analyzer import analyze
+    from repro_torch.utils.tree import flatten_with_paths, tree_unflatten
+    mesh = make_debug_mesh((2, 2))
+    cfg, tc, whole, opt, batch = _step_inputs(arch, {}, {}, B, S)
+    sh = train_shardings(cfg, mesh, whole, opt, batch(0), tc)
+    params, _ = shard_state(whole, opt, sh)
+    step = build_sharded_train_step(cfg, tc, sh)
+    lb = {k: local_block(v, sh["batch"][k]) for k, v in batch(0).items()}
+    loss_fn = build_loss_fn(cfg)
+
+    def fwd(c, b):
+        return loss_fn(tree_unflatten(params, c), b)[0]
+
+    def fwd_bwd(c, b):
+        return value_and_grad(loss_fn, tree_unflatten(params, c), b)
+    out = {"layers": cfg.num_layers, "remat": cfg.remat}
+    runs = {"tp": step.compute_leaves(params),
+            "gathered": [t for _, t in flatten_with_paths(whole)]}
+    for name, compute in runs.items():
+        for kind, fn in (("forward", fwd), ("step", fwd_bwd)):
+            if name == "tp":
+                with step.context():
+                    c = analyze(fn, compute, lb)
+            else:
+                c = analyze(fn, compute, lb)
+            out[name, kind] = {"counts": c.collective_counts,
+                               "arguments": c.argument_bytes,
+                               "temporaries": c.peak_temp_bytes,
+                               "flops": c.flops}
+    return out
+
+
+def tp_train_checks_rank(rank, shapes, runs, B, S, steps, arch):
+    """``tp_train_rank`` and ``tp_locality_rank`` in one spawn."""
+    return {"train": tp_train_rank(rank, shapes, runs, B, S, steps),
+            "locality": tp_locality_rank(rank, arch, B, S)}
+
+
+def serve_inputs(arch, over, B, S):
+    """The smoke config of ``arch`` in f32 with ``over``, the seed-0
+    params and the prefill batch of B rows x S tokens that
+    ``concrete_inputs`` draws from seed 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import concrete_inputs
+    from repro_torch.models import model as tm
+    cfg = get_config(arch, smoke=True).replace(**F32, **over)
+    params = tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = concrete_inputs(cfg, ShapeConfig("p", "prefill", S, B), rng=1)
+    return cfg, params, batch
+
+
+def tp_serve_rank(rank, shape, runs, B, S, max_len, steps):
+    """For each (arch, config overrides) of ``runs`` on a mesh of
+    ``shape``: the sharded prefill of ``serve_inputs``' batch into a
+    cache of ``max_len`` slots and ``steps`` sharded serve steps from its
+    greedy token: each step's tokens, the prefill's logits and the last
+    cache gathered whole, and the shapes of this rank's cache blocks; or
+    the ``ValueError``'s message where the steps refuse the cache's
+    specs."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import serve_shardings
+    from repro_torch.models import model as tm
+    from repro_torch.train.sharded import distribute
+    from repro_torch.train.sharded_serve import (build_sharded_prefill_step,
+                                                 build_sharded_serve_step,
+                                                 greedy)
+    from repro_torch.utils.tree import tree_map
+    mesh = make_debug_mesh(shape)
+    outs = []
+    for arch, over in runs:
+        cfg, params, batch = serve_inputs(arch, over, B, S)
+        cross = batch["enc_embeds"].shape[1] if "enc_embeds" in batch \
+            else 1500
+        cache = tm.init_cache(cfg, B, max_len, abstract_only=True,
+                              cross_len=cross)
+        sh = serve_shardings(cfg, mesh, params, cache, B)
+        try:
+            prefill = build_sharded_prefill_step(cfg, max_len, sh)
+        except ValueError as e:
+            outs.append(str(e))
+            continue
+        serve = build_sharded_serve_step(cfg, sh)
+        p = tree_map(distribute, params, sh["params"])
+        logits, c = prefill(p, batch)
+        tok = greedy(logits, cfg)
+        toks = [tok.full_tensor()]
+        for _ in range(steps):
+            tok, c = serve(p, tok, c)
+            toks.append(tok.full_tensor())
+        outs.append({"tokens": toks, "logits": logits.full_tensor(),
+                     "cache": {k: v.full_tensor() for k, v in c.items()},
+                     "local": {k: tuple(v.to_local().shape)
+                               for k, v in c.items()}})
+    return outs
+
+
+def tp_helpers_rank(rank, inp_path):
+    """``models/tp.py``'s helpers on a (2, 2) mesh, each rank given its
+    model-axis block of the whole inputs: the vocab-parallel embedding,
+    log-sum-exp and gold logit (values, and the gradients of
+    sum(lse * a) - sum(gold * b) by their logits), the greedy index
+    (rows whose max ties across the ranks' columns), and ``gather_last``
+    (its output and the gradient of sum(out * r))."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import tp
+    mesh = make_debug_mesh((2, 2))
+    _, mi = mesh.get_coordinate()
+    z = np.load(inp_path)
+    V = z["table"].shape[0]
+    cols = slice(mi * V // 2, (mi + 1) * V // 2)
+    with tp.tp_mesh_context(mesh):
+        emb = tp.vocab_embed(_t(z["table"][cols]), _t(z["tokens"]), V)
+        logits = _t(z["logits"][..., cols], True)
+        lse, gold = tp.vocab_lse_gold(logits, _t(z["labels"]), V)
+        (torch.sum(lse * _t(z["a"])) - torch.sum(gold * _t(z["b"]))
+         ).backward()
+        top = tp.vocab_argmax(_t(z["ties"][..., cols]), V)
+        x = _t(z["x"][..., mi * 4:(mi + 1) * 4], True)
+        g = tp.gather_last(x)
+        torch.sum(g * _t(z["r"])).backward()
+    return {"model": mi, "embed": emb, "lse": lse.detach(),
+            "gold": gold.detach(), "dlogits": logits.grad, "argmax": top,
+            "gathered": g.detach(), "dx": x.grad}
+
+
+def tp_serve_checks_rank(rank, runs, B, S, max_len, steps, refused,
+                         helpers):
+    """``tp_serve_rank`` of ``runs`` on (2, 2) and of ``refused`` on
+    (1, 4), and ``tp_helpers_rank`` of ``helpers``, in one spawn."""
+    return {"served": tp_serve_rank(rank, (2, 2), runs, B, S, max_len,
+                                    steps),
+            "refused": tp_serve_rank(rank, (1, 4), refused, B, S, max_len,
+                                     steps),
+            "helpers": tp_helpers_rank(rank, helpers)}
 
 
 def cli_rank(rank, argvs):
