@@ -206,10 +206,37 @@ and any failure exits non-zero:
     and in bf16 (logits within ``TP_BF16_LOGIT_RTOL`` of the one-rank
     steps fed the same tokens); on each rank the flash kernel 28 times
     per prefill and the dense decode kernel 28 times per step at Hq 8 /
-    Hkv 4, the KV cache held as the rank's 4 heads.
+    Hkv 4, the KV cache held as the rank's 4 heads;
+31. the sequence-split KV cache: (a) the dense decode kernel with its
+    log-sum-exp on each of 16 ranges of 2,048 of 32,768 slots (the
+    decode_32k cell's layout at M = 16) at qwen3-0.6b's heads and at
+    gemma2-27b's local layers (window 4,096: ranges fall outside it), f32
+    and bf16: each range's o and lse against the plain version, an
+    empty range exactly o = 0 and lse = -inf, the ranges merged against
+    the whole call; one rank's launch timed with and without the lse,
+    in bf16 and f32;
+    (b) full-width qwen3-0.6b (4 of its 28 layers) served by 16 gloo
+    ranks that share the card on a (1, 16) mesh, where its 8 kv heads
+    do not split over 16 ranks and ``cache_specs`` splits the cache over
+    the sequence (each rank every kv head of 16 of 256 slots): a prompt
+    of 44 tokens over ranks 0-2's slots and 5 decode steps, the last
+    into rank 3's, in f32 (every greedy token equal to the one-rank run's) and bf16
+    (logits within ``TP_BF16_LOGIT_RTOL``); per rank the flash kernel
+    once per layer per prefill (phase 5's ``qwen3-seq16`` shape) and the
+    decode kernel with its lse once per layer per step, and per step and
+    layer one q all-gather and one all-to-all of the partials;
+32. the dry-run (``python -m repro_torch.launch.dryrun``'s entry point,
+    in a process of its own after phase 31, on the host's CPU):
+    qwen3-0.6b's train_4k, prefill_32k and decode_32k and mamba2-780m's
+    long_500k cells on the 16x16 and 2x16x16 meshes at full width and
+    depth, on the card machine's torch (fake tensors, rank 0 of a fake
+    process group): every cell ``ok`` with 22 finite features, the
+    decode cell's KV cache per device the whole cache's over M x D and
+    one all-to-all per layer; each cell's per-device peak, roofline
+    terms and dominant term.
 
 Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24, 27, 28's
-real steps, 29 (b) and 30) runs an
+real steps, 29 (b), 30 and 31 (b)) runs an
 RMSNorm kernel for every norm (the fused ones wherever a neighbour is
 absorbed), and each runs with every kernel's launch count set to 0 just
 before it and read
@@ -239,6 +266,10 @@ are timed on one card in one call.
 
 builds the kernels and runs phases 29 and 30 alone.
 
+    python3 chip_smoke.py --seq-split
+
+builds the kernels and runs phases 31 and 32 alone.
+
     python3 chip_smoke.py --prefill-profiles [SRC]
 
 builds the kernels and profiles one served prefill of mamba2-780m and of
@@ -249,6 +280,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -937,7 +969,9 @@ GEMMA2_SCALE = 144 ** -0.5
 #: local layers, window 4,096 and softcap 50 at scale 144^-0.5, and its
 #: long-context prefill of 4,160 tokens, where the window binds;
 #: whisper-large-v3's decoder, D 64 and G 1; pixtral-12b's 128 tokens and
-#: 4 patches, S 132).  The scale is D^-0.5 unless given.
+#: 4 patches, S 132; qwen3-0.6b's heads on one of two model ranks, and on
+#: one of 16 (phase 31's prefill: Hq 1, Hkv 1)).  The scale is D^-0.5
+#: unless given.
 FLASH_CASES = [
     ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
     ("mha-ragged", (2, 80, 4, 4, 16), True, 0, 0.0),
@@ -962,6 +996,7 @@ FLASH_CASES = [
     ("whisper", (8, 128, 20, 20, 64), True, 0, 0.0),
     ("pixtral", (8, 132, 32, 8, 128), True, 0, 0.0),
     ("qwen3-tp2", (8, 128, 8, 4, 128), True, 0, 0.0),
+    ("qwen3-seq16", (8, 44, 1, 1, 128), True, 0, 0.0),
 ]
 
 #: (name, (B, S, Hq, Hkv, D, lens), window, softcap[, scale]): lens
@@ -971,7 +1006,9 @@ FLASH_CASES = [
 #: paths' shapes (8 rows at the shared position; gemma2's local layers at
 #: 161 slots and at 4,177, where the window skips the first 74 keys;
 #: whisper's decoder; pixtral at len + 1 = 163 > S = 161, the decode
-#: write clamped onto the last slot: lens = S, the window's end at 163).
+#: write clamped onto the last slot: lens = S, the window's end at 163;
+#: qwen3-0.6b's heads on one of two model ranks, and phase 31's launch on
+#: one of 16 ranks' 16-slot range: every q head, rows that attend none).
 #: A len above S is the query's position + 1 past the last slot.
 DECODE_CASES = [
     ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
@@ -998,6 +1035,8 @@ DECODE_CASES = [
     ("pixtral", (8, 161, 32, 8, 128, [163] * 8), 0, 0.0),
     ("clamped-window", (2, 96, 8, 2, 64, [100, 97]), 40, 30.0),
     ("qwen3-tp2", (8, 144, 8, 4, 128, [144] * 8), 0, 0.0),
+    ("qwen3-seq16", (8, 16, 16, 8, 128, [16, 16, 9, 1, 0, 0, 16, 3]), 0,
+     0.0),
 ]
 
 #: the served launch shapes phase 5 times, by path: the case of that name
@@ -1220,11 +1259,9 @@ def phase_dense_kernels_vs_plain() -> dict:
             ref = decode_attention_ref(q.transpose(1, 2), kc, vc, ln,
                                        ends=ends, **o).transpose(1, 2)
             torch.cuda.synchronize()
-            live = ln >= 1       # the plain version averages len-0 rows
-            if not torch.all(got[~live] == 0):
+            if not torch.all(got[ln == 0] == 0):
                 raise AssertionError(f"{name}: a len == 0 row is not zero")
-            worst = max(worst, _check_close(name, dt, got[live], ref[live],
-                                            errs))
+            worst = max(worst, _check_close(name, dt, got, ref, errs))
     print(f"phase 5 decode kernel vs plain: {len(errs)} cases ok, max abs "
           f"err {worst:.3g} [{' '.join(errs)}]")
     timing = time_served_shapes(L)
@@ -3184,7 +3221,8 @@ def _timed_collectives_step(out, argv) -> dict:
 def _gloo_on_cuda(world: int) -> dict:
     """Each collective the tensor-parallel steps issue, over the gloo
     group on CUDA tensors, against its expected value: all-reduce (sum,
-    max, min; f32, bf16, int32), all-gather, and ``train/sharded.py::
+    max, min; f32, bf16, int32), all-gather, all-to-all (the sequence
+    split's exchange of partials), and ``train/sharded.py::
     gather`` of a DTensor split over 'model' (its all-gather over the
     mesh's group).  Raises where gloo refuses one or it computes another
     value."""
@@ -3205,6 +3243,12 @@ def _gloo_on_cuda(world: int) -> dict:
     dist.all_gather(parts, torch.full((2,), float(r), device=DEVICE))
     got["all_gather"] = all(bool(torch.all(p == i))
                             for i, p in enumerate(parts))
+    # rank r sends r * world + j to rank j (the sequence split's exchange)
+    recv = torch.empty(world, device=DEVICE)
+    dist.all_to_all_single(recv, torch.arange(
+        world, dtype=torch.float32, device=DEVICE) + r * world)
+    got["all_to_all_single"] = recv.tolist() == [
+        float(i * world + r) for i in range(world)]
     mesh = init_device_mesh("cuda", (1, world),
                             mesh_dim_names=("data", "model"))
     d = DTensor.from_local(torch.full((2,), float(r), device=DEVICE), mesh,
@@ -3593,6 +3637,450 @@ def phase_tp_serve() -> dict:
     return summed
 
 
+# --- phases 31 and 32: the sequence-split KV cache, and the dry-run ------
+
+#: phase 31's kernel cases: the decode_32k cell's layout at M = 16 (8 rows
+#: of 32,768 slots in 16 ranges of 2,048, the ranges a sequence-split
+#: cache gives the 16 model ranks), as qwen3-0.6b's heads (Hq 16, Hkv 8,
+#: D 128) and gemma2-27b's local layers (Hq 32, Hkv 16, window 4,096,
+#: softcap 50, scale 144^-0.5): (name, (B, Hq, Hkv, D), positions,
+#: window, softcap, scale).  The rows' positions leave later ranges empty
+#: (and, with the window, earlier ones too).
+SEQ_SLOTS, SEQ_RANGES = 32_768, 16
+SEQ_POSITIONS = [32_767, 30_000, 20_001, 16_384, 9_000, 4_095, 2_048, 5]
+SEQ_CASES = [
+    ("qwen3-0.6b", (8, 16, 8, 128), SEQ_POSITIONS, 0, 0.0, 128 ** -0.5),
+    ("gemma2-27b-local", (8, 32, 16, 128), SEQ_POSITIONS, 4096, 50.0,
+     GEMMA2_SCALE),
+]
+#: the log-sum-exp's bound, kernel vs plain: both sum fp32 exponentials
+#: over at most 2,048 slots, in another order; at |lse| up to ~20 that is
+#: a few fp32 ulps of it, far below this
+LSE_ATOL = 1e-4
+#: phase 31's ranks: full-width qwen3-0.6b at SEQ_LAYERS of its 28
+#: layers on a (1, 16) mesh of 16 gloo ranks sharing cuda:0, 8 rows, a
+#: cache of 16 x 16 = 256 slots (each rank holds 16 of them, every kv
+#: head), a 44-token prompt (ranks 0-2's slots) and 5 decode steps
+#: (positions 44-48: the last write moves from rank 2's slots into rank
+#: 3's),
+#: in f32 and bf16.  The depth is cut, not the width: at 28 layers a
+#: decode step took 7 s, each of its 113 gloo collectives ~60 ms across
+#: 16 processes on the host's 8 cores (PERF.md, PR 23)
+SEQ_WORLD, SEQ_ROWS, SEQ_PROMPT, SEQ_STEPS, SEQ_SLOTS_PER_RANK = \
+    16, 8, 44, 5, 16
+SEQ_LAYERS = 4
+
+
+def _seq_cfg(dtype: str):
+    return _serve_cfg(dtype).replace(num_layers=SEQ_LAYERS)
+
+
+def _qwen3_norms(layers: int, calls: int) -> dict:
+    """RMSNorm launches of ``calls`` model calls of qwen3-0.6b cut to
+    ``layers`` layers (NORMS_PER_CALL's at full depth)."""
+    return {"rmsnorm_fwd": calls, "add_rmsnorm_fwd": 2 * layers * calls,
+            "qk_norm_rope_fwd": layers * calls}
+
+
+def phase_seq_split_kernel() -> None:
+    """The dense decode kernel with its log-sum-exp on each rank's range
+    of a sequence-split cache (SEQ_CASES, f32 and bf16): each range's o
+    and lse against the plain version (TOL; LSE_ATOL), a range that
+    attends nothing exactly o = 0 and lse = -inf with no NaN, and the
+    ranges merged (``models/tp.py::merge_lse``, the ranks' merge) against
+    the whole call of the kernel and of the plain version (TOL).  Then
+    one rank's launch (qwen3, range 0, bf16 and f32) timed with and
+    without the lse beside its bound and the plain version (no
+    PyTorch call returns the lse)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.tp import merge_lse
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    Sl = SEQ_SLOTS // SEQ_RANGES
+    lines, worst = [], {"o": 0.0, "lse": 0.0, "merged": 0.0}
+    for name, (B, Hq, Hkv, D), positions, window, cap, scale in SEQ_CASES:
+        opts = dict(window=window, attn_softcap=cap, scale=scale)
+        pos = torch.tensor(positions, dtype=torch.int32, device=DEVICE)
+        for dt in (torch.float32, torch.bfloat16):
+            q = _rand(gen, (B, 1, Hq, D), dt)
+            ks = [_rand(gen, (B, Sl, Hkv, D), dt) for _ in range(SEQ_RANGES)]
+            vs = [_rand(gen, (B, Sl, Hkv, D), dt) for _ in range(SEQ_RANGES)]
+            parts, empty = [], 0
+            for r in range(SEQ_RANGES):
+                o, lse = da_ops.decode_attention(
+                    q, ks[r], vs[r], pos, slot_offset=r * Sl,
+                    return_lse=True, **opts)
+                ends = pos + 1 - r * Sl
+                po, pl = decode_attention_ref(
+                    q.transpose(1, 2), ks[r], vs[r],
+                    torch.clamp(ends, 0, Sl), scale=scale, window=window,
+                    softcap=cap, ends=ends, return_lse=True)
+                torch.cuda.synchronize()
+                if torch.isnan(o).any() or torch.isnan(lse).any():
+                    raise AssertionError(f"phase 31 {name} {dt} range {r}: "
+                                         f"NaN")
+                none = lse == -torch.inf
+                if not torch.equal(none, pl == -torch.inf) or not torch.all(
+                        o.transpose(1, 2)[none] == 0):
+                    raise AssertionError(f"phase 31 {name} {dt} range {r}: "
+                                         f"an empty range is not o = 0, "
+                                         f"lse = -inf")
+                empty += int(none.all(-1).sum())
+                worst["o"] = max(worst["o"], _check_close(
+                    f"{name} range {r}", dt, o, po.transpose(1, 2), []))
+                d = (lse[~none] - pl[~none]).abs().max().item() \
+                    if (~none).any() else 0.0
+                if not d <= LSE_ATOL:
+                    raise AssertionError(f"phase 31 {name} {dt} range {r}: "
+                                         f"lse differs by {d:.3g}")
+                worst["lse"] = max(worst["lse"], d)
+                parts.append((o, lse))
+            k, v = torch.cat(ks, 1), torch.cat(vs, 1)
+            whole = da_ops.decode_attention(q, k, v, pos, **opts)
+            plain = decode_attention_ref(
+                q.transpose(1, 2), k, v, torch.clamp(pos + 1, max=SEQ_SLOTS),
+                scale=scale, window=window, softcap=cap,
+                ends=pos + 1).transpose(1, 2)
+            merged = merge_lse(
+                torch.stack([o[:, 0] for o, _ in parts]),
+                torch.stack([lse for _, lse in parts]))[:, None]
+            torch.cuda.synchronize()
+            for ref in (whole, plain):
+                worst["merged"] = max(worst["merged"], _check_close(
+                    f"{name} merged", dt, merged, ref, []))
+            lines.append(f"{name} {str(dt)[6:]}: {empty} of "
+                         f"{B * SEQ_RANGES} (row, range) pairs attend "
+                         f"nothing")
+            del ks, vs, k, v, parts
+    print(f"phase 31 decode kernel with lse on 16 ranges of {Sl} of "
+          f"{SEQ_SLOTS} slots vs plain: o max abs err {worst['o']:.3g} "
+          f"(<= TOL), lse {worst['lse']:.3g} (<= {LSE_ATOL}), the ranges "
+          f"merged vs the whole call (kernel and plain) "
+          f"{worst['merged']:.3g}; " + "; ".join(lines))
+    # one rank's launch of the decode_32k cell: qwen3, range 0, bf16 and
+    # f32
+    B, Hq, Hkv, D = SEQ_CASES[0][1]
+    L = 28
+    pos = torch.tensor(SEQ_POSITIONS, dtype=torch.int32, device=DEVICE)
+    lens = torch.clamp(pos + 1, 0, Sl)
+    live = int(lens.sum())
+    iters = 10 * L
+    for dt in (torch.bfloat16, torch.float32):
+        qs = [_rand(gen, (B, 1, Hq, D), dt) for _ in range(L)]
+        kc = [_rand(gen, (B, Sl, Hkv, D), dt) for _ in range(L)]
+        vc = [_rand(gen, (B, Sl, Hkv, D), dt) for _ in range(L)]
+        t_lse = timed(lambda i: da_ops.decode_attention(
+            qs[i % L], kc[i % L], vc[i % L], pos, return_lse=True), iters,
+            "dense_decode")
+        t_no = timed(lambda i: da_ops.decode_attention(
+            qs[i % L], kc[i % L], vc[i % L], pos), iters, "dense_decode")
+        t_plain = timed(lambda i: decode_attention_ref(
+            qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], lens,
+            scale=D ** -0.5, ends=pos + 1, return_lse=True), L)
+        es = dt.itemsize
+        nbytes = live * Hkv * D * 2 * es + 2 * B * Hq * D * es \
+            + B * Hq * 4 + B * 4
+        bound_ms, bound_by = bound(nbytes, 4 * Hq * D * live, dt)
+        print(f"phase 31 decode kernel, one rank's launch of decode_32k at "
+              f"M = 16 (qwen3 (B {B}, S {Sl}, Hq {Hq}, Hkv {Hkv}, D {D}), "
+              f"{live} live slots) {str(dt)[6:]}: with lse {_us(t_lse)}, "
+              f"without {_us(t_no)}, plain (with lse) {_us(t_plain)}; "
+              f"bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+              f"{bound_ms / t_lse['ms']:.3f} of it reached with lse; no "
+              f"PyTorch call returns the lse")
+        del qs, kc, vc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _seq_serve_rank(rank, world, port, out_dir, rows, prompt, steps,
+                    slots):
+    """A rank of phase 31: for f32 and bf16, full-width qwen3-0.6b's
+    (SEQ_LAYERS layers) sharded prefill and ``steps`` decode steps on a
+    (1, world) mesh whose
+    cache ``cache_specs`` splits over the sequence: the tokens of each
+    step, (rank 0, bf16) the logits gathered over 'model', the launch
+    counts, one decode step's collectives, the seconds of the prefill and
+    of each step, the peak memory and the cache block it holds."""
+    import torch.distributed as dist
+    _tp_rank_init(rank, world, port)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.sharding import serve_shardings
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.tp import gather_last, tp_mesh_context
+    from repro_torch.train.sharded import distribute
+    from repro_torch.train.sharded_serve import (build_sharded_decode_step,
+                                                 build_sharded_prefill_step,
+                                                 greedy, kv_layouts)
+    from repro_torch.utils.step_analyzer import CollectiveCounter
+    from repro_torch.utils.tree import tree_map
+    res = {}
+    try:
+        res["gloo"] = _gloo_on_cuda(world)
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        for dtype in ("float32", "bfloat16"):
+            cfg = _seq_cfg(dtype)
+            params = model_lib.init(
+                cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+            max_len = world * slots
+            sh = serve_shardings(cfg, mesh, params, model_lib.init_cache(
+                cfg, rows, max_len, abstract_only=True), rows)
+            p = tree_map(distribute, params, sh["params"])
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            prefill = build_sharded_prefill_step(cfg, max_len, sh)
+            decode = build_sharded_decode_step(cfg, sh)
+            fns = launchers()
+            for f in fns.values():
+                f.launches = 0
+            tokens = _tp_prompts(cfg, rows, prompt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, {"tokens": tokens})
+            tok = greedy(logits, cfg)
+            torch.cuda.synchronize()
+            secs = [time.perf_counter() - t0]
+            toks, lgs = [tok.to_local().cpu()], []
+
+            def whole(lg):
+                with tp_mesh_context(mesh):
+                    return gather_last(lg.to_local()).cpu()
+            counts = {n: f.launches for n, f in fns.items()}
+            keep = dtype == "bfloat16"
+            if keep:
+                lgs.append(whole(logits))
+            for f in fns.values():
+                f.launches = 0
+            for i in range(steps):
+                t0 = time.perf_counter()
+                with CollectiveCounter() as coll:
+                    logits, cache = decode(p, cache, tok)
+                tok = greedy(logits, cfg)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                toks.append(tok.to_local().cpu())
+                if keep:
+                    lgs.append(whole(logits))
+            res[dtype] = {"tokens": toks, "logits": lgs if rank == 0 else [],
+                          "secs": secs, "prefill_counts": counts,
+                          "decode_counts": {n: f.launches
+                                            for n, f in fns.items()},
+                          "collectives": dict(coll.counts),
+                          "layout": kv_layouts(sh),
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "kv_local": tuple(cache["k"].to_local().shape)}
+            del p, cache, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_seq_split_serve() -> dict:
+    """16 ranks that share cuda:0 serve full-width qwen3-0.6b (SEQ_LAYERS
+    layers) on a (1, 16) mesh (``_seq_serve_rank``): its 8 kv heads do
+    not split
+    over 16 model ranks, so ``cache_specs`` splits the cache over the
+    sequence and each rank holds every kv head of its 16 slots.  On each
+    rank the flash kernel once per layer in the prefill (the rank's q
+    head and the kv head it reads) and the decode kernel with its lse
+    once per layer per step; per step and layer one all-gather of the q
+    heads and one all-to-all of the partials.  In f32 every greedy token
+    equals the one-rank run's; in bf16 each step's logits are within
+    ``TP_BF16_LOGIT_RTOL`` of the one-rank steps fed the same tokens.
+    Returns the launch counts summed over the ranks and both dtypes."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.train.step import (build_decode_step,
+                                        build_prefill_step,
+                                        build_serve_step)
+    card = card_line()
+    world, rows, prompt, steps = SEQ_WORLD, SEQ_ROWS, SEQ_PROMPT, SEQ_STEPS
+    t0 = time.perf_counter()
+    ranks = _spawn_tp(_seq_serve_rank, rows, prompt, steps,
+                      SEQ_SLOTS_PER_RANK, world=world)
+    t_ranks = time.perf_counter() - t0
+    f32 = _seq_cfg("float32")
+    L, Hkv, hd = f32.num_layers, f32.num_kv_heads, f32.head_dim
+    want_pre = dict(_qwen3_norms(L, 1), flash_attention_fwd=L)
+    want_dec = dict(_qwen3_norms(L, steps), decode_attention_fwd=L * steps)
+    # per decode step: wk and wv gathered whole (the replicated kv
+    # route), the q heads gathered and the partials exchanged per layer,
+    # two all-reduces per layer and the vocab-parallel embedding's (the
+    # greedy sampling's two come after the step)
+    want_coll = {"all-gather": 2 + L, "all-to-all": L,
+                 "all-reduce": 2 * L + 1}
+    summed = {}
+    for i, r in enumerate(ranks):
+        for dtype in ("float32", "bfloat16"):
+            x = r[dtype]
+            for counts, want in ((x["prefill_counts"], want_pre),
+                                 (x["decode_counts"], want_dec)):
+                full = {n: want.get(n, 0) for n in counts}
+                if counts != full:
+                    raise AssertionError(f"phase 31 rank {i} {dtype}: "
+                                         f"launches {counts}; want {full}")
+                for n, v in counts.items():
+                    summed[n] = summed.get(n, 0) + v
+            if x["layout"] != {"self": "sequence"} or x["kv_local"] != (
+                    L, rows, SEQ_SLOTS_PER_RANK, Hkv, hd):
+                raise AssertionError(f"phase 31 rank {i}: cache "
+                                     f"{x['layout']}, block {x['kv_local']}")
+            if x["collectives"] != want_coll:
+                raise AssertionError(f"phase 31 rank {i}: a decode step's "
+                                     f"collectives {x['collectives']}; want "
+                                     f"{want_coll}")
+            for a, b in zip(x["tokens"], ranks[0][dtype]["tokens"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"phase 31 {dtype}: the ranks' "
+                                         f"tokens differ")
+    max_len = world * SEQ_SLOTS_PER_RANK
+    cfg = f32
+    params = model_lib.init(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), DEVICE)
+    logits, cache = build_prefill_step(cfg, max_len)(
+        params, {"tokens": _tp_prompts(cfg, rows, prompt)})
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    serve = build_serve_step(cfg)
+    got = ranks[0]["float32"]["tokens"]
+    f32_same = [torch.equal(tok.cpu(), got[0])]
+    for _ in range(steps):
+        tok, cache = serve(params, tok, cache)
+        f32_same.append(torch.equal(tok.cpu(), got[len(f32_same)]))
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(f32_same):
+        raise AssertionError(f"phase 31 f32: greedy tokens equal the one-"
+                             f"rank run's at steps {f32_same}")
+    cfg = _seq_cfg("bfloat16")
+    params = model_lib.init(cfg, torch.Generator(device=DEVICE)
+                            .manual_seed(0), DEVICE)
+    got = ranks[0]["bfloat16"]
+    logits, cache = build_prefill_step(cfg, max_len)(
+        params, {"tokens": _tp_prompts(cfg, rows, prompt)})
+    decode = build_decode_step(cfg)
+    rel, agree = [], 0
+    for i in range(steps + 1):
+        ref = logits.float().cpu()
+        rel.append(float((got["logits"][i] - ref).abs().max()
+                         / ref.abs().max()))
+        agree += int((torch.argmax(ref, -1).to(torch.int32)
+                      == got["tokens"][i]).sum())
+        if i < steps:
+            logits, cache = decode(params, cache,
+                                   got["tokens"][i].to(DEVICE))
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not max(rel) <= TP_BF16_LOGIT_RTOL:
+        raise AssertionError(f"phase 31 bf16: logits differ by {rel} of "
+                             f"the largest")
+    times = []
+    for dtype in ("float32", "bfloat16"):
+        pre = [r[dtype]["secs"][0] for r in ranks]
+        dec = sorted(s for r in ranks for s in r[dtype]["secs"][2:])
+        peak = max(r[dtype]["peak"] for r in ranks)
+        times.append(f"{dtype}: prefill {1e3 * min(pre):.1f}-"
+                     f"{1e3 * max(pre):.1f} ms, decode step median "
+                     f"{1e3 * dec[len(dec) // 2]:.1f} ms (from step 2, all "
+                     f"ranks), peak {peak / 2**30:.2f} GiB a rank")
+    print(f"phase 31 gloo (torch {torch.__version__}) on CUDA tensors, "
+          f"rank 0: " + ", ".join(ranks[0]["gloo"]))
+    print(f"phase 31 sequence-split serving, qwen3-0.6b full width, {L} of "
+          f"its 28 layers, on a (1, {world}) mesh of {world} gloo ranks "
+          f"on one card: cache {ranks[0]['bfloat16']['layout']}, blocks "
+          f"{ranks[0]['bfloat16']['kv_local']} of {max_len} slots; prefill "
+          f"of {rows} x {prompt} tokens (ranks 0-2's slots) and {steps} "
+          f"greedy steps (positions {prompt}-{prompt + steps - 1}); per "
+          f"rank and dtype flash {want_pre['flash_attention_fwd']}, decode "
+          f"with lse {want_dec['decode_attention_fwd']} launches; a decode "
+          f"step's collectives {want_coll}; f32 greedy tokens equal the "
+          f"one-rank run's at all {len(f32_same)} positions; bf16 logits vs "
+          f"one rank fed the same tokens, max err {max(rel):.4f} of the "
+          f"largest (<= {TP_BF16_LOGIT_RTOL}), argmax agreeing on {agree} "
+          f"of {rows * (steps + 1)}; " + "; ".join(times)
+          + f"; ranks {t_ranks:.1f}s [{card}]")
+    return summed
+
+
+#: phase 32: the dry-run's cells, each run through the command line
+#: (``python -m repro_torch.launch.dryrun``'s ``main``) on both meshes
+DRYRUN_CELLS = [("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
+                ("qwen3-0.6b", "decode_32k"), ("mamba2-780m", "long_500k")]
+DRYRUN_OUT = ROOT / "build" / "dryrun.json"
+
+
+def phase_dryrun() -> None:
+    """The dry-run's cells (DRYRUN_CELLS on 16x16 and 2x16x16, full
+    width and depth) on the card machine's torch, in a process of its
+    own (fake tensors and a fake process group of 256 or 512 ranks, on
+    the CPU, with no card visible): every cell ``ok``, the 22 features of
+    each finite; the decode cell's collectives hold one all-to-all per
+    layer (the sequence split's exchange) and its KV cache per device the
+    whole cache's bytes over M x D.  Prints each cell's per-device peak,
+    roofline terms and dominant term."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.features import features_from_record
+    DRYRUN_OUT.unlink(missing_ok=True)
+    code = ("import sys\nsys.path.insert(0, sys.argv[1])\n"
+            "import torch\ntorch.set_num_threads(1)\n"
+            "from repro_torch.launch.dryrun import main\n"
+            f"for arch, shape in {DRYRUN_CELLS!r}:\n"
+            "    main(['--arch', arch, '--shape', shape, '--mesh', 'both',"
+            " '--out', sys.argv[2]])\n")
+    run = subprocess.run(
+        [sys.executable, "-c", code, str(ROOT / "src"), str(DRYRUN_OUT)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES=""))
+    if run.returncode != 0:
+        raise AssertionError(f"phase 32: the dry-run failed:\n"
+                             f"{run.stdout[-4000:]}")
+    recs = json.loads(DRYRUN_OUT.read_text())
+    lines = []
+    for arch, shape in DRYRUN_CELLS:
+        for mp in ("single", "multi"):
+            rec = recs.get(f"{arch}|{shape}|{mp}", {})
+            if not rec.get("ok"):
+                raise AssertionError(f"phase 32 {arch} {shape} {mp}: "
+                                     f"{rec.get('error')}")
+            if not np.all(np.isfinite(features_from_record(rec))):
+                raise AssertionError(f"phase 32 {arch} {shape} {mp}: "
+                                     f"features not finite")
+            r, m = rec["roofline"], rec["memory"]
+            extra = ""
+            if (arch, shape) == ("qwen3-0.6b", "decode_32k"):
+                cfg, sh = get_config(arch), SHAPES[shape]
+                whole = 2 * cfg.num_layers * sh.global_batch * sh.seq_len \
+                    * cfg.num_kv_heads * cfg.head_dim * 2
+                per = whole // rec["chips"]
+                counts = rec["collectives"]["counts"]
+                if m["alias_bytes"] != per or counts.get(
+                        "all-to-all") != cfg.num_layers:
+                    raise AssertionError(f"phase 32 decode {mp}: KV "
+                                         f"{m['alias_bytes']} B per device, "
+                                         f"want {per}; collectives {counts}")
+                extra = (f", KV {per / 2**20:.1f} MiB per device (the whole "
+                         f"cache's over {rec['chips']}), collectives "
+                         f"{counts}")
+            lines.append(
+                f"{arch} {shape} {rec['mesh']}: peak "
+                f"{m['peak_bytes'] / 2**30:.2f} GiB (args "
+                f"{m['argument_bytes'] / 2**30:.2f}, temp "
+                f"{m['temp_bytes'] / 2**30:.2f}), compute "
+                f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                f"collective {r['collective_s']:.4g} s, dominant "
+                f"{r['dominant']}, analyzed in {rec['timing']['lower_s']} s"
+                + extra)
+    print(f"phase 32 dry-run on torch {torch.__version__} (CPU, fake "
+          f"tensors, rank 0 of a fake group), {len(lines)} cells ok, per "
+          f"device: " + "; ".join(lines))
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -3697,10 +4185,15 @@ def main() -> None:
     done(29)
     paths.append(phase_tp_serve())
     done(30)
+    phase_seq_split_kernel()
+    paths.append(phase_seq_split_serve())
+    done(31)
+    phase_dryrun()
+    done(32)
     # launches on the main paths: each path's own run, summed over the
     # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, the training paths,
-    # 17, 24 and 27's mesh run, 28's real steps, and 29's bf16 and 30's
-    # runs on both ranks)
+    # 17, 24 and 27's mesh run, 28's real steps, 29's bf16 and 30's runs
+    # on both ranks, and 31's on all 16)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -3768,6 +4261,21 @@ def prefill_profiles(src: str) -> None:
     print(card)
 
 
+def seq_split_phases() -> None:
+    """``--seq-split``: build the kernels and run phases 31 and 32 alone
+    (the sequence-split KV cache: the kernel's lse, 16 ranks on one card;
+    the dry-run); prints no JSON."""
+    phase_device_and_build()
+    t0 = time.perf_counter()
+    phase_seq_split_kernel()
+    phase_seq_split_serve()
+    print(f"phase 31 seconds: {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    phase_dryrun()
+    print(f"phase 32 seconds: {time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 def tp_phases() -> None:
     """``--tp``: build the kernels and run phases 29 and 30 alone (two
     ranks on one card, training and serving); prints no JSON."""
@@ -3782,6 +4290,8 @@ def tp_phases() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp"]:
         tp_phases()
+    elif sys.argv[1:2] == ["--seq-split"]:
+        seq_split_phases()
     elif sys.argv[1:2] == ["--kernel-times"]:
         kernel_times(sys.argv[2] if len(sys.argv) > 2 else "")
     elif sys.argv[1:2] == ["--prefill-profiles"]:

@@ -7,7 +7,12 @@
 // (and, with a window, only positions > ends[b] - 1 - window), masked
 // with the same finite NEG_INF, optional softcap cap * tanh(s / cap),
 // and a lens[b] == 0 row writes zeros (the running sum is floored at
-// 1e-30).
+// 1e-30).  Optionally it also writes each head's log-sum-exp, fp32 [B,
+// Hq]: log of the sum of exp of the scaled, soft-capped logits over the
+// attended slots, -inf where the row attends none (lens[b] == 0, or a
+// window that ends before the row's first slot).  The sharded serving
+// steps call it on one rank's range of a sequence-split cache, where both
+// happen, and merge the ranks' partials by these values.
 //
 // Bound: memory.  A call must read the live K and V rows, sum_b lens[b]
 // * Hkv * D * 2 * sizeof(T) bytes, and does about 4 * Hq * D flops per
@@ -41,14 +46,17 @@
 // body over each row's attended range instead.
 //
 // C interface (bound with ctypes): decode_attention_fwd returns the
-// cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16.  The
-// pointers must be 16-byte aligned, D a multiple of 8, D <= 256, lens[b]
-// <= S and 1 <= splits <= 8 (the wrapper checks what it can without
-// reading lens back).  ends[b] is the query's position + 1, from which the
-// window is measured: lens[b] itself, except where the model's decode
-// write was clamped onto the cache's last slot (the query past S - 1, as
+// cudaError_t of the launch; dtype 0 = float32, 1 = bfloat16; lse is null
+// or the fp32 [B, Hq] output.  The pointers must be 16-byte aligned, D a
+// multiple of 8, D <= 256, 0 <= lens[b] <= S and 1 <= splits <= 8 (the
+// wrapper checks what it can without reading lens back).  ends[b] is the
+// query's position + 1, from which the window is measured: lens[b]
+// itself, except where the model's decode write was clamped onto the
+// cache's last slot (the query past S - 1, as
 // jax.lax.dynamic_update_slice clamps its start), and then lens[b] = S
-// and ends[b] > S, as JAX's plain attention sees that step.
+// and ends[b] > S, as JAX's plain attention sees that step.  On a rank's
+// range of a sequence-split cache both are shifted by the range's first
+// slot, so ends[b] may be <= 0 or > S there.
 #include "attention_common.cuh"
 
 namespace {
@@ -70,6 +78,7 @@ dense_decode_split_kernel(const T* __restrict__ q,       // [B, Hq, D]
                           const int* __restrict__ lens,  // [B]
                           const int* __restrict__ ends,  // [B]
                           T* __restrict__ out,           // [B, Hq, D]
+                          float* __restrict__ lse,       // [B, Hq] or null
                           int S, int Hkv, int G, int D, float scale,
                           int window, float softcap) {
   const int h = blockIdx.y;  // kv head
@@ -79,14 +88,15 @@ dense_decode_split_kernel(const T* __restrict__ q,       // [B, Hq, D]
   const DenseTokens src{((size_t)b * S * Hkv + h) * D, (size_t)Hkv * D};
   attn::decode_split<T, GT, CPT, attn::SplitOver::kSlots>(
       q + head0 * D, k, v, src, out + head0 * D, lens + b, ends + b, S, G,
-      D, scale, window, softcap);
+      D, scale, window, softcap, lse == nullptr ? nullptr : lse + head0);
 }
 
 template <typename T, int GT, int CPT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lens, const void* ends, void* out, int B,
-                   int S, int Hq, int Hkv, int D, float scale, int window,
-                   float softcap, int splits, cudaStream_t stream) {
+                   const void* lens, const void* ends, void* out, void* lse,
+                   int B, int S, int Hq, int Hkv, int D, float scale,
+                   int window, float softcap, int splits,
+                   cudaStream_t stream) {
   // at most 41 KB (GT 8, D 256): under the 48 KB a launch may take
   // without raising the limit
   const size_t smem = sizeof(float) * attn::split_smem_floats(GT, D);
@@ -106,7 +116,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       &cfg, dense_decode_split_kernel<T, GT, CPT>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lens), static_cast<const int*>(ends),
-      static_cast<T*>(out), S, Hkv, Hq / Hkv, D, scale, window, softcap);
+      static_cast<T*>(out), static_cast<float*>(lse), S, Hkv, Hq / Hkv, D,
+      scale, window, softcap);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -116,29 +127,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // for an fp32 row of more than 32 chunks, D > 128)
 template <typename T, int CPT>
 cudaError_t by_heads(const void* q, const void* k, const void* v,
-                     const void* lens, const void* ends, void* out, int B,
-                     int S, int Hq, int Hkv, int D, float scale, int window,
-                     float softcap, int splits, cudaStream_t st) {
+                     const void* lens, const void* ends, void* out,
+                     void* lse, int B, int S, int Hq, int Hkv, int D,
+                     float scale, int window, float softcap, int splits,
+                     cudaStream_t st) {
   const int G = Hq / Hkv;
   if (G == 1)
-    return launch<T, 1, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
-                             scale, window, softcap, splits, st);
+    return launch<T, 1, CPT>(q, k, v, lens, ends, out, lse, B, S, Hq, Hkv,
+                             D, scale, window, softcap, splits, st);
   if (G == 2)
-    return launch<T, 2, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
-                             scale, window, softcap, splits, st);
+    return launch<T, 2, CPT>(q, k, v, lens, ends, out, lse, B, S, Hq, Hkv,
+                             D, scale, window, softcap, splits, st);
   if (G <= 4)
-    return launch<T, 4, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
-                             scale, window, softcap, splits, st);
-  return launch<T, 8, CPT>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
+    return launch<T, 4, CPT>(q, k, v, lens, ends, out, lse, B, S, Hq, Hkv,
+                             D, scale, window, softcap, splits, st);
+  return launch<T, 8, CPT>(q, k, v, lens, ends, out, lse, B, S, Hq, Hkv, D,
                            scale, window, softcap, splits, st);
 }
 
 }  // namespace
 
+// lse: null, or an fp32 [B, Hq] array for each head's log-sum-exp
 extern "C" int decode_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* lens,
-                                    const void* ends, void* out, int B,
-                                    int S, int Hq, int Hkv, int D,
+                                    const void* ends, void* out, void* lse,
+                                    int B, int S, int Hq, int Hkv, int D,
                                     float scale, int window,
                                     float softcap, int splits, int dtype,
                                     void* stream) {
@@ -147,15 +160,15 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (D / 4 > 32)
-      return by_heads<float, 2>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
-                                scale, window, softcap, splits, st);
-    return by_heads<float, 1>(q, k, v, lens, ends, out, B, S, Hq, Hkv, D,
-                              scale, window, softcap, splits, st);
+      return by_heads<float, 2>(q, k, v, lens, ends, out, lse, B, S, Hq,
+                                Hkv, D, scale, window, softcap, splits, st);
+    return by_heads<float, 1>(q, k, v, lens, ends, out, lse, B, S, Hq, Hkv,
+                              D, scale, window, softcap, splits, st);
   }
   if (dtype == 1)
-    return by_heads<__nv_bfloat16, 1>(q, k, v, lens, ends, out, B, S, Hq,
-                                      Hkv, D, scale, window, softcap, splits,
-                                      st);
+    return by_heads<__nv_bfloat16, 1>(q, k, v, lens, ends, out, lse, B, S,
+                                      Hq, Hkv, D, scale, window, softcap,
+                                      splits, st);
   return cudaErrorInvalidValue;
 }
 

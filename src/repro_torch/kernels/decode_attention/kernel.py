@@ -10,7 +10,9 @@ cluster per (kv head, row) splits the row's S token slots over
 group so each row is read once, and merges the partials through
 distributed shared memory (see the source for the design).  The plan
 depends on S alone: the wrapper never reads ``lens`` back.  The cache
-is not padded.
+is not padded.  On request the kernel also writes each head's
+log-sum-exp (``lse``), by which the sharded serving steps merge the
+partial attention of the ranks' ranges of a sequence-split cache.
 
 The library is compiled with ``nvcc`` on first use and bound with
 ``ctypes``; this module imports nothing CUDA-specific until then.
@@ -41,7 +43,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_attention_fwd.argtypes = (
-        [vp] * 6 + [i32] * 5 + [f32, i32, f32, i32, i32, vp])
+        [vp] * 7 + [i32] * 5 + [f32, i32, f32, i32, i32, vp])
     lib.decode_attention_fwd.restype = i32
     lib.decode_attention_error_string.argtypes = [i32]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -121,13 +123,17 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, lens: torch.Tensor, *,
                          scale: float, window: int = 0,
                          softcap: float = 0.0,
-                         ends: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         ends: Optional[torch.Tensor] = None,
+                         lse: bool = False):
     """q [B, Hq, 1, D]; caches [B, S, Hkv, D]; lens [B] int32 (valid
-    entries incl. the current token, each <= S); ends [B] int32 (the
+    entries incl. the current token, each in [0, S]); ends [B] int32 (the
     query's position + 1, from which a window is measured; ``lens`` when
     None, and above it only where the decode write was clamped onto the
-    last slot).  All on one CUDA device.  -> [B, Hq, 1, D] in q's dtype.
+    last slot; on a rank's range of a sequence-split cache, shifted by
+    the range's first slot, so any int32).  All on one CUDA device.
+    -> [B, Hq, 1, D] in q's dtype; with ``lse`` also each head's
+    log-sum-exp over the attended slots, fp32 [B, Hq] (-inf, and a zero
+    output, where a row attends none).
 
     Launches on the current stream and does not synchronise.  Raises
     ``RuntimeError`` when grad is enabled and an input requires grad
@@ -139,13 +145,17 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, _, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    lse_out = torch.empty((B, Hq), dtype=torch.float32,
+                          device=q.device) if lse else None
     splits = split_plan(S).splits
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.decode_attention_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), ends.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, D, float(scale),
+            lens.data_ptr(), ends.data_ptr(), out.data_ptr(),
+            None if lse_out is None else lse_out.data_ptr(), B, S, Hq, Hkv,
+            D, float(scale),
             int(window), float(softcap), splits, _DTYPE_CODES[q.dtype],
             stream)
     if err != 0:
@@ -153,7 +163,7 @@ def decode_attention_fwd(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"decode_attention_fwd launch failed: {msg} "
                            f"(cudaError {err})")
     decode_attention_fwd.launches += 1
-    return out
+    return out if lse_out is None else (out, lse_out)
 
 
 decode_attention_fwd.launches = 0

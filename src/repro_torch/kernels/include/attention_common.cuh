@@ -109,6 +109,14 @@ __device__ __forceinline__ void load16_or_zero(const T* src, float* dst,
 // comes before the mask.  The thread groups of a warp merge by shuffles,
 // the 4 warps through shared memory (one barrier), and each output of
 // the cluster merge reads all blocks' partials at once.
+//
+// With ``lseb`` (G floats, the head group's slice of an fp32 [B, Hq]
+// array) the block that writes a head's first output element also writes
+// that head's log-sum-exp over the attended slots, max + log(sum), which
+// the cluster merge holds already: what a caller needs to merge partial
+// attention over several slot ranges (the sequence-split KV cache of the
+// sharded serving steps).  A head that attends no slot (len == 0, or a
+// window that masks every slot of the row) writes o = 0 and lse = -inf.
 
 enum class SplitOver { kSlots, kAttended };
 
@@ -153,7 +161,8 @@ __device__ __forceinline__ void decode_split(
     const T* __restrict__ k, const T* __restrict__ v, const Src& src,
     T* __restrict__ ob,  // [G, D]
     const int* __restrict__ lenp, const int* __restrict__ endp, int S,
-    int G, int D, float scale, int window, float softcap) {
+    int G, int D, float scale, int window, float softcap,
+    float* __restrict__ lseb = nullptr) {
   namespace cg = cooperative_groups;
   constexpr int kThreads = 128;
   constexpr int kWarps = kThreads / 32;
@@ -392,7 +401,12 @@ __device__ __forceinline__ void decode_split(
           sum = fmaf(pl[r], wt, sum);
         }
       }
-      if (h0 + g < G) store(ob + (size_t)h0 * D + o, a / fmaxf(sum, 1e-30f));
+      if (h0 + g < G) {
+        store(ob + (size_t)h0 * D + o, a / fmaxf(sum, 1e-30f));
+        if (lseb != nullptr && o == g * D)
+          lseb[h0 + g] =
+              sum > 0.f ? mx + logf(sum) : -__int_as_float(0x7f800000);
+      }
     }
     cluster.sync();  // the peers are done reading this block's partial
   }

@@ -40,12 +40,37 @@ def mesh_shape(mesh) -> MeshShape:
     return MeshShape({a: mesh.shape[a] for a in mesh.axis_names})
 
 
+#: the dry-run's meshes: (shape, axis names, name) by ``multi_pod``
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model"), "16x16"),
+                     True: ((2, 16, 16), ("pod", "data", "model"),
+                            "2x16x16")}
+
+
 def make_production_mesh(*, multi_pod: bool = False):
-    """16x16 (256 ranks) or 2x16x16 (512 ranks): the dry-run's meshes,
-    which need a fake process group of that size."""
-    raise NotImplementedError(
-        "make_production_mesh comes with the analysis slice of the PyTorch "
-        "port (the dry-run over a fake process group)")
+    """16x16 ("data", "model"; 256 ranks) or 2x16x16 ("pod", "data",
+    "model"; 512 ranks): the dry-run's meshes, a ``DeviceMesh`` on "cpu"
+    over a ``fake``-backend process group in which this process is rank
+    0 (``torch.testing._internal.distributed.fake_pg``: its collectives
+    return at once and move nothing, so one process stands for a rank of
+    a mesh of any size; the dry-run runs its steps on fake tensors).  A
+    fake group made by an earlier call is destroyed first, so one process
+    can build both meshes in turn; any other group raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, names, _ = PRODUCTION_MESHES[multi_pod]
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is "
+                               f"set up; the dry-run's mesh needs its own "
+                               f"fake one")
+        dist.destroy_process_group()
+    world = 1
+    for n in shape:
+        world *= n
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
 def make_debug_mesh(shape: Sequence[int] = (2, 2),

@@ -51,9 +51,10 @@ from repro_torch.models.layers import (add_rms_norm, mlp, qk_norm_rope,
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.moe_ep import (current_ep_mesh, ep_mesh_context,
                                        moe_ffn_ep)
-from repro_torch.models.tp import (copy_to, current_tp, local_kv_heads,
-                                   reduce_from, split, tp_mesh_context,
-                                   vocab_embed)
+from repro_torch.models.tp import (copy_to, current_tp, gather_heads,
+                                   kv_layout, local_kv_heads,
+                                   merge_partials, reduce_from, seq_range,
+                                   split, tp_mesh_context, vocab_embed)
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
 
@@ -194,8 +195,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None):
     """Dense KV/SSM cache tree for every family: zeros on ``device``, or
     ``device="meta"`` tensors with ``abstract_only`` (what the footprint
-    estimator sizes).  Under the tensor-parallel context the KV leaves
-    hold this rank's Hkv/M heads where M divides Hkv."""
+    estimator sizes).  Under the tensor-parallel context each KV leaf
+    holds this rank's share as ``tp.kv_layout`` lays it: its Hkv/M heads
+    (``[L, batch, max_len, Hkv/M, hd]``), its range of ``max_len / M``
+    slots of every head, or the whole leaf.  ``batch`` is the rank's own
+    rows."""
     dt = torch_dtype(cfg.compute_dtype)
     dev = "meta" if abstract_only else device
 
@@ -203,26 +207,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     hd, Hkv = cfg.head_dim, cfg.num_kv_heads
-    tp = current_tp()
-    if tp is not None and Hkv % tp.size == 0:
-        Hkv //= tp.size
+
+    def kv(kind, n, slots):
+        lay = kv_layout(kind)
+        M = current_tp().size if lay else 1
+        return mk((n, batch, slots // M if lay == "sequence" else slots,
+                   Hkv // M if lay == "heads" else Hkv, hd), dt)
     cache: Dict[str, Any] = {"len": mk((), torch.int32)}
     if cfg.family in ("dense", "vlm", "moe"):
         if cfg.local_global:
             npairs = cfg.num_layers // 2
             for pre in ("local", "global"):
-                cache[f"{pre}_k"] = mk((npairs, batch, max_len, Hkv, hd), dt)
-                cache[f"{pre}_v"] = mk((npairs, batch, max_len, Hkv, hd), dt)
+                cache[f"{pre}_k"] = kv("self", npairs, max_len)
+                cache[f"{pre}_v"] = kv("self", npairs, max_len)
         else:
             L = cfg.num_layers
-            cache["k"] = mk((L, batch, max_len, Hkv, hd), dt)
-            cache["v"] = mk((L, batch, max_len, Hkv, hd), dt)
+            cache["k"] = kv("self", L, max_len)
+            cache["v"] = kv("self", L, max_len)
     elif cfg.family == "encdec":
         L = cfg.num_layers
-        cache["k"] = mk((L, batch, max_len, Hkv, hd), dt)
-        cache["v"] = mk((L, batch, max_len, Hkv, hd), dt)
-        cache["cross_k"] = mk((L, batch, cross_len, Hkv, hd), dt)
-        cache["cross_v"] = mk((L, batch, cross_len, Hkv, hd), dt)
+        cache["k"] = kv("self", L, max_len)
+        cache["v"] = kv("self", L, max_len)
+        cache["cross_k"] = kv("cross", L, cross_len)
+        cache["cross_v"] = kv("cross", L, cross_len)
     elif cfg.family == "ssm":
         dm = ssm_mod.mamba2_dims(cfg)
         L = cfg.num_layers
@@ -235,8 +242,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["ssm"] = mk((L, batch, dm["H"], dm["P"], dm["N"]),
                           torch.float32)
         cache["conv"] = mk((L, batch, cfg.conv_width - 1, dm["conv_ch"]), dt)
-        cache["k"] = mk((n_apps, batch, max_len, Hkv, hd), dt)
-        cache["v"] = mk((n_apps, batch, max_len, Hkv, hd), dt)
+        cache["k"] = kv("self", n_apps, max_len)
+        cache["v"] = kv("self", n_apps, max_len)
     return cache
 
 
@@ -322,6 +329,47 @@ def _attn_scale(cfg) -> float:
     return float(dim) ** -0.5
 
 
+def _decode_write(ck, cv, k, v, posv, seq: bool) -> None:
+    """Write the token's ``k``/``v`` ``[B, 1, H, hd]`` into the cache
+    slice IN PLACE at the position ``posv`` ``[1]`` clamped onto the last
+    slot (as ``jax.lax.dynamic_update_slice`` clamps its start), on the
+    device.  ``seq``: the slice is this rank's range of a cache split over
+    the sequence, and only the rank that owns the slot changes it (the
+    others write back what the slot holds)."""
+    Sl = ck.shape[1]
+    if not seq:
+        slot = torch.clamp(posv, max=Sl - 1).long()
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        return
+    tp = current_tp()
+    local = torch.clamp(posv, max=Sl * tp.size - 1) - tp.rank * Sl
+    owned = ((local >= 0) & (local < Sl)).reshape(1, 1, 1, 1)
+    slot = torch.clamp(local, 0, Sl - 1).long()
+    for c, new in ((ck, k), (cv, v)):
+        c.index_copy_(1, slot, torch.where(owned, new.to(c.dtype),
+                                           c.index_select(1, slot)))
+
+
+def _seq_split_decode(q, ck, cv, pos, cfg, window: int):
+    """One-token attention of this rank's q heads ``[B, 1, Hq/M, hd]``
+    (or every head, where ``wq`` is whole) over a cache split over the
+    sequence, of which ``ck``/``cv`` are this rank's range: every q head
+    gathered over 'model', the decode kernel (plain on the CPU) over the
+    range's attended slots with its log-sum-exp, the ranks' partials
+    merged (``tp.merge_partials``)."""
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention as decode_range
+    tp = current_tp()
+    heads_split = q.shape[2] != cfg.num_heads
+    qa = gather_heads(q) if heads_split else q
+    o, lse = decode_range(
+        qa, ck, cv, pos, window=window, attn_softcap=cfg.attn_softcap,
+        scale=_attn_scale(cfg), slot_offset=tp.rank * ck.shape[1],
+        return_lse=True)
+    return merge_partials(o, lse, heads_split)
+
+
 def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                delta: Optional[torch.Tensor] = None, *,
                mode: str,                    # train | prefill | decode
@@ -330,6 +378,7 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                layer_kv=None,
                pos: Optional[torch.Tensor] = None,
                cross_kv=None,
+               cross_split: bool = False,
                rope: bool = True):
     """Pre-norm attention.  ``delta`` is the previous block's pending
     output, added to x in the pre-norm's launch.  Returns (x + delta, the
@@ -352,10 +401,21 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     unclamped position, as the JAX package's plain path does.
 
     Given this rank's q heads under the tensor-parallel context
-    (``models/tp.py``), the block computes them and their kv heads (from
-    every kv head where ``wk``/``wv`` are whole: ``local_kv_heads``),
-    writes those into the cache, and sums ``wo``'s partial products over
-    'model' before the post-norm.
+    (``models/tp.py``), the block computes them and their kv heads (every
+    kv head where ``wk``/``wv`` are whole, of which the attention reads
+    the ones its q heads read: ``local_kv_heads``), and sums ``wo``'s
+    partial products over 'model' before the post-norm.  The cache slice
+    it is given says how the cache lies over 'model' (``tp.kv_layout``):
+    this rank's kv heads, which it writes and reads; every kv head of the
+    whole cache, which every rank writes and reads its heads of; or every
+    kv head of this rank's slot range of a cache split over the sequence:
+    the token's k/v are written only by the rank that owns its slot, and
+    the attention gathers the q heads, attends every head over the
+    rank's slots and merges the ranks' partials (``_seq_split_decode``).
+    A prefill returns every kv head it computed, and ``prefill`` keeps
+    the rank's share of them.  ``cross_split``: ``cross_kv`` is the
+    rank's slot range of a cross-attention cache split over the sequence
+    (a decode step), merged in the same way.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -369,19 +429,27 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     new_kv = None
     if cross_kv is not None:
         k, v = cross_kv
-        if tp and k.shape[2] == cfg.num_kv_heads:
-            k, v = local_kv_heads(k, v, cfg.num_heads)
-        q, k = _qk_normed(p, cfg, q, k)
-        out = attention(q, k, v, causal=False, scale=_attn_scale(cfg),
-                        attn_softcap=cfg.attn_softcap,
-                        use_pallas=cfg.use_pallas,
-                        f32_logits=cfg.attn_f32_logits,
-                        differentiable=mode == "train")
+        if cross_split:
+            # every slot valid: the query at the whole cache's last one
+            q, k = _qk_normed(p, cfg, q, k)
+            out = _seq_split_decode(q, k, v, k.shape[1] * current_tp().size
+                                    - 1, cfg, 0)
+        else:
+            if tp and k.shape[2] == cfg.num_kv_heads:
+                k, v = local_kv_heads(k, v, cfg.num_heads)
+            q, k = _qk_normed(p, cfg, q, k)
+            out = attention(q, k, v, causal=False, scale=_attn_scale(cfg),
+                            attn_softcap=cfg.attn_softcap,
+                            use_pallas=cfg.use_pallas,
+                            f32_logits=cfg.attn_f32_logits,
+                            differentiable=mode == "train")
     else:
         k = (h @ p["wk"]).reshape(B, S, -1, hd)
         v = (h @ p["wv"]).reshape(B, S, -1, hd)
-        if tp and k.shape[2] == cfg.num_kv_heads:
-            k, v = local_kv_heads(k, v, cfg.num_heads)
+        # every kv head (from a gathered wk/wv) while this rank computes
+        # only its q heads: the attention reads the kv heads they read,
+        # the cache keeps every head
+        every = tp and k.shape[2] == cfg.num_kv_heads
         if not rope:
             q, k = _qk_normed(p, cfg, q, k)
         if mode == "decode":
@@ -391,20 +459,31 @@ def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
             if rope:
                 q, k = _qk_rope(p, cfg, q, k, posv)
             ck, cv = layer_kv
-            slot = torch.clamp(posv, max=ck.shape[1] - 1).long()
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
-            out = decode_attention(
-                q, ck, cv, pos, window=window,
-                attn_softcap=cfg.attn_softcap, scale=_attn_scale(cfg),
-                use_pallas=cfg.use_pallas,
-                f32_logits=cfg.attn_f32_logits)
+            seq = kv_layout("self") == "sequence"
+            _decode_write(ck, cv, k, v, posv, seq)
+            if seq:
+                out = _seq_split_decode(q, ck, cv, pos, cfg, window)
+            else:
+                ka, va = ck, cv
+                if every:
+                    # a whole cache (M divides neither Hkv nor S): a copy
+                    # of this rank's heads, which the kernel reads
+                    # contiguous
+                    ka, va = (t.contiguous() for t in local_kv_heads(
+                        ck, cv, cfg.num_heads))
+                out = decode_attention(
+                    q, ka, va, pos, window=window,
+                    attn_softcap=cfg.attn_softcap, scale=_attn_scale(cfg),
+                    use_pallas=cfg.use_pallas,
+                    f32_logits=cfg.attn_f32_logits)
             new_kv = (ck, cv)
         else:
             if rope:
                 q, k = _qk_rope(p, cfg, q, k,
                                 torch.arange(S, device=x.device))
-            out = attention(q, k, v, causal=causal, window=window,
+            ka, va = (local_kv_heads(k, v, cfg.num_heads) if every
+                      else (k, v))
+            out = attention(q, ka, va, causal=causal, window=window,
                             attn_softcap=cfg.attn_softcap,
                             scale=_attn_scale(cfg),
                             use_pallas=cfg.use_pallas,
@@ -528,7 +607,8 @@ def _maybe_remat(fn, cfg, mode):
 def _under(fn, ep, tp):
     def body(*args):
         with (ep_mesh_context(*ep) if ep else nullcontext()), \
-                (tp_mesh_context(tp.mesh) if tp else nullcontext()):
+                (tp_mesh_context(tp.mesh, kv=tp.kv) if tp
+                 else nullcontext()):
             return fn(*args)
     return body
 
@@ -572,15 +652,18 @@ def _enc_layer(pb, cfg, x, delta):
     return mlp_block(pb["mlp"], cfg, x, delta)
 
 
-def _dec_layer(pb, cfg, x, delta, cross_kv, mode, layer_kv=None, pos=None):
+def _dec_layer(pb, cfg, x, delta, cross_kv, mode, layer_kv=None, pos=None,
+               cross_split=False):
     """A whisper decoder layer: causal self-attention with RoPE over the
     cache (``mode``), the cross-attention to the encoder's K/V (plain,
-    non-causal), then the MLP: -> (x, pending delta, the self-attention's
-    new (k, v) or None)."""
+    non-causal; ``cross_split``: merged over the ranks' slot ranges), then
+    the MLP: -> (x, pending delta, the self-attention's new (k, v) or
+    None)."""
     x, delta, nkv = attn_block(pb["self_attn"], cfg, x, delta, mode=mode,
                                layer_kv=layer_kv, pos=pos)
     x, delta, _ = attn_block(pb["cross_attn"], cfg, x, delta, mode="train",
-                             cross_kv=cross_kv, rope=False)
+                             cross_kv=cross_kv, cross_split=cross_split,
+                             rope=False)
     x, delta = mlp_block(pb["mlp"], cfg, x, delta)
     return x, delta, nkv
 
@@ -857,12 +940,16 @@ def _encdec_stacks(params, cfg, enc_x, dec_x, mode, cache=None):
                    for pb in dec]
     else:
         cross_k, cross_v = cache["cross_k"], cache["cross_v"]
+    # a decode step reads the cross K/V from the cache, which may be this
+    # rank's range of a cache split over the sequence
+    cross_split = enc_x is None and kv_layout("cross") == "sequence"
     x, d = dec_x, None
     ks, vs = [], []
     for i, pb in enumerate(dec):
         kv = (cache["k"][i], cache["v"][i]) if cache else None
         x, d, nkv = _maybe_remat(_dec_layer, cfg, mode)(
-            pb, cfg, x, d, (cross_k[i], cross_v[i]), mode, kv, pos)
+            pb, cfg, x, d, (cross_k[i], cross_v[i]), mode, kv, pos,
+            cross_split)
         if mode == "prefill":
             ks.append(nkv[0])
             vs.append(nkv[1])
@@ -1020,7 +1107,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         dec_x = _embed(params, cfg, batch["tokens"])
         h, d, nc, _ = _encdec_stacks(params, cfg, _enc_embeds(cfg, batch),
                                      dec_x, "prefill")
-        nc = _pad_kv_cache(nc, max_len, S)
+        nc = _local_kv(_pad_kv_cache(nc, max_len, S))
         nc["len"] = torch.tensor(S, dtype=torch.int32, device=dec_x.device)
         return _unembed(params, cfg, h[:, -1:], d[:, -1:]), nc
     x = _embed(params, cfg, batch["tokens"])
@@ -1034,9 +1121,25 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
         h, d, nc, _ = _STACKS[cfg.family](params, cfg, x, "prefill", cache)
     else:
         h, d, nc, _ = _dense_stack(params, cfg, x, "prefill", None)
-    nc = _pad_kv_cache(nc, max_len, S)
+    nc = _local_kv(_pad_kv_cache(nc, max_len, S))
     nc["len"] = torch.tensor(S, dtype=torch.int32, device=x.device)
     return _unembed(params, cfg, h[:, -1:], d[:, -1:]), nc
+
+
+def _local_kv(nc):
+    """A prefill's cache as this rank holds it under the tensor-parallel
+    context: each KV leaf ``[L, B, S, Hkv, hd]`` of a cache split over the
+    sequence (``tp.kv_layout``; it holds every kv head) cut to this rank's
+    range of its S slots; every other leaf as computed (its heads, or the
+    whole cache)."""
+    out = {}
+    for name, t in nc.items():
+        kind = "cross" if name.startswith("cross") else "self"
+        if (name in ("k", "v") or name.endswith(("_k", "_v"))) \
+                and kv_layout(kind) == "sequence":
+            t = seq_range(t, 2)
+        out[name] = t
+    return out
 
 
 def _pad_kv_cache(nc, max_len: int, cur_len: int):

@@ -18,6 +18,15 @@ rule table stores (``models/model.py``):
     the cross-entropy's log-sum-exp and gold logit over them
     (``vocab_lse_gold``) and greedy sampling (``vocab_argmax``).
 
+The serving steps' KV cache lies over 'model' as ``cache_specs`` lays
+it and the steps declare (``kv_layout``): by heads where M divides Hkv
+(each rank writes and reads its heads), else by sequence (each rank
+holds every kv head of its ``S/M`` slots: a decode step gathers the q
+heads over 'model' (``gather_heads``), attends every head over the
+rank's slots with the decode kernel's log-sum-exp, and merges the
+ranks' partials (``merge_partials``)), or whole where M divides
+neither.
+
 Each block's input enters through ``copy_to`` (identity forward; the
 gradient summed over 'model', where each rank holds only its heads' or
 columns' share of it) and its output leaves through ``reduce_from``
@@ -31,7 +40,7 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -44,13 +53,17 @@ class TPInfo(NamedTuple):
     group: object       # the 'model' process group of this rank
     size: int           # M
     rank: int           # this rank's index on 'model'
+    kv: Dict[str, str]  # declared KV cache layouts, by kind (kv_layout)
 
 
 @contextmanager
-def tp_mesh_context(mesh, model_axis: str = "model"):
+def tp_mesh_context(mesh, model_axis: str = "model",
+                    kv: Optional[Dict[str, str]] = None):
     """Declare the ``DeviceMesh`` whose ``model_axis`` the dense blocks
-    split over.  A mesh without that axis, or with one rank on it,
-    declares nothing."""
+    split over, and (``kv``) how the KV cache ``[L, B, S, Hkv, hd]`` lies
+    over it, by kind: "self" (the self-attention caches) and "cross"
+    (whisper's), each "heads", "sequence" or "whole".  A mesh without
+    that axis, or with one rank on it, declares nothing."""
     prev = getattr(_ctx, "info", None)
     info = None
     names = getattr(mesh, "mesh_dim_names", None) or ()
@@ -58,7 +71,8 @@ def tp_mesh_context(mesh, model_axis: str = "model"):
         group = mesh.get_group(model_axis)
         size = dist.get_world_size(group)
         if size > 1:
-            info = TPInfo(mesh, group, size, dist.get_rank(group))
+            info = TPInfo(mesh, group, size, dist.get_rank(group),
+                          dict(kv or {}))
     _ctx.info = info
     try:
         yield
@@ -168,6 +182,73 @@ def local_kv_heads(k: torch.Tensor, v: torch.Tensor, num_heads: int
                          f"{G} unevenly (Hq {num_heads}, Hkv {Hkv}, M "
                          f"{tp.size})")
     return k[:, :, sel], v[:, :, sel]
+
+
+def kv_layout(kind: str) -> Optional[str]:
+    """How the KV cache of ``kind`` ("self" or "cross") lies over 'model'
+    under the context: "heads", "sequence" or "whole", as the sharded
+    serving steps declare it from ``cache_specs`` (a rank's cache slice
+    cannot tell a sequence split from a whole cache by its shape).  None
+    outside the context or where nothing is declared (the train step has
+    no cache)."""
+    tp = current_tp()
+    return None if tp is None else tp.kv.get(kind)
+
+
+def seq_range(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's range of ``t``'s ``dim`` of the whole sequence, a copy
+    of its own (the cache a rank holds under a sequence split)."""
+    tp = current_tp()
+    return t.chunk(tp.size, dim)[tp.rank].contiguous()
+
+
+def gather_heads(q: torch.Tensor) -> torch.Tensor:
+    """The q heads ``[B, S, Hq/M, hd]`` of every rank, gathered over
+    'model' in rank order into ``[B, S, Hq, hd]`` (forward only: the
+    serving steps' decode over a sequence-split cache)."""
+    tp = current_tp()
+    parts = [torch.empty_like(q) for _ in range(tp.size)]
+    dist.all_gather(parts, q.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=2)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, heads_split: bool
+                   ) -> torch.Tensor:
+    """The attention of every rank's slots from this rank's partial ``o``
+    ``[B, 1, Hq, hd]`` over its own slots and its log-sum-exp ``lse``
+    ``[B, Hq]`` (fp32, -inf where it attends none): ``sum_r w_r o_r /
+    sum_r w_r``, ``w_r = exp(lse_r - max_r lse_r)``, in fp32, a rank at
+    -inf weighing exactly 0, in o's dtype.  ``heads_split``: this rank
+    keeps its own Hq/M heads, and each rank receives only those heads'
+    partials, by one ``all_to_all_single`` of ``[M, B, Hq/M, hd + 1]``;
+    else every rank keeps every head (its ``wo`` is whole), by one
+    ``all_gather`` of ``[B, Hq, hd + 1]``.  Forward only."""
+    tp = current_tp()
+    M = tp.size
+    B, _, Hq, hd = o.shape
+    packed = torch.cat([o.reshape(B, Hq, hd).float(), lse[..., None]], -1)
+    if heads_split:
+        send = packed.reshape(B, M, Hq // M, hd + 1).transpose(0, 1)
+        parts = torch.empty_like(send, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(parts, send.contiguous(), group=tp.group)
+    else:
+        chunks = [torch.empty_like(packed) for _ in range(M)]
+        dist.all_gather(chunks, packed, group=tp.group)
+        parts = torch.stack(chunks)
+    out = merge_lse(parts[..., :hd], parts[..., hd])
+    return out.reshape(B, 1, -1, hd).to(o.dtype)
+
+
+def merge_lse(po: torch.Tensor, pl: torch.Tensor) -> torch.Tensor:
+    """The partials ``po`` ``[M, ..., hd]`` over M slot ranges merged by
+    their log-sum-exps ``pl`` ``[M, ...]``: ``sum_r w_r po_r / sum_r
+    w_r``, ``w_r = exp(pl_r - max_r pl_r)``, in fp32, a range at -inf
+    weighing exactly 0 (zeros where every range is at -inf)."""
+    po, pl = po.float(), pl.float()
+    w = torch.where(pl == -torch.inf, 0.0, torch.exp(pl - pl.amax(0)))
+    den = w.sum(0)
+    return (w[..., None] * po).sum(0) / torch.where(den > 0, den,
+                                                    1.0)[..., None]
 
 
 def _vocab_range(local: int):

@@ -78,7 +78,8 @@ from repro_torch.train.step import build_loss_fn, value_and_grad
 from repro_torch.utils.tree import (flatten_with_paths, tree_map,
                                     tree_unflatten)
 
-_EXPERT_LEAVES = ("moe/w_gate", "moe/w_up", "moe/w_down")
+#: the expert leaves expert parallelism computes on this rank's shards
+EXPERT_LEAVES = ("moe/w_gate", "moe/w_up", "moe/w_down")
 
 
 def local_block(t: torch.Tensor, sharding) -> torch.Tensor:
@@ -179,13 +180,15 @@ def tp_state(cfg: ModelConfig, shardings: Dict):
 
 
 def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
-                             shardings: Dict, *, ep: bool = False
-                             ) -> Callable:
+                             shardings: Dict, *, ep: bool = False,
+                             tp_dispatch: bool = False) -> Callable:
     """(params, opt_state, global batch) -> (params, opt_state, metrics),
     the state DTensors at ``shardings`` (``launch.sharding.
-    train_shardings``), every rank passing the same global batch.  ``ep``:
-    the MoE layers run ``moe_ffn_ep`` on the mesh.  The metrics are the
-    global batch's (``ce_loss``, ``tokens``, ``aux_loss``,
+    train_shardings``), every rank passing the same global batch (or,
+    without ``tc.microbatch``, each leaf a DTensor at the batch's
+    placement).  ``ep``: the MoE layers run ``moe_ffn_ep`` on the mesh
+    (``tp_dispatch``: its dispatch split over 'model' too).  The metrics
+    are the global batch's (``ce_loss``, ``tokens``, ``aux_loss``,
     ``total_loss``; with ``tc.microbatch`` the microbatches' means) with
     ``grad_norm`` and ``lr``."""
     mesh = shardings["metrics"].mesh
@@ -203,7 +206,7 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
         n_data *= dist.get_world_size(g)
     everywhere = [mesh.get_group(a) for a in names]
     mgroups = [mesh.get_group("model")] if "model" in names else []
-    local = {p for p in pshard if ep and p.endswith(_EXPERT_LEAVES)}
+    local = {p for p in pshard if ep and p.endswith(EXPERT_LEAVES)}
     reduced = local | {p for p in pshard
                        if ep and p.endswith("moe/w_router")}
     tp_local, tp_summed = tp_state(cfg, shardings["params"])
@@ -233,8 +236,8 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
         stack = ExitStack()
         stack.enter_context(tp_mesh_context(mesh))
         if ep:
-            stack.enter_context(ep_mesh_context(mesh,
-                                                extra_batch_axes=extra))
+            stack.enter_context(ep_mesh_context(
+                mesh, extra_batch_axes=extra, tp_dispatch=tp_dispatch))
         return stack
     w = cfg.router_aux_weight
 
@@ -242,7 +245,8 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
         """The loss and gradients of the global rows ``mb``: this rank's
         block of them, its CE weighted by its share of their counted
         tokens over the data ranks."""
-        lb = {k: local_block(v, bshard[k]) for k, v in mb.items()}
+        lb = {k: v.to_local() if isinstance(v, DTensor) else
+              local_block(v, bshard[k]) for k, v in mb.items()}
         mask = lb.get("loss_mask")
         cnt = (mask.float().sum() if mask is not None else torch.tensor(
             float(lb["labels"].numel()), device=lb["labels"].device))
@@ -280,6 +284,9 @@ def build_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
             raise ValueError(
                 f"microbatch {mbs} must divide the global batch {B} and "
                 f"split evenly over the {n_data} data ranks")
+        if mbs and isinstance(batch["tokens"], DTensor):
+            raise ValueError("a microbatched step takes the global batch, "
+                             "not DTensors")
         flat = flatten_with_paths(params)
         compute = compute_leaves(params)
         if mbs:

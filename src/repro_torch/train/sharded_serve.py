@@ -8,7 +8,7 @@ cache DTensors at ``cache_specs``'.  Each rank takes its rows of the
 global batch (the token's spec) and computes under ``tp_mesh_context``
 (``models/tp.py``): the leaves ``launch/sharding.py::tp_leaves`` names
 as its shard over 'model', every other leaf gathered whole.  The KV
-cache is held as this rank's rows and heads, ``[L, B/D, S, Hkv/M, hd]``,
+cache is held as this rank's rows and its share over 'model' (below),
 written in place by the decode step; the Mamba2 states, which the Mamba2
 layers compute whole, are gathered over 'model' for each step and split
 again after it.  The logits are vocab-parallel (``serve_shardings``'
@@ -16,24 +16,34 @@ again after it.  The logits are vocab-parallel (``serve_shardings``'
 (``tp.vocab_argmax``: a local max and argmax, then the lowest index
 holding the global max).
 
-Where ``cache_specs`` splits the KV cache over the sequence (M does not
-divide Hkv), the steps raise a ``ValueError``: merging the ranks'
-partial attention needs the decode kernel's log-sum-exp, a later slice.
+The KV cache lies as ``cache_specs`` lays it over 'model', and the steps
+declare that layout to the model (``tp_mesh_context(kv=...)``, one per
+kind: the self-attention caches and whisper's cross-attention cache):
+by heads where M divides Hkv (``[L, B/D, S, Hkv/M, hd]``); by sequence
+where M does not divide Hkv but divides the slots (``[L, B/D, S/M,
+Hkv, hd]``: every kv head of the rank's slot range; the rank that owns
+the token's slot writes it, and the ranks' partial attention over their
+ranges is merged by the decode kernel's log-sum-exp, ``models/tp.py``);
+or whole where ``fix_spec`` drops both splits (each rank writes every
+kv head and reads its q heads' ones).  The merge sums the ranks'
+partials in rank order, where GSPMD's partitioned softmax sums in its
+own order: the same function, equal within f32 rounding.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Callable, Dict
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import model_axis_size
 from repro_torch.launch.sharding import NamedSharding, P
 from repro_torch.models import model as model_lib
+from repro_torch.models.moe_ep import ep_mesh_context
 from repro_torch.models.tp import tp_mesh_context, vocab_argmax
-from repro_torch.train.sharded import (gather, local_block, model_shard,
-                                       tp_state)
+from repro_torch.train.sharded import (EXPERT_LEAVES, gather,
+                                       local_block, model_shard, tp_state)
 from repro_torch.utils.tree import flatten_with_paths, tree_unflatten
 
 def _is_kv(name: str) -> bool:
@@ -42,32 +52,59 @@ def _is_kv(name: str) -> bool:
     return name in ("k", "v") or name.endswith(("_k", "_v"))
 
 
-def _check_cache(cfg: ModelConfig, shardings: Dict) -> None:
-    M = model_axis_size(shardings["token"].mesh)
-    for path, sh in flatten_with_paths(shardings["cache"]):
-        if _is_kv(path) and M > 1 and sh.spec[3] != "model":
-            raise ValueError(
-                f"cache {path}: spec {sh.spec} does not split its "
-                f"{cfg.num_kv_heads} kv heads over the {M} model ranks "
-                f"(Hkv % M != 0 takes cache_specs' sequence split, whose "
-                f"partial attention the decode kernel's log-sum-exp will "
-                f"merge in a later slice of the port)")
+def kv_layouts(shardings: Dict) -> Dict[str, str]:
+    """How ``shardings``' KV cache lies over 'model', by kind ("self",
+    "cross"; the leaves of one kind share their shape, so their specs):
+    "heads" where its spec splits the kv heads, "sequence" where it
+    splits the slots, else "whole"."""
+    return {"cross" if path.startswith("cross") else "self":
+            "heads" if sh.spec[3] == "model" else
+            "sequence" if sh.spec[2] == "model" else "whole"
+            for path, sh in flatten_with_paths(shardings["cache"])
+            if _is_kv(path)}
 
 
 class _Plan:
     """What a step of ``shardings`` computes with, and how its results go
     back to their placements."""
 
-    def __init__(self, cfg: ModelConfig, shardings: Dict):
-        _check_cache(cfg, shardings)
+    def __init__(self, cfg: ModelConfig, shardings: Dict, ep: bool = False,
+                 tp_dispatch: bool = False):
         self.cfg = cfg
         self.mesh = shardings["token"].mesh
         self.rows = shardings["token"].spec[0]
         self.tp_local, _ = tp_state(cfg, shardings["params"])
         self.cshard = dict(flatten_with_paths(shardings["cache"]))
+        self.kv = kv_layouts(shardings)
+        self.ep = None
+        if ep:
+            rows = self.rows if isinstance(self.rows, tuple) else (
+                () if self.rows is None else (self.rows,))
+            if "data" not in rows:
+                raise ValueError(f"expert parallelism needs the batch's "
+                                 f"rows sharded over 'data' (rows over "
+                                 f"{self.rows})")
+            self.ep = (tuple(a for a in rows if a != "data"), tp_dispatch)
+
+    def context(self):
+        """The model's context: the mesh's 'model' axis, the cache's
+        layout over it and, with expert parallelism, the mesh the MoE
+        layers dispatch over (``moe_ffn_ep``)."""
+        stack = ExitStack()
+        stack.enter_context(tp_mesh_context(self.mesh, kv=self.kv))
+        if self.ep is not None:
+            stack.enter_context(ep_mesh_context(
+                self.mesh, extra_batch_axes=self.ep[0],
+                tp_dispatch=self.ep[1]))
+        return stack
 
     def params(self, params):
+        """The tensors the step computes with: this rank's shard of a leaf
+        ``tp_leaves`` splits (and of an expert leaf, with expert
+        parallelism), every other leaf gathered whole."""
         return tree_unflatten(params, [
+            p.to_local() if self.ep is not None
+            and path.endswith(EXPERT_LEAVES) else
             model_shard(p) if path in self.tp_local else gather(p)
             for path, p in flatten_with_paths(params)])
 
@@ -81,8 +118,8 @@ class _Plan:
 
     def cache_in(self, cache: Dict) -> Dict:
         """The rank's cache (a flat dict, as ``init_cache`` makes it): the
-        KV leaves and ``len`` as held, the Mamba2 states gathered over
-        'model'."""
+        KV leaves (its heads, its slot range or whole) and ``len`` as
+        held, the Mamba2 states gathered over 'model'."""
         return {name: t.to_local() if _is_kv(name) or t.ndim == 0
                 else gather(t, ["model"]) for name, t in cache.items()}
 
@@ -108,44 +145,52 @@ class _Plan:
 
 
 def build_sharded_prefill_step(cfg: ModelConfig, max_len: int,
-                               shardings: Dict) -> Callable:
+                               shardings: Dict, *, ep: bool = False,
+                               tp_dispatch: bool = False) -> Callable:
     """(params, global batch {"tokens": [B, S], ...}) -> (last logits
     [B, 1, V] at ``P(batch, None, "model")``, cache at ``shardings
-    ["cache"]``), every rank passing the same global batch; ``shardings``
-    is ``launch.sharding.serve_shardings``."""
-    plan = _Plan(cfg, shardings)
+    ["cache"]``), every rank passing the same global batch (or each leaf
+    a DTensor at the batch's placement); ``shardings`` is
+    ``launch.sharding.serve_shardings``.  ``ep``: the MoE layers run
+    ``moe_ffn_ep`` on the mesh, on this rank's expert shards
+    (``tp_dispatch``: its dispatch split over 'model' too)."""
+    plan = _Plan(cfg, shardings, ep, tp_dispatch)
 
     def prefill_step(params, batch):
         ps = plan.params(params)
         lb = {k: plan.local_rows(v) for k, v in batch.items()}
-        with tp_mesh_context(plan.mesh):
+        with plan.context():
             logits, cache = model_lib.prefill(ps, cfg, lb, max_len)
         return plan.logits_out(logits), plan.cache_out(cache)
     return prefill_step
 
 
-def build_sharded_decode_step(cfg: ModelConfig, shardings: Dict
+def build_sharded_decode_step(cfg: ModelConfig, shardings: Dict, *,
+                              ep: bool = False, tp_dispatch: bool = False
                               ) -> Callable:
     """(params, cache, token [B, 1]) -> (logits [B, 1, V] at ``P(batch,
     None, "model")``, cache); ``token`` the global tokens or a DTensor at
-    the token's placement.  The KV leaves are written in place."""
-    plan = _Plan(cfg, shardings)
+    the token's placement.  The KV leaves are written in place.  ``ep``
+    and ``tp_dispatch`` as for the prefill."""
+    plan = _Plan(cfg, shardings, ep, tp_dispatch)
 
     def decode_step(params, cache, token):
         ps = plan.params(params)
-        with tp_mesh_context(plan.mesh):
+        with plan.context():
             logits, nc = model_lib.decode_step(
                 ps, cfg, plan.cache_in(cache), plan.local_rows(token))
         return plan.logits_out(logits), plan.cache_out(nc)
     return decode_step
 
 
-def build_sharded_serve_step(cfg: ModelConfig, shardings: Dict
+def build_sharded_serve_step(cfg: ModelConfig, shardings: Dict, *,
+                             ep: bool = False, tp_dispatch: bool = False
                              ) -> Callable:
     """The dry-run's decode entry on the mesh: (params, token [B, 1],
     cache) -> (next token [B, 1] int32 at the token's placement, cache),
     greedy over the vocab-parallel logits."""
-    decode = build_sharded_decode_step(cfg, shardings)
+    decode = build_sharded_decode_step(cfg, shardings, ep=ep,
+                                       tp_dispatch=tp_dispatch)
 
     def serve_step(params, token, cache):
         logits, cache = decode(params, cache, token)

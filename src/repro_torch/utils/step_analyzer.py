@@ -7,7 +7,9 @@ dispatches instead of from compiled HLO.
 ``analyze(step, *args)`` runs ``step(*args)`` once on fake tensors
 (``torch._subclasses.fake_tensor.FakeTensorMode``): every argument leaf,
 ``device="meta"`` or real, is replaced by a fake CPU tensor of its shape,
-dtype and strides, so the step computes nothing and allocates nothing,
+dtype and strides (a DTensor by a DTensor of the same placements over a
+fake tensor of its local shard's shape: what the rank holds, never the
+global tensor), so the step computes nothing and allocates nothing,
 and every kernel wrapper takes its plain version (a fake tensor says
 ``device.type == "cpu"``).  Nothing is launched: the launch counters of
 every kernel are checked unchanged.  Under the fake mode
@@ -33,8 +35,12 @@ What is counted (``StepCost``), and how it differs from XLA's numbers:
   returns do not count (XLA's ``temp_size_in_bytes``), so argument +
   temporary + output bytes bound the step's footprint.
 * ``argument_bytes`` / ``output_bytes``: the bytes of the call's
-  argument and result leaves (XLA adds 8 B per output leaf for its tuple
-  index table; this does not).
+  argument and result leaves, a DTensor's local shard's (XLA adds 8 B per
+  output leaf for its tuple index table; this does not).
+* ``alias_bytes``: the bytes of the result leaves that are argument
+  storages, written in place (the decode steps' KV caches): XLA's
+  ``alias_size_in_bytes`` of donated buffers.
+* ``bytes_by_op``: ``hbm_bytes`` by aten op name.
 * ``matmul_count``: the ops FlopCounterMode has a formula for (JAX's
   ``dot`` count); ``op_count``: every counted op, each a kernel in eager
   PyTorch (JAX's ``fusion`` count).
@@ -102,11 +108,13 @@ class StepCost:
     argument_bytes: int = 0
     output_bytes: int = 0
     output_leaves: int = 0
+    alias_bytes: int = 0
     matmul_count: int = 0
     op_count: int = 0
     loops: List[Dict] = field(default_factory=list)
     collective_counts: Dict[str, float] = field(default_factory=dict)
     collective_bytes: Dict[str, float] = field(default_factory=dict)
+    bytes_by_op: Dict[str, float] = field(default_factory=dict)
 
     @property
     def total_collective_bytes(self) -> float:
@@ -264,6 +272,8 @@ class _Recorder(TorchDispatchMode):
                                if name in _INDEXED_WRITES
                                else _nbytes(written))
         self.cost.hbm_bytes += b
+        by_op = self.cost.bytes_by_op
+        by_op[name] = by_op.get(name, 0.0) + b
         self.cost.op_count += 1
         if func in self.matmuls or func.overloadpacket in self.matmuls:
             self.cost.matmul_count += 1
@@ -305,19 +315,41 @@ def _peak(events, skip) -> int:
     return peak
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """What a rank holds of ``t``: a DTensor's local shard, else ``t``."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _faked(t):
+    """A fake CPU stand-in for an argument leaf (inside the fake mode): of
+    ``t``'s shape, dtype and strides, or for a DTensor a DTensor of its
+    placements over a stand-in of its local shard."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        loc = t.to_local()
+        return DTensor.from_local(
+            torch.empty_strided(loc.shape, loc.stride(), dtype=loc.dtype,
+                                device="cpu"), t.device_mesh, t.placements,
+            run_check=False, shape=t.shape, stride=t.stride())
+    if isinstance(t, torch.Tensor):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device="cpu")
+    return t
+
+
 def analyze(step, *args) -> StepCost:
     """``step(*args)`` once on fake CPU tensors: its ``StepCost``.  The
     argument trees (nested dicts, lists, tuples and NamedTuples) may hold
-    ``device="meta"`` or real tensors; only shapes, dtypes and strides
-    are read."""
+    ``device="meta"`` or real tensors, or DTensors over either (a sharded
+    step's state: only the local shards' shapes count); only shapes,
+    dtypes and strides are read."""
     cost = StepCost()
     before = _launch_counts()
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     with fake:
-        fargs = [tree_map(lambda t: torch.empty_strided(
-            t.shape, t.stride(), dtype=t.dtype, device="cpu")
-            if isinstance(t, torch.Tensor) else t, a) for a in args]
-    arg_leaves = [t for a in fargs for t in tree_leaves(a)
+        fargs = [tree_map(_faked, a) for a in args]
+    arg_leaves = [_local(t) for a in fargs for t in tree_leaves(a)
                   if isinstance(t, torch.Tensor)]
     cost.argument_bytes = sum(_nbytes(t) for t in arg_leaves)
     flop_mode = FlopCounterMode(display=False)
@@ -332,9 +364,12 @@ def analyze(step, *args) -> StepCost:
     if rec.backward:
         cost.loops += [dict(lp, phase="backward") for lp in cost.loops
                        if lp["phase"] == "forward"]
-    out_leaves = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+    out_leaves = [_local(t) for t in tree_leaves(out)
+                  if isinstance(t, torch.Tensor)]
     cost.output_bytes = sum(_nbytes(t) for t in out_leaves)
     cost.output_leaves = len(out_leaves)
+    cost.alias_bytes = sum(_nbytes(t) for t in out_leaves
+                           if _storage_key(t) in rec.arg_keys)
     cost.flops = float(flop_mode.get_total_flops())
     cost.peak_temp_bytes = _peak(rec.events, rec.serials(out_leaves))
     after = _launch_counts()

@@ -10,7 +10,7 @@ sum(y * r) + 0.37 * aux, and the assignments each source shard drops;
 ``pipeline``: ``pipeline_apply`` on a (2, 2) (pipe, dp) mesh and a
 (4, 1) one, and its gradients; ``sharded_step``: the launcher's sharded
 train step; ``serve_steps``: the dry-run's prefill and serve steps
-jitted under ``serve_shardings``."""
+jitted under ``serve_shardings`` on a (2, 2) or a (1, 4) mesh."""
 import sys
 
 import jax
@@ -156,32 +156,44 @@ def sharded_step(z):
     return out
 
 
+#: the config fields a serving run may override (``serve_steps``)
+SERVE_OVERRIDES = {"capacity_factor": float, "num_heads": int,
+                   "num_kv_heads": int}
+
+
 def serve_steps(z):
-    """For each arch of ``z["archs"]`` (its smoke config in f32, with
-    ``z[arch + "/capacity_factor"]`` where given), from the port's
-    checkpoint ``z[arch + "/ckpt"]``: the dry-run's ``build_prefill_step``
-    jitted with ``serve_shardings``' params, ``batch_specs`` and
-    ``cache_specs`` on a (2, 2) mesh on the batch ``z[arch + "/" + key]``,
-    then ``z["steps"]`` of its ``build_serve_step`` from the prefill's
-    greedy token: each step's tokens and the last cache."""
+    """For each run of ``z["archs"]`` (a run id: the arch ``z[id +
+    "/arch"]``, the id itself where absent; its smoke config in f32, with
+    the ``SERVE_OVERRIDES`` given as ``z[id + "/" + field]``), from the
+    port's checkpoint ``z[id + "/ckpt"]``: the dry-run's
+    ``build_prefill_step`` jitted with ``serve_shardings``' params,
+    ``batch_specs`` and ``cache_specs`` on a mesh of ``z["mesh"]`` ((2, 2)
+    where absent) on the batch ``z[id + "/" + key]`` into a cache of
+    ``z[id + "/max_len"]`` (else ``z["max_len"]``) slots, then
+    ``z["steps"]`` of its ``build_serve_step`` from the prefill's greedy
+    token: each step's tokens and the last cache."""
     from repro.checkpoint.checkpoint import restore
     from repro.configs import get_config
     from repro.launch import sharding as shd
     from repro.models import model as jm
     from repro.train.step import build_prefill_step, build_serve_step
-    mesh = jax.make_mesh((2, 2), ("data", "model"),
+    shape = tuple(int(x) for x in z["mesh"]) if "mesh" in z else (2, 2)
+    mesh = jax.make_mesh(shape, ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    max_len, steps = int(z["max_len"]), int(z["steps"])
+    steps = int(z["steps"])
     out = {}
-    for arch in (str(a) for a in z["archs"]):
-        over = {"capacity_factor": float(z[arch + "/capacity_factor"])} \
-            if arch + "/capacity_factor" in z else {}
+    for rid in (str(a) for a in z["archs"]):
+        arch = str(z[rid + "/arch"]) if rid + "/arch" in z else rid
+        max_len = int(z[rid + "/max_len"] if rid + "/max_len" in z
+                      else z["max_len"])
+        over = {k: f(z[f"{rid}/{k}"]) for k, f in SERVE_OVERRIDES.items()
+                if f"{rid}/{k}" in z}
         cfg = get_config(arch, smoke=True).replace(
             param_dtype="float32", compute_dtype="float32", **over)
         abst = jm.abstract(cfg)
-        params = restore(str(z[arch + "/ckpt"]), abst)[0]
+        params = restore(str(z[rid + "/ckpt"]), abst)[0]
         batch = {k.split("/", 1)[1]: jnp.asarray(z[k]) for k in z
-                 if k.startswith(arch + "/") and k.split("/", 1)[1] in
+                 if k.startswith(rid + "/") and k.split("/", 1)[1] in
                  ("tokens", "patch_embeds", "enc_embeds")}
         B = batch["tokens"].shape[0]
         cross = batch["enc_embeds"].shape[1] if "enc_embeds" in batch \
@@ -200,13 +212,16 @@ def serve_steps(z):
                             out_shardings=(sh["token"], sh["cache"]))
             logits, cache = pre(params, batch)
             tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-            out[f"{arch}/logits"] = np.asarray(logits)
-            out[f"{arch}/tok0"] = np.asarray(tok)
+            out[f"{rid}/logits"] = np.asarray(logits)
+            out[f"{rid}/tok0"] = np.asarray(tok)
             for i in range(steps):
                 tok, cache = serve(params, tok, cache)
-                out[f"{arch}/tok{i + 1}"] = np.asarray(tok)
+                out[f"{rid}/tok{i + 1}"] = np.asarray(tok)
         for k, v in cache.items():
-            out[f"{arch}/cache/{k}"] = np.asarray(v)
+            out[f"{rid}/cache/{k}"] = np.asarray(v)
+        # the cache's specs, as the steps laid it
+        for k, s in sh["cache"].items():
+            out[f"{rid}/spec/{k}"] = np.asarray(repr(s.spec))
     return out
 
 

@@ -410,13 +410,14 @@ def serve_inputs(arch, over, B, S):
 
 
 def tp_serve_rank(rank, shape, runs, B, S, max_len, steps):
-    """For each (arch, config overrides) of ``runs`` on a mesh of
-    ``shape``: the sharded prefill of ``serve_inputs``' batch into a
-    cache of ``max_len`` slots and ``steps`` sharded serve steps from its
-    greedy token: each step's tokens, the prefill's logits and the last
-    cache gathered whole, and the shapes of this rank's cache blocks; or
-    the ``ValueError``'s message where the steps refuse the cache's
-    specs."""
+    """For each (arch, config overrides[, max_len, ep]) of ``runs`` on a
+    mesh of ``shape``: the sharded prefill of ``serve_inputs``' batch into
+    a cache of ``max_len`` slots (the run's own where given; with ``ep``
+    the MoE layers expert-parallel) and ``steps``
+    sharded serve steps from its greedy token: each step's tokens, the
+    prefill's logits and the last cache gathered whole, the shapes of this
+    rank's cache blocks and the collectives of the last serve step by
+    kind."""
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.sharding import serve_shardings
     from repro_torch.models import model as tm
@@ -424,33 +425,34 @@ def tp_serve_rank(rank, shape, runs, B, S, max_len, steps):
     from repro_torch.train.sharded_serve import (build_sharded_prefill_step,
                                                  build_sharded_serve_step,
                                                  greedy)
+    from repro_torch.utils.step_analyzer import CollectiveCounter
     from repro_torch.utils.tree import tree_map
     mesh = make_debug_mesh(shape)
     outs = []
-    for arch, over in runs:
+    for arch, over, *own in runs:
+        ml = own[0] if own else max_len
+        ep = own[1] if own[1:] else False
         cfg, params, batch = serve_inputs(arch, over, B, S)
         cross = batch["enc_embeds"].shape[1] if "enc_embeds" in batch \
             else 1500
-        cache = tm.init_cache(cfg, B, max_len, abstract_only=True,
+        cache = tm.init_cache(cfg, B, ml, abstract_only=True,
                               cross_len=cross)
         sh = serve_shardings(cfg, mesh, params, cache, B)
-        try:
-            prefill = build_sharded_prefill_step(cfg, max_len, sh)
-        except ValueError as e:
-            outs.append(str(e))
-            continue
-        serve = build_sharded_serve_step(cfg, sh)
+        prefill = build_sharded_prefill_step(cfg, ml, sh, ep=ep)
+        serve = build_sharded_serve_step(cfg, sh, ep=ep)
         p = tree_map(distribute, params, sh["params"])
         logits, c = prefill(p, batch)
         tok = greedy(logits, cfg)
         toks = [tok.full_tensor()]
-        for _ in range(steps):
-            tok, c = serve(p, tok, c)
+        for i in range(steps):
+            with CollectiveCounter() as counted:
+                tok, c = serve(p, tok, c)
             toks.append(tok.full_tensor())
         outs.append({"tokens": toks, "logits": logits.full_tensor(),
                      "cache": {k: v.full_tensor() for k, v in c.items()},
                      "local": {k: tuple(v.to_local().shape)
-                               for k, v in c.items()}})
+                               for k, v in c.items()},
+                     "collectives": dict(counted.counts)})
     return outs
 
 
@@ -483,14 +485,11 @@ def tp_helpers_rank(rank, inp_path):
             "gathered": g.detach(), "dx": x.grad}
 
 
-def tp_serve_checks_rank(rank, runs, B, S, max_len, steps, refused,
-                         helpers):
-    """``tp_serve_rank`` of ``runs`` on (2, 2) and of ``refused`` on
-    (1, 4), and ``tp_helpers_rank`` of ``helpers``, in one spawn."""
+def tp_serve_checks_rank(rank, runs, B, S, max_len, steps, helpers):
+    """``tp_serve_rank`` of ``runs`` on (2, 2) and ``tp_helpers_rank`` of
+    ``helpers``, in one spawn."""
     return {"served": tp_serve_rank(rank, (2, 2), runs, B, S, max_len,
                                     steps),
-            "refused": tp_serve_rank(rank, (1, 4), refused, B, S, max_len,
-                                     steps),
             "helpers": tp_helpers_rank(rank, helpers)}
 
 

@@ -386,6 +386,56 @@ def test_decode_kernel_at_the_served_shapes(case, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+#: one rank's range of a cache split over the sequence: (name, (B, S,
+#: Hq, Hkv, D), the range's first slot, the rows' positions, window,
+#: softcap) -- rows before, inside and past the range, a window that
+#: ends before it, one that starts inside it
+RANGE_DECODE_CASES = [
+    ("rows-around-the-range", (4, 64, 8, 2, 32), 64, [10, 70, 127, 300],
+     0, 0.0),
+    ("window-leaves-it-empty", (3, 96, 8, 4, 64), 96, [250, 150, 100], 40,
+     30.0),
+    ("qwen3-rank", (8, 128, 16, 8, 128), 256, [5, 255, 256, 300, 383, 384,
+                                                 1000, 320], 0, 0.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RANGE_DECODE_CASES,
+                         ids=[c[0] for c in RANGE_DECODE_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_lse_on_a_range_vs_plain_on_card(case, dtype):
+    """``decode_attention(..., slot_offset=, return_lse=True)`` on a CUDA
+    tensor launches the kernel (its count rises by one) and returns o and
+    lse as the plain version computes them; a row that attends nothing
+    gives o = 0 and lse = -inf, no NaN."""
+    _cuda_or_skip()
+    _, (B, S, Hq, Hkv, D), off, pos, window, cap = case
+    arrs = decode_case(B, S, Hq, Hkv, D, [1] * B)
+    q, kc, vc = (torch.from_numpy(a).to("cuda", dtype) for a in arrs[:3])
+    posd = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = t_da_ops.decode_attention_fwd.launches
+    out, lse = t_da_ops.decode_attention(q, kc, vc, posd, window=window,
+                                         attn_softcap=cap, slot_offset=off,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert t_da_ops.decode_attention_fwd.launches == before + 1
+    ends = torch.tensor(pos, dtype=torch.int32) + 1 - off
+    ro, rl = decode_attention_ref(
+        q.transpose(1, 2).cpu(), kc.cpu(), vc.cpu(), torch.clamp(ends, 0, S),
+        scale=D ** -0.5, window=window, softcap=cap, ends=ends,
+        return_lse=True)
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    empty = rl == -torch.inf
+    assert empty.any() and torch.equal(lse.cpu() == -torch.inf, empty)
+    assert torch.all(out.transpose(1, 2).cpu()[empty] == 0)
+    torch.testing.assert_close(out.cpu().float(),
+                               ro.transpose(1, 2).float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    torch.testing.assert_close(lse.cpu()[~empty], rl[~empty], atol=1e-4,
+                               rtol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["pixtral-12b", "gemma2-27b",
                                   "whisper-large-v3"])

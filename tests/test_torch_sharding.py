@@ -119,8 +119,11 @@ def test_mesh_helpers_read_shapes():
         assert t_mesh.num_chips(t) == int(np.prod(list(shape.values())))
         assert t_mesh.mesh_shape(j).shape == shape
     assert t_mesh.model_axis_size(t_mesh.MeshShape({"data": 4})) == 1
-    with pytest.raises(NotImplementedError, match="analysis slice"):
-        t_mesh.make_production_mesh()
+    # the dry-run's meshes are these shapes (make_production_mesh sets up
+    # a fake process group: tests/test_torch_dryrun.py runs it in
+    # processes of their own)
+    assert {name: dict(zip(axes, shape)) for shape, axes, name in
+            t_mesh.PRODUCTION_MESHES.values()} == MESHES
 
 
 def test_the_roofline_constants_are_the_h100s():

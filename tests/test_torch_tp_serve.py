@@ -2,14 +2,15 @@
 gloo ranks on a (2, 2) (data, model) mesh: the prefill of 4 rows x 8
 tokens into a 16-slot cache and 4 greedy serve steps of each attention
 family's smoke config in f32 (qwen3-0.6b, gemma2, whisper, pixtral, and
-qwen3-moe at a capacity where nothing drops), and of mamba2 and zamba2,
-whose Mamba2 states the steps gather over 'model'; each against the
+qwen3-moe at a capacity where nothing drops, also expert-parallel), and
+of mamba2 and zamba2, whose Mamba2 states the steps gather over
+'model'; each against the
 port's one-rank ``build_prefill_step`` / ``build_serve_step`` and the
 attention families against the JAX dry-run's steps jitted under
 ``serve_shardings`` on 4 host devices: tokens equal, the prefill's
 logits and every cache leaf (gathered) within 1e-5.  Each rank holds its
-rows and heads of the KV cache.  On (1, 4) qwen3's 2 kv heads take
-``cache_specs``' sequence split, which the steps refuse.  Then
+rows and heads of the KV cache (the sequence split and the whole cache
+on (1, 4): ``tests/test_torch_seq_split_serve.py``).  Then
 ``models/tp.py``'s helpers on the ranks against their one-rank
 formulas, and outside the context as the identity.  One spawn of the
 ranks and one JAX process serve the whole file."""
@@ -33,10 +34,12 @@ MOE = "qwen3-moe-30b-a3b"
 NO_DROP = {"capacity_factor": 4.0}
 ATTENTION = ["qwen3-0.6b", "gemma2-27b", "whisper-large-v3", "pixtral-12b",
              MOE]
+#: (arch, config overrides[, cache slots, expert parallelism]): the MoE
+#: also with its layers expert-parallel (``moe_ffn_ep`` over 'data', on
+#: each rank's expert shards)
 RUNS = [(a, NO_DROP if a == MOE else {}) for a in ATTENTION] + [
-    ("mamba2-780m", {}), ("zamba2-2.7b", {})]
-#: qwen3's 2 kv heads on 4 model ranks: cache_specs splits the sequence
-REFUSED = [("qwen3-0.6b", {})]
+    ("mamba2-780m", {}), ("zamba2-2.7b", {}), (MOE, NO_DROP, MAX_LEN, True)]
+RUN_IDS = [r[0] + ("-ep" if r[3:] else "") for r in RUNS]
 TOL = 1e-5
 
 
@@ -75,7 +78,7 @@ def runs(tmp_path_factory):
     helpers = _helper_inputs(tmp)
     try:
         ranks = scaleout_ranks.spawn(
-            "tp_serve_checks_rank", tmp, RUNS, B, S, MAX_LEN, STEPS, REFUSED,
+            "tp_serve_checks_rank", tmp, RUNS, B, S, MAX_LEN, STEPS,
             str(tmp / "helpers.npz"))
     finally:
         ref = scaleout_ranks.jax_result(proc, tmp / "jax_serve.npz")
@@ -103,10 +106,10 @@ def _same_on_every_rank(ranks, i):
     return got[0]
 
 
-@pytest.mark.parametrize("i", range(len(RUNS)), ids=[a for a, _ in RUNS])
+@pytest.mark.parametrize("i", range(len(RUNS)), ids=RUN_IDS)
 def test_sharded_serving_equals_one_rank(runs, i):
     ranks, _, _ = runs
-    arch, over = RUNS[i]
+    arch, over = RUNS[i][:2]
     got = _same_on_every_rank(ranks, i)
     toks, logits, cache = one_rank(arch, over)
     for a, b in zip(got["tokens"], toks, strict=True):
@@ -147,14 +150,6 @@ def test_each_rank_holds_its_rows_and_heads_of_the_cache(runs, arch):
                 continue
             assert shape == (whole[0], whole[1] // 2, whole[2],
                              whole[3] // 2, whole[4]), (arch, k, shape)
-
-
-def test_the_sequence_split_is_refused(runs):
-    ranks, _, _ = runs
-    for r in ranks:
-        msg, = r["refused"]
-        assert isinstance(msg, str) and "2 kv heads over the 4 model " \
-            "ranks" in msg and "later slice" in msg, msg
 
 
 def test_vocab_parallel_helpers_equal_their_one_rank_formulas(runs):
