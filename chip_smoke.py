@@ -55,7 +55,8 @@ and any failure exits non-zero:
    version in f32; both served launches must take the tensor-core route
    (``kernel.py::route``); then timed at both SSM main paths' shapes
    beside its bound and the plain version (no single PyTorch call
-   computes the scan, so there is no library time);
+   computes the scan, so there is no library time), and at one model
+   rank's launch of each on a model axis of two (phase 33's);
 9. the SSM main path: ``repro_torch.launch.serve.main`` with
    ``--arch mamba2-780m --backend dense`` serves 8 requests of 192-384
    prompt tokens with the full-width, full-depth model; the SSD kernel
@@ -85,7 +86,13 @@ and any failure exits non-zero:
     unfused card sequence (with the count of elements that differ from
     it, which must be 0) and, for ``rmsnorm_fwd``,
     ``torch.nn.functional.rms_norm`` (and whether that call gives the same
-    bf16 values to 1 ulp);
+    bf16 values to 1 ulp); then the gated norm split over ranks by
+    columns (Mamba2 under tensor parallelism: ``gated_rmsnorm_sumsq`` /
+    ``_scale`` forward, ``gated_rmsnorm_dot`` / ``_scale_bwd`` backward)
+    on every case of ``SPLIT_CASES`` (2 or 4 ranks of 24 to 2,560 columns,
+    the four dtype pairs): each rank's entries against their plain
+    versions and the ranks' outputs side by side against the whole-row
+    ``gated_rmsnorm_fwd`` / ``_bwd``, each timed at phase 33's launch;
 13. the MoE paged main path: ``repro_torch.launch.serve.main`` serves 8
     requests with the full-width, full-depth qwen3-moe-30b-a3b (48
     layers, 128 experts, bf16, random weights from a seed) inside a
@@ -233,10 +240,25 @@ and any failure exits non-zero:
     process group): every cell ``ok`` with 22 finite features, the
     decode cell's KV cache per device the whole cache's over M x D and
     one all-to-all per layer; each cell's per-device peak, roofline
-    terms and dominant term.
+    terms and dominant term;
+33. the Mamba2 layers split by heads over two gloo ranks sharing the
+    card on a (1, 2) mesh: (a) full-width mamba2-780m (4 of its 48
+    layers, 24 of 48 SSM heads a rank) and zamba2-2.7b (6 of 54, one
+    shared application; 40 of 80 SSM heads, 16 of 32 attention heads)
+    through the sharded prefill of 8 rows and 4 greedy decode steps, in
+    f32 (every token equal to the one-rank run's) and bf16 (logits
+    within ``TP_BF16_LOGIT_RTOL``): per rank the SSD kernel once per
+    layer per prefill at phase 8's ``*-tp2`` case, the split gated norm
+    once per layer per call, the rank's heads of the SSM state held;
+    (b) mamba2-780m (4 layers, f32) trained through ``launch/train.py
+    --mesh 1x2``: losses and grad norms within phase 29's bounds of the
+    run without a mesh, every leaf's gradient within ``TRAIN_GRAD_RTOL``
+    of one rank's, each norm kernel its count (the gated norm split),
+    only ``in_proj``, ``conv_w`` and ``conv_b`` gathered; each rank's
+    times and peaks beside the card's name and power limit.
 
 Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24, 27, 28's
-real steps, 29 (b), 30 and 31 (b)) runs an
+real steps, 29 (b), 30, 31 (b) and 33) runs an
 RMSNorm kernel for every norm (the fused ones wherever a neighbour is
 absorbed), and each runs with every kernel's launch count set to 0 just
 before it and read
@@ -256,8 +278,9 @@ JSON status line.
 
 builds the kernels and runs the timing of phases 2, 5, 8 and 12 alone
 (the paged kernel at G = 2 and 8, flash and dense decode at every served
-shape, the SSD scan at both SSM launches, the RMSNorm kernels and the
-unfused sequences at the paths' shapes), with the ``repro_torch``
+shape, the SSD scan at both SSM launches and one model rank's of each,
+the RMSNorm kernels and the unfused sequences at the paths' shapes, the
+split gated norm's entries), with the ``repro_torch``
 package of the checkout whose ``src`` directory is SRC (another commit
 unpacked with ``git archive``, say), so that two versions of the kernels
 are timed on one card in one call.
@@ -269,6 +292,11 @@ builds the kernels and runs phases 29 and 30 alone.
     python3 chip_smoke.py --seq-split
 
 builds the kernels and runs phases 31 and 32 alone.
+
+    python3 chip_smoke.py --mamba-tp
+
+builds the kernels and runs the split gated norm's part of phase 12,
+phase 8 and phase 33 alone.
 
     python3 chip_smoke.py --prefill-profiles [SRC]
 
@@ -705,7 +733,9 @@ def launchers() -> dict:
         paged_attention_fwd, flash_attention_fwd, decode_attention_fwd,
         ssd_scan_fwd, rms.rmsnorm_fwd, rms.add_rmsnorm_fwd,
         rms.qk_norm_rope_fwd, rms.gated_rmsnorm_fwd, rms.rmsnorm_bwd,
-        rms.add_rmsnorm_bwd, rms.qk_norm_rope_bwd, rms.gated_rmsnorm_bwd)}
+        rms.add_rmsnorm_bwd, rms.qk_norm_rope_bwd, rms.gated_rmsnorm_bwd,
+        rms.gated_rmsnorm_sumsq, rms.gated_rmsnorm_scale,
+        rms.gated_rmsnorm_dot, rms.gated_rmsnorm_scale_bwd)}
 
 
 def serve_counted(argv):
@@ -1474,7 +1504,8 @@ def phase_ssd_kernel_vs_plain() -> dict:
     the main paths must match."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_MAIN,
-                                                    SSD_TOL, ssd_case_on)
+                                                    SSD_TOL, SSD_TP,
+                                                    ssd_case_on)
     from repro_torch.kernels.ssd_scan.kernel import TENSOR_CORES, route
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     errs, worst, vs32 = [], 0.0, []
@@ -1539,6 +1570,9 @@ def phase_ssd_kernel_vs_plain() -> dict:
         t = time_ssd(name)
         keys[arch] = t.pop("key")
         out[name] = dict(max_abs_err=worst, **t)
+    # one model rank's launch on a model axis of two (phase 33's prefill)
+    for name in SSD_TP.values():
+        time_ssd(name)
     return out, keys
 
 
@@ -1949,6 +1983,140 @@ def time_norm_kernels(label: str, C) -> dict:
                   f"sequence; library: none (no single PyTorch call "
                   f"computes it)")
             del ins
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: operations per element of the split gated norm's entries: the gate
+#: (silu: exp, add, divide; the product) and the square and add; the
+#: norm's scale and times w after the gate; dot's product of three and
+#: add after the gate; the backward's gated row as ``gated_rmsnorm_bwd``
+SPLIT_OPS = {"gated_rmsnorm_sumsq": 6, "gated_rmsnorm_scale": 7,
+             "gated_rmsnorm_dot": 7, "gated_rmsnorm_scale_bwd": 22}
+
+
+def phase_split_norm_vs_plain() -> dict:
+    """The split gated norm's four entries (Mamba2 under tensor
+    parallelism: each rank's columns of a row, the sums over the ranks
+    between the launches) on every case of ``SPLIT_CASES`` in the four
+    (x, w) dtype pairs: each rank's outputs against the plain versions
+    fed the kernels' sums, and the ranks' outputs side by side against
+    the whole-row ``gated_rmsnorm_fwd`` / ``_bwd`` (``cases.py::
+    split_check``'s bounds).  Then timed (``time_split_norm``).  Returns
+    the JSON numbers of each entry, by name."""
+    C = norm_cases()
+    worst = {}
+    n = 0
+    for seed, case in enumerate(C.SPLIT_CASES):
+        for xdt, wdt in C.RMSNORM_DTYPES:
+            errs = C.split_check(DEVICE, xdt, wdt, case, seed)
+            bad = {k: v for k, v in errs.items() if not v[1]}
+            if bad:
+                raise AssertionError(f"split gated norm {case[0]} "
+                                     f"{xdt}/{wdt}: {bad}")
+            for k, (err, _) in errs.items():
+                key = k.split("[")[0]
+                worst[key] = max(worst.get(key, float("-inf")), err)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"phase 12 split gated norm (gated_rmsnorm_sumsq, _scale, _dot, "
+          f"_scale_bwd) vs plain and vs the whole-row kernels: {n} cases ok "
+          f"(widths 24 to 2,560 a rank, 2 or 4 ranks, four (x, w) dtype "
+          f"pairs); the largest excess over each bound's ulps (<= its f32 "
+          f"floor; the sums relative): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    timing = time_split_norm("phase 12", C)
+    errs = {"gated_rmsnorm_sumsq": worst["sumsq"],
+            "gated_rmsnorm_scale": max(worst["scale"],
+                                       worst["scale vs whole"]),
+            "gated_rmsnorm_dot": worst["dot"],
+            "gated_rmsnorm_scale_bwd": max(
+                worst[k] for k in worst if k[:2] in ("dy", "dz", "dw"))}
+    return {e: dict(max_abs_err=errs[e], **timing[e]) for e in timing}
+
+
+def time_split_norm(label: str, C) -> dict:
+    """Each split entry at its path's launch (``C.SPLIT_TIMED``: one of
+    two ranks' columns of phase 33's bf16 prefill for the forward, of its
+    f32 train step for the backward) beside its bound (the rank's inputs
+    read once, its outputs written once) and its plain version; no single
+    PyTorch call computes any of them.  Four inputs cycled.  A package
+    without them (``--kernel-times SRC`` of an earlier checkout) is
+    skipped.  One line each; returns the JSON numbers."""
+    from repro_torch.kernels.rmsnorm import kernel as K
+    from repro_torch.kernels.rmsnorm import ref as R
+    from repro_torch.kernels.rmsnorm.ops import row_view
+    if not hasattr(K, "gated_rmsnorm_sumsq"):
+        print(f"{label}: this package has no split gated norm")
+        return {}
+    cases = {c[0]: c for c in C.SPLIT_CASES}
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    out = {}
+    for entry, (name, dt) in C.SPLIT_TIMED.items():
+        _, shape, M = cases[name]
+        dtype, D = dts[dt], shape[-1]
+        ins = []
+        for j in range(4):
+            _, blocks = C.split_case_on(DEVICE, dtype, dtype, shape, M,
+                                        80 + j)
+            y, z, dout = (row_view(t) for t in blocks[0][:3])
+            w = blocks[0][3]
+            # the rank's sums stand in for the sums over the ranks
+            ss = K.gated_rmsnorm_sumsq(y, z) * M
+            dot = K.gated_rmsnorm_dot(dout, y, z, w) * M
+            ins.append((y, z, dout, w, ss, dot))
+        calls = {
+            "gated_rmsnorm_sumsq": (
+                lambda i: K.gated_rmsnorm_sumsq(*ins[i % 4][:2]),
+                lambda i: R.gated_rmsnorm_sumsq_ref(*ins[i % 4][:2])),
+            "gated_rmsnorm_scale": (
+                lambda i: K.gated_rmsnorm_scale(
+                    *ins[i % 4][:2], ins[i % 4][3], ins[i % 4][4],
+                    d_total=D, eps=1e-6),
+                lambda i: R.gated_rmsnorm_scale_ref(
+                    *ins[i % 4][:2], ins[i % 4][3], ins[i % 4][4], D)),
+            "gated_rmsnorm_dot": (
+                lambda i: K.gated_rmsnorm_dot(ins[i % 4][2], *ins[i % 4][:2],
+                                              ins[i % 4][3]),
+                lambda i: R.gated_rmsnorm_dot_ref(
+                    ins[i % 4][2], *ins[i % 4][:2], ins[i % 4][3])),
+            "gated_rmsnorm_scale_bwd": (
+                lambda i: K.gated_rmsnorm_scale_bwd(
+                    ins[i % 4][2], *ins[i % 4][:2], *ins[i % 4][3:],
+                    d_total=D, eps=1e-6),
+                lambda i: R.gated_rmsnorm_scale_bwd_ref(
+                    ins[i % 4][2], *ins[i % 4][:2], *ins[i % 4][3:], D)),
+        }
+        kfn, pfn = calls[entry]
+        # the two forward entries and dot are one launch each (norm_kernel
+        # and gated_dot_kernel); scale_bwd two (the row kernel, dw's sum)
+        name_of = {"gated_rmsnorm_sumsq": "norm_kernel",
+                   "gated_rmsnorm_scale": "norm_kernel",
+                   "gated_rmsnorm_dot": "gated_dot_kernel"}.get(entry, "")
+        ker = timed(kfn, 100, name_of)
+        plain = timed(pfn, 25)
+        y, z, dout, w, ss, dot = ins[0]
+        rows, d = y.shape
+        es, ws = y.element_size(), w.element_size()
+        act = rows * d * es
+        nbytes = {"gated_rmsnorm_sumsq": 2 * act + 4 * rows,
+                  "gated_rmsnorm_scale": 3 * act + d * ws + 4 * rows,
+                  "gated_rmsnorm_dot": 3 * act + d * ws + 4 * rows,
+                  "gated_rmsnorm_scale_bwd": 5 * act + 2 * d * ws
+                  + 8 * rows}[entry]
+        bound_ms, bound_by = bound(nbytes, SPLIT_OPS[entry] * rows * d,
+                                   torch.float32)
+        out[entry] = dict(ms=ker["ms"], plain_ms=plain["ms"],
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+        print(f"{label} {entry} {name} {dt} (one of {M} ranks: {rows} rows "
+              f"x {d} of {D} columns): device time kernel {_us(ker)}, plain "
+              f"{_us(plain)}; bound {bound_ms * 1e3:.4f} us ({bound_by}: "
+              f"{nbytes / 1e6:.3f} MB), {bound_ms / ker['ms']:.3f} of it "
+              f"reached; library: none (no single PyTorch call computes "
+              f"it)")
+        del ins
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4081,6 +4249,406 @@ def phase_dryrun() -> None:
           f"device: " + "; ".join(lines))
 
 
+# --- phase 33: tensor-parallel Mamba2 layers, two ranks on one card -------
+
+#: phase 33's served runs: (arch, layers) at full width, the SSM heads
+#: split over a (1, 2) mesh of two gloo ranks sharing cuda:0 (mamba2-780m
+#: 4 of its 48 layers, 24 of 48 heads a rank; zamba2-2.7b 6 of its 54, one
+#: shared application, 40 of 80 SSM heads and 16 of 32 attention heads a
+#: rank), the sharded prefill of 8 rows (the prompt the arch's SSD_TP case
+#: scans) and MAMBA_TP_STEPS greedy decode steps, in f32 and bf16
+MAMBA_TP_RUNS = [("mamba2-780m", 4), ("zamba2-2.7b", 6)]
+MAMBA_TP_ROWS, MAMBA_TP_STEPS = 8, 4
+#: phase 33 (b): mamba2-780m (4 layers, f32) through ``launch/train.py
+#: --mesh 1x2``, against the run without a mesh at phase 29's bounds
+MAMBA_TP_TRAIN_ARGV = ["--arch", "mamba2-780m", "--layers", "4", "--dtype",
+                       "float32", "--device", "cuda", "--steps", "2",
+                       "--batch", "4", "--seq", "256", "--seed", "0",
+                       "--ckpt-every", "1000"]
+MAMBA_TP_CKPT = ROOT / "build" / "mamba_tp_ckpt"
+
+
+def _mamba_tp_cfg(arch: str, layers: int, dtype: str):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(num_layers=layers, param_dtype=dtype,
+                                    compute_dtype=dtype)
+
+
+def _mamba_tp_prompt(arch: str) -> int:
+    from repro_torch.kernels.ssd_scan.cases import SSD_CASES, SSD_TP
+    return next(c[1][1] for c in SSD_CASES if c[0] == SSD_TP[arch])
+
+
+def _mamba_tp_rank(rank, world, port, out_dir, runs, rows, steps,
+                   train_argv):
+    """A rank of phase 33: for each (arch, layers) of ``runs`` and each of
+    f32 and bf16, the sharded prefill of ``rows`` prompts and ``steps``
+    greedy decode steps on a (1, world) mesh: each step's tokens, (bf16)
+    the logits gathered over 'model', the launch counts of the prefill
+    and of the decode steps, the SSD launches' keys, the seconds of the
+    prefill and of each step, the peak memory and the shapes of the
+    rank's SSM and conv states; then ``train.main(train_argv)`` with its
+    launch counts and the collectives of taking its compute tensors."""
+    import torch.distributed as dist
+    _tp_rank_init(rank, world, port)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.sharding import serve_shardings
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.tp import gather_last, tp_mesh_context
+    from repro_torch.train.sharded import distribute
+    from repro_torch.train.sharded_serve import (build_sharded_decode_step,
+                                                 build_sharded_prefill_step,
+                                                 greedy)
+    from repro_torch.utils.step_analyzer import CollectiveCounter
+    from repro_torch.utils.tree import tree_map
+    res = {"serve": {}}
+    launch, seen = ssd_ops.ssd_scan_fwd, set()
+
+    def recorded(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
+        seen.add(ssd_key(xb, B_mat, chunk, initial_state))
+        return launch(xb, a, B_mat, C_mat, chunk=chunk,
+                      initial_state=initial_state)
+    ssd_ops.ssd_scan_fwd = recorded
+    try:
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        for arch, layers in runs:
+            prompt = _mamba_tp_prompt(arch)
+            for dtype in ("float32", "bfloat16"):
+                cfg = _mamba_tp_cfg(arch, layers, dtype)
+                params = model_lib.init(
+                    cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                    DEVICE)
+                max_len = prompt + steps
+                sh = serve_shardings(cfg, mesh, params, model_lib.init_cache(
+                    cfg, rows, max_len, abstract_only=True), rows)
+                p = tree_map(distribute, params, sh["params"])
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                prefill = build_sharded_prefill_step(cfg, max_len, sh)
+                decode = build_sharded_decode_step(cfg, sh)
+                fns = launchers()
+                for f in fns.values():
+                    f.launches = 0
+                seen.clear()
+                tokens = _tp_prompts(cfg, rows, prompt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = prefill(p, {"tokens": tokens})
+                tok = greedy(logits, cfg)
+                torch.cuda.synchronize()
+                secs = [time.perf_counter() - t0]
+                counts = {n: f.launches for n, f in fns.items()}
+                toks, lgs = [tok.to_local().cpu()], []
+
+                def whole(lg):
+                    with tp_mesh_context(mesh):
+                        return gather_last(lg.to_local()).cpu()
+                if dtype == "bfloat16":
+                    lgs.append(whole(logits))
+                for f in fns.values():
+                    f.launches = 0
+                for _ in range(steps):
+                    t0 = time.perf_counter()
+                    logits, cache = decode(p, cache, tok)
+                    tok = greedy(logits, cfg)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    toks.append(tok.to_local().cpu())
+                    if dtype == "bfloat16":
+                        lgs.append(whole(logits))
+                res["serve"][arch, dtype] = {
+                    "tokens": toks, "logits": lgs, "secs": secs,
+                    "prefill_counts": counts, "ssd_keys": set(seen),
+                    "decode_counts": {n: f.launches
+                                      for n, f in fns.items()},
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "ssm_local": tuple(cache["ssm"].to_local().shape),
+                    "conv_local": tuple(cache["conv"].to_local().shape)}
+                del p, cache, logits
+                gc.collect()
+                torch.cuda.empty_cache()
+        out, counts = train_counted(train_argv)
+        with CollectiveCounter() as c:
+            compute = out["step_fn"].compute_leaves(out["params"])
+        del compute
+        res["train"] = {"losses": out["losses"],
+                        "grad_norms": out["grad_norms"],
+                        "step_s": out["step_s"],
+                        "peak_bytes": out["peak_bytes"], "counts": counts,
+                        "tp_leaves": out["step_fn"].tp_leaves,
+                        "gathers": dict(c.counts),
+                        "grads": _tp_grad_errors(out, train_argv)}
+        del out
+    finally:
+        ssd_ops.ssd_scan_fwd = launch
+        dist.destroy_process_group()
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+
+
+def _tp_grad_errors(out, argv) -> dict:
+    """The loss gradient of a train run's final state on its mesh (the
+    TP step's compute tensors under its context, the summed leaves summed
+    over 'model', the split ones gathered) against the one-rank gradient
+    at the same parameters, on the next batch: per leaf, the largest
+    error over the leaf's largest |g|, and the elements whose sign
+    differs among those with |g| > 1e-8 (AdamW's first step moves each of
+    them by lr, whichever way its sign points).  A collective."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.sharded import gather, gather_state
+    from repro_torch.train.step import build_loss_fn, value_and_grad
+    from repro_torch.utils.tree import flatten_with_paths, tree_unflatten
+    cfg, step, params = out["cfg"], out["step_fn"], out["params"]
+    B, S, at = (int(argv[argv.index(a) + 1])
+                for a in ("--batch", "--seq", "--steps"))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in make_batch(
+        cfg, ShapeConfig("t", "train", S, B), DataConfig(), at).items()}
+    loss_fn = build_loss_fn(cfg)
+    whole = gather_state(params)
+    one = value_and_grad(loss_fn, whole, batch)[1]
+    del whole
+    with step.context():
+        mesh_g = value_and_grad(loss_fn, tree_unflatten(
+            params, step.compute_leaves(params)), batch)[1]
+    local, summed = step.tp_leaves
+    errs = {}
+    for (path, a), (_, g), (_, p) in zip(flatten_with_paths(one),
+                                         flatten_with_paths(mesh_g),
+                                         flatten_with_paths(params)):
+        if path in summed:
+            dist.all_reduce(g)
+        if path in local:
+            g = gather(DTensor.from_local(g, p.device_mesh, p.placements,
+                                          run_check=False))
+        live = a.abs() > 1e-8
+        errs[path] = (float((a - g).abs().max() / a.abs().max()),
+                      int(((torch.sign(a) != torch.sign(g)) & live).sum()),
+                      int(live.sum()))
+    return errs
+
+
+def _split_gate(counts: dict) -> dict:
+    """Launch counts of a path whose Mamba2 layers split by heads: each
+    gated norm forward is ``gated_rmsnorm_sumsq`` and ``_scale``, each
+    backward ``gated_rmsnorm_dot`` and ``_scale_bwd``."""
+    out = dict(counts)
+    for whole, parts in (("gated_rmsnorm_fwd", ("gated_rmsnorm_sumsq",
+                                                "gated_rmsnorm_scale")),
+                         ("gated_rmsnorm_bwd", ("gated_rmsnorm_dot",
+                                                "gated_rmsnorm_scale_bwd"))):
+        n = out.pop(whole, 0)
+        if n:
+            out.update({k: n for k in parts})
+    return out
+
+
+def phase_mamba_tp() -> dict:
+    """Two ranks that share cuda:0 compute the Mamba2 layers by heads
+    (``_mamba_tp_rank``).  (a) Serving: on each rank the SSD kernel once
+    per Mamba2 layer per prefill at the rank's heads (the arch's SSD_TP
+    case, which phase 8 held to its plain version), the split gated norm
+    (sumsq and scale) once per Mamba2 layer per call, zamba2's flash and
+    dense decode kernels once per call at its shared attention's 16
+    heads, each other norm its count and nothing else; each rank holds
+    its heads of the SSM state; f32 greedy tokens equal the one-rank
+    ``build_prefill_step`` / ``build_serve_step`` run's, bf16 logits
+    within ``TP_BF16_LOGIT_RTOL`` of the one-rank steps fed the same
+    tokens.  (b) mamba2-780m trained through ``launch/train.py --mesh
+    1x2`` in f32: losses within ``TRAIN_LOSS_ATOL`` and grad norms within
+    ``TRAIN_GRAD_RTOL`` of the run without a mesh, and at its final
+    state every leaf's gradient on the mesh within ``TRAIN_GRAD_RTOL`` of
+    its largest value of one rank's (``_tp_grad_errors``); each rank's
+    norm launches exact (the gated norm split), taking the compute
+    tensors gathers only ``in_proj``, ``conv_w`` and ``conv_b``.  Prints
+    each
+    rank's times and peaks beside the card's name and power limit;
+    returns the launch counts summed over the ranks and runs."""
+    from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_TP,
+                                                    ssd_case_on)
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.ssm import mamba2_dims
+    from repro_torch.train.step import (build_decode_step,
+                                        build_prefill_step,
+                                        build_serve_step)
+    card = card_line()
+    shutil.rmtree(MAMBA_TP_CKPT, ignore_errors=True)
+    ck = ["--ckpt-dir", str(MAMBA_TP_CKPT)]
+    rows, steps = MAMBA_TP_ROWS, MAMBA_TP_STEPS
+    t0 = time.perf_counter()
+    ranks = _spawn_tp(_mamba_tp_rank, MAMBA_TP_RUNS, rows, steps,
+                      MAMBA_TP_TRAIN_ARGV + TP_MESH + ck)
+    t_ranks = time.perf_counter() - t0
+    cases = {c[0]: c[1] for c in SSD_CASES}
+    summed, lines = {}, []
+    for arch, layers in MAMBA_TP_RUNS:
+        cfg = _mamba_tp_cfg(arch, layers, "float32")
+        apps = layers // cfg.attn_every if cfg.family == "hybrid" else 0
+        per_call = _split_gate({
+            "rmsnorm_fwd": 1, "add_rmsnorm_fwd": 2 * apps + layers,
+            "qk_norm_rope_fwd": apps, "gated_rmsnorm_fwd": layers})
+        want_pre = {k: v for k, v in dict(
+            per_call, ssd_scan_fwd=layers,
+            flash_attention_fwd=apps).items() if v}
+        want_dec = {k: v * steps for k, v in dict(
+            per_call, decode_attention_fwd=apps).items() if v}
+        B, S, H, P, G, N, chunk = cases[SSD_TP[arch]]
+        xb, _, Bm, _, _ = ssd_case_on(DEVICE, torch.bfloat16, B, S, H, P, G,
+                                      N)
+        key = ssd_key(xb, Bm, chunk, None)
+        dm = mamba2_dims(cfg)
+        for i, r in enumerate(ranks):
+            for dtype in ("float32", "bfloat16"):
+                x = r["serve"][arch, dtype]
+                for got, want in ((x["prefill_counts"], want_pre),
+                                  (x["decode_counts"], want_dec)):
+                    full = {n: want.get(n, 0) for n in got}
+                    if got != full:
+                        raise AssertionError(
+                            f"phase 33 {arch} rank {i} {dtype}: launches "
+                            f"{got}; want {full}")
+                    for n, v in got.items():
+                        summed[n] = summed.get(n, 0) + v
+                if x["ssd_keys"] != {key}:
+                    raise AssertionError(f"phase 33 {arch}: SSD launches at "
+                                         f"{x['ssd_keys']}; want {key}")
+                want_ssm = (layers, rows, dm["H"] // 2, dm["P"], dm["N"])
+                if x["ssm_local"] != want_ssm:
+                    raise AssertionError(f"phase 33 {arch}: rank {i}'s SSM "
+                                         f"state {x['ssm_local']}")
+                for a, b in zip(x["tokens"],
+                                ranks[0]["serve"][arch, dtype]["tokens"]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"phase 33 {arch} {dtype}: the "
+                                             f"ranks' tokens differ")
+        prompt = _mamba_tp_prompt(arch)
+        max_len = prompt + steps
+        # f32: the one-rank steps' own greedy tokens
+        params = model_lib.init(cfg, torch.Generator(device=DEVICE)
+                                .manual_seed(0), DEVICE)
+        logits, cache = build_prefill_step(cfg, max_len)(
+            params, {"tokens": _tp_prompts(cfg, rows, prompt)})
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        serve = build_serve_step(cfg)
+        got = ranks[0]["serve"][arch, "float32"]["tokens"]
+        same = [torch.equal(tok.cpu(), got[0])]
+        for i in range(steps):
+            tok, cache = serve(params, tok, cache)
+            same.append(torch.equal(tok.cpu(), got[i + 1]))
+        del params, cache, logits
+        if not all(same):
+            raise AssertionError(f"phase 33 {arch} f32: greedy tokens equal "
+                                 f"the one-rank run's at steps {same}")
+        # bf16: the one-rank steps fed the mesh's tokens
+        bcfg = _mamba_tp_cfg(arch, layers, "bfloat16")
+        params = model_lib.init(bcfg, torch.Generator(device=DEVICE)
+                                .manual_seed(0), DEVICE)
+        mine = ranks[0]["serve"][arch, "bfloat16"]
+        logits, cache = build_prefill_step(bcfg, max_len)(
+            params, {"tokens": _tp_prompts(bcfg, rows, prompt)})
+        dec = build_decode_step(bcfg)
+        rel = []
+        for i in range(steps + 1):
+            ref = logits.float().cpu()
+            rel.append(float((mine["logits"][i] - ref).abs().max()
+                             / ref.abs().max()))
+            if i < steps:
+                logits, cache = dec(params, cache,
+                                    mine["tokens"][i].to(DEVICE))
+        del params, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not max(rel) <= TP_BF16_LOGIT_RTOL:
+            raise AssertionError(f"phase 33 {arch} bf16: logits differ by "
+                                 f"{rel} of the largest")
+        times = []
+        for i, r in enumerate(ranks):
+            for dtype in ("float32", "bfloat16"):
+                sc = r["serve"][arch, dtype]["secs"]
+                short = {"float32": "f32", "bfloat16": "bf16"}[dtype]
+                times.append(
+                    f"rank {i} {short}: prefill {1e3 * sc[0]:.1f} ms, "
+                    f"decode step (median) "
+                    f"{1e3 * sorted(sc[1:])[len(sc[1:]) // 2]:.1f} ms, peak "
+                    f"{r['serve'][arch, dtype]['peak'] / 2**30:.2f} GiB")
+        lines.append(
+            f"{arch} ({layers} layers, full width; {dm['H'] // 2} of "
+            f"{dm['H']} SSM heads a rank"
+            + (f", {cfg.num_heads // 2} of {cfg.num_heads} attention heads"
+               if apps else "")
+            + f"): prefill of {rows} x {prompt} tokens and {steps} decode "
+            f"steps; per rank and dtype ssd {layers} at {SSD_TP[arch]}, "
+            f"split gated norm {layers} sumsq + {layers} scale per call"
+            + (f", flash {apps} and dense decode {apps} per call"
+               if apps else "")
+            + f", SSM state {ranks[0]['serve'][arch, 'float32']['ssm_local']}"
+            f" a rank; f32 tokens equal at {len(same)} positions; bf16 "
+            f"logits {max(rel):.4f} of the largest (<= "
+            f"{TP_BF16_LOGIT_RTOL}); " + "; ".join(times))
+    # (b): the train CLI on the mesh against the run without a mesh
+    ref, ref_counts = train_counted(MAMBA_TP_TRAIN_ARGV + ck)
+    tcfg, tsteps = ref["cfg"], len(ref["losses"])
+    check_train_run("phase 33 (b) without a mesh", ref, ref_counts, tcfg,
+                    tsteps)
+    want = _split_gate(train_norm_launches(tcfg, tsteps))
+    tlines = []
+    for i, r in enumerate(ranks):
+        t = r["train"]
+        full = {n: want.get(n, 0) for n in t["counts"]}
+        if t["counts"] != full:
+            raise AssertionError(f"phase 33 (b) rank {i}: launches "
+                                 f"{t['counts']}; want {full}")
+        for n, v in t["counts"].items():
+            summed[n] = summed.get(n, 0) + v
+        if t["gathers"] != {"all-gather": 3}:
+            raise AssertionError(f"phase 33 (b) rank {i}: taking the compute "
+                                 f"tensors issued {t['gathers']} (want the "
+                                 f"3 packed leaves)")
+        if t["losses"] != ranks[0]["train"]["losses"]:
+            raise AssertionError("phase 33 (b): the ranks' losses differ")
+        tlines.append(f"rank {i}: step {1e3 * t['step_s'][-1]:.0f} ms, peak "
+                      f"{max(t['peak_bytes']) / 2**30:.2f} GiB")
+    got = ranks[0]["train"]
+    # every leaf's gradient at the run's final state against one rank's
+    worst = max(got["grads"].items(), key=lambda kv: kv[1][0])
+    flips = sum(f for _, f, _ in got["grads"].values())
+    live = sum(n for _, _, n in got["grads"].values())
+    if worst[1][0] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"phase 33 (b): gradients on the mesh vs one "
+                             f"rank: {got['grads']}")
+    loss_d = max(abs(a - b) for a, b in zip(got["losses"], ref["losses"]))
+    gn_d = max(abs(a - b) / b for a, b in zip(got["grad_norms"],
+                                              ref["grad_norms"]))
+    if not (loss_d <= TRAIN_LOSS_ATOL and gn_d <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"phase 33 (b): losses {got['losses']} on the "
+                             f"mesh, {ref['losses']} without")
+    local, reduced = got["tp_leaves"]
+    del ref
+    shutil.rmtree(MAMBA_TP_CKPT, ignore_errors=True)
+    print(f"phase 33 (a) tensor-parallel Mamba2 serving on a (1, 2) mesh of "
+          f"two gloo ranks on one card: " + " | ".join(lines)
+          + f"; ranks {t_ranks:.1f}s [{card}]")
+    print(f"phase 33 (b) --mesh 1x2 f32, mamba2-780m full width, "
+          f"{tcfg.num_layers} layers, {tsteps} steps of 4 x 256 vs the run "
+          f"without a mesh: loss |d| {loss_d:.3g} (<= {TRAIN_LOSS_ATOL}), "
+          f"grad norm {gn_d:.3g} of it (<= {TRAIN_GRAD_RTOL}); every "
+          f"leaf's gradient at the final state vs one rank's within "
+          f"{worst[1][0]:.3g} of its largest (<= {TRAIN_GRAD_RTOL}; "
+          f"{worst[0]}), {flips} of {live} elements above 1e-8 with "
+          f"another sign; "
+          f"{len(local)} leaves split over 'model' "
+          f"({sorted(p.rsplit('/', 1)[-1] for p in local)}), "
+          f"{sorted(p.rsplit('/', 1)[-1] for p in reduced)} gathered with "
+          f"gradients summed; norm launches per rank {want}; "
+          + "; ".join(tlines) + f" [{card}]")
+    return summed
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -4104,6 +4672,12 @@ KERNELS = {
               "src/repro/kernels/rmsnorm/kernel.py:22")
        for name in ("rmsnorm_bwd", "add_rmsnorm_bwd", "gated_rmsnorm_bwd",
                     "qk_norm_rope_bwd")},
+    # the gated norm split over ranks by columns (Mamba2 under tensor
+    # parallelism), forward and backward
+    **{name: ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm/kernel.py:22")
+       for name in ("gated_rmsnorm_sumsq", "gated_rmsnorm_scale",
+                    "gated_rmsnorm_dot", "gated_rmsnorm_scale_bwd")},
 }
 
 
@@ -4149,6 +4723,7 @@ def main() -> None:
     phase_ssm_parity()
     done(11)
     timing.update(phase_rmsnorm_kernel_vs_plain())
+    timing.update(phase_split_norm_vs_plain())
     done(12)
     paths.append(phase_paged_path(13, MOE, MOE_ARGV, 48))
     done(13)
@@ -4190,10 +4765,12 @@ def main() -> None:
     done(31)
     phase_dryrun()
     done(32)
+    paths.append(phase_mamba_tp())
+    done(33)
     # launches on the main paths: each path's own run, summed over the
     # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, the training paths,
     # 17, 24 and 27's mesh run, 28's real steps, 29's bf16 and 30's runs
-    # on both ranks, and 31's on all 16)
+    # on both ranks, 31's on all 16, and 33's on both ranks)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -4221,13 +4798,14 @@ def kernel_times(src: str) -> None:
     card = phase_device_and_build()
     import repro_torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan.cases import SSD_MAIN
+    from repro_torch.kernels.ssd_scan.cases import SSD_MAIN, SSD_TP
     print(f"kernel times of {Path(repro_torch.__file__).parent}")
     time_paged_launches("kernel times")
     time_served_shapes(get_config("qwen3-0.6b").num_layers)
-    for name in SSD_MAIN.values():
+    for name in list(SSD_MAIN.values()) + list(SSD_TP.values()):
         time_ssd(name)
     time_norm_kernels("kernel times", norm_cases())
+    time_split_norm("kernel times", norm_cases())
     print(card)
 
 
@@ -4276,6 +4854,22 @@ def seq_split_phases() -> None:
     print(card_line())
 
 
+def mamba_tp_phases() -> None:
+    """``--mamba-tp``: build the kernels and run the split gated norm's
+    checks and timing (phase 12's part), the SSD kernel's cases (phase 8,
+    the TP cases among them) and phase 33 alone; prints no JSON."""
+    phase_device_and_build()
+    t0 = time.perf_counter()
+    phase_split_norm_vs_plain()
+    phase_ssd_kernel_vs_plain()
+    print(f"phases 12 (split norm) and 8 seconds: "
+          f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    phase_mamba_tp()
+    print(f"phase 33 seconds: {time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 def tp_phases() -> None:
     """``--tp``: build the kernels and run phases 29 and 30 alone (two
     ranks on one card, training and serving); prints no JSON."""
@@ -4290,6 +4884,8 @@ def tp_phases() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp"]:
         tp_phases()
+    elif sys.argv[1:2] == ["--mamba-tp"]:
+        mamba_tp_phases()
     elif sys.argv[1:2] == ["--seq-split"]:
         seq_split_phases()
     elif sys.argv[1:2] == ["--kernel-times"]:

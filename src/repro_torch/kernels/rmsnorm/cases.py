@@ -344,3 +344,167 @@ BWD_TIMED = {
     "qk_norm_rope_bwd": [("qwen3-0.6b train", "qwen3-0.6b", 8, 1024)],
     "gated_rmsnorm_bwd": [("mamba2 train", "mamba2-780m", 4, 512)],
 }
+
+
+# --- the split gated norm (Mamba2 under tensor parallelism): each of M
+# ranks holds D/M columns of rows of D.  Each rank's four entry points
+# (``gated_rmsnorm_sumsq`` / ``_scale`` forward, ``gated_rmsnorm_dot`` /
+# ``_scale_bwd`` backward) against their plain versions, given the same
+# summed sums, and the ranks' outputs side by side against the whole-row
+# kernels (``gated_rmsnorm_fwd`` / ``_bwd``), shared by ``chip_smoke.py``
+# (phase 12) and the card-only tests.
+
+#: (name, the whole rows' shape [..., D], M): each rank's width D/M in
+#: warp mode with the 16-byte vector (24) and without it (50), in block
+#: mode (1030, not a multiple of the vector), and the Mamba2 layers'
+#: rows on one of two ranks: mamba2-780m's d_inner 3,072 (1,536 a rank)
+#: and zamba2-2.7b's 5,120 (2,560), at a decode step, at a prefill
+#: (chip_smoke.py phase 33's prompts) and at a train step's 4 x 256
+SPLIT_CASES = [
+    ("d96-m4-warp", (7, 96), 4),
+    ("d100-m2-odd", (5, 100), 2),
+    ("d2060-m2-block", (3, 2060), 2),
+    ("mamba2-tp2-decode", (8, 1, 3072), 2),
+    ("mamba2-tp2-prefill", (8, 256, 3072), 2),
+    ("mamba2-tp2-train", (4, 256, 3072), 2),
+    ("zamba2-tp2-decode", (8, 1, 5120), 2),
+    ("zamba2-tp2-prefill", (8, 128, 5120), 2),
+]
+#: the split entry points, forward then backward
+SPLIT_ENTRIES = ("gated_rmsnorm_sumsq", "gated_rmsnorm_scale",
+                 "gated_rmsnorm_dot", "gated_rmsnorm_scale_bwd")
+#: where ``chip_smoke.py`` times each: the forward entries at phase 33's
+#: bf16 prefill on one of two ranks, the backward ones at its f32 train
+#: step (the case's name)
+SPLIT_TIMED = {"gated_rmsnorm_sumsq": ("mamba2-tp2-prefill", "bf16"),
+               "gated_rmsnorm_scale": ("mamba2-tp2-prefill", "bf16"),
+               "gated_rmsnorm_dot": ("mamba2-tp2-train", "f32"),
+               "gated_rmsnorm_scale_bwd": ("mamba2-tp2-train", "f32")}
+
+
+def split_case_on(device, x_dtype, w_dtype, shape, M, seed=0):
+    """A split case's inputs on ``device``: the whole rows (y, z, dout
+    [..., D] in ``x_dtype``, w [D] in ``w_dtype``) and each rank's block
+    of them, (y_r, z_r, dout_r, w_r): y_r and dout_r contiguous, z_r the
+    first D/M columns of a wider [..., 2 D/M + 8] tensor, as the model's
+    z is a slice of the rank's input projection."""
+    r = np.random.default_rng(seed)
+    D = shape[-1]
+    y = r.normal(0, 2, shape).astype(np.float32)
+    z = r.normal(0, 2, shape).astype(np.float32)
+    dout = r.normal(0, 1, shape).astype(np.float32)
+    w = r.normal(1, 0.1, (D,)).astype(np.float32)
+    whole = [torch.from_numpy(a).to(device, x_dtype) for a in (y, z, dout)]
+    wt = torch.from_numpy(w).to(device, w_dtype)
+    n = D // M
+    blocks = []
+    for i in range(M):
+        cols = slice(i * n, (i + 1) * n)
+        wide = torch.zeros(shape[:-1] + (2 * n + 8,), dtype=x_dtype,
+                           device=device)
+        wide[..., :n] = whole[1][..., cols]
+        blocks.append((whole[0][..., cols].contiguous(), wide[..., :n],
+                       whole[2][..., cols].contiguous(),
+                       wt[cols].contiguous()))
+    return (whole[0], whole[1], whole[2], wt), blocks
+
+
+def ulp_err(got, want, dtype, ulps=1, floor=0.0):
+    """(the largest |got - want| past its bound, relative to the bound's
+    f32 floor, and whether it is within): f32 ``floor``; bf16 ``ulps``
+    bf16 ulps at ``want`` plus ``floor`` (``tests/norm_grad_checks.py``'s
+    bounds)."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        return float("inf"), False
+    diff = (g - w).abs()
+    if dtype == torch.bfloat16:
+        e = torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126)))
+        diff = diff - ulps * torch.exp2(e - 7)
+    worst = float(diff.max()) if diff.numel() else 0.0
+    return worst, worst <= floor
+
+
+def split_check(device, x_dtype, w_dtype, case, seed=0, eps=1e-6):
+    """One split case through the kernels (``kernel.py``) and the plain
+    versions (``ref.py``): {check: (err, ok)}.  Each rank's partial sums
+    against the plain ones (relative 1e-5: fp32 sums of the same values
+    in another order); each rank's outputs against the plain version fed
+    the kernels' summed sums, and all ranks' side by side against the
+    whole-row kernel: out at one ulp (bf16) or 1e-6 of max(1, max|ref|)
+    (f32), dy and dz at four bf16 ulps (the gate's dg, ds and the product
+    each round; ``tests/norm_grad_checks.py``), dw at one ulp plus 1e-6
+    of its sum's scale.  The sums over the ranks are taken in rank
+    order, as gloo's all-reduce of two ranks takes them."""
+    from repro_torch.kernels.rmsnorm import kernel as K
+    from repro_torch.kernels.rmsnorm import ref as R
+    from repro_torch.kernels.rmsnorm.ops import row_view
+    name, shape, M = case
+    (y, z, dout, w), blocks = split_case_on(device, x_dtype, w_dtype,
+                                            shape, M, seed)
+    D, lead = shape[-1], shape[:-1]
+    out = {}
+
+    def rel(tag, got, want, scale):
+        err = float((got - want).abs().max()) / max(scale, 1e-30)
+        out[tag] = (err, err <= 1e-5)
+    ss_k = [K.gated_rmsnorm_sumsq(row_view(yr), row_view(zr))
+            for yr, zr, _, _ in blocks]
+    for i, (yr, zr, _, _) in enumerate(blocks):
+        p = R.gated_rmsnorm_sumsq_ref(yr, zr).reshape(-1)
+        rel(f"sumsq[{i}]", ss_k[i], p, float(p.abs().max()))
+    ss = torch.stack(ss_k).sum(0)
+    outs = []
+    for i, (yr, zr, _, wr) in enumerate(blocks):
+        o = K.gated_rmsnorm_scale(row_view(yr), row_view(zr), wr, ss,
+                                  d_total=D, eps=eps).reshape(yr.shape)
+        p = R.gated_rmsnorm_scale_ref(yr, zr, wr, ss.reshape(lead), D, eps)
+        out[f"scale[{i}]"] = ulp_err(o, p, x_dtype, 1, 1e-6 * max(
+            1.0, float(p.float().abs().max())))
+        outs.append(o)
+    whole = K.gated_rmsnorm_fwd(row_view(y), row_view(z), w,
+                                eps=eps).reshape(shape)
+    out["scale vs whole"] = ulp_err(torch.cat(outs, -1), whole, x_dtype, 1,
+                                    1e-6 * max(1.0, float(
+                                        whole.float().abs().max())))
+    dots = [K.gated_rmsnorm_dot(row_view(dr), row_view(yr), row_view(zr),
+                                wr) for yr, zr, dr, wr in blocks]
+    for i, (yr, zr, dr, wr) in enumerate(blocks):
+        p = R.gated_rmsnorm_dot_ref(dr, yr, zr, wr).reshape(-1)
+        g = (yr * torch.nn.functional.silu(zr)).float()
+        rel(f"dot[{i}]", dots[i], p, float((dr.float() * wr.float() * g)
+                                           .abs().sum(-1).max()))
+    dot = torch.stack(dots).sum(0)
+    grads = []
+    for i, (yr, zr, dr, wr) in enumerate(blocks):
+        got = K.gated_rmsnorm_scale_bwd(row_view(dr), row_view(yr),
+                                        row_view(zr), wr, ss, dot,
+                                        d_total=D, eps=eps)
+        got = (got[0].reshape(yr.shape), got[1].reshape(yr.shape), got[2])
+        want = R.gated_rmsnorm_scale_bwd_ref(
+            dr, yr, zr, wr, ss.reshape(lead), dot.reshape(lead), D, eps)
+        for tag, g, p in zip(("dy", "dz", "dw"), got, want):
+            out[f"{tag}[{i}]"] = _grad_err(tag, g, p, dr, yr, zr, ss, D,
+                                           eps, x_dtype)
+        grads.append(got)
+    wg = K.gated_rmsnorm_bwd(row_view(dout), row_view(y), row_view(z), w,
+                             eps=eps)
+    wg = (wg[0].reshape(shape), wg[1].reshape(shape), wg[2])
+    for k, tag in enumerate(("dy", "dz", "dw")):
+        cat = torch.cat([g[k] for g in grads], -1)
+        out[f"{tag} vs whole"] = _grad_err(tag, cat, wg[k], dout, y, z, ss,
+                                           D, eps, x_dtype)
+    return out
+
+
+def _grad_err(tag, got, want, dout, y, z, ss, D, eps, dtype):
+    """A split backward output against a reference: dy and dz at four
+    bf16 ulps plus 1e-6 of max(1, max|ref|); dw at one ulp plus 1e-6 of
+    the sum over rows of |dout * g * rstd|."""
+    if tag != "dw":
+        return ulp_err(got, want, dtype, 4, 1e-6 * max(
+            1.0, float(want.float().abs().max())))
+    g = (y * torch.nn.functional.silu(z)).float()
+    rstd = torch.rsqrt(ss.reshape(g.shape[:-1])[..., None] / D + eps)
+    terms = float((dout.float() * g * rstd).abs().sum())
+    return ulp_err(got, want, got.dtype, 1, 1e-6 * terms)

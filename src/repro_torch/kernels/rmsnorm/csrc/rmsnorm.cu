@@ -6,9 +6,20 @@
 //   qk_norm_rope_fwd   per head of q and k: T(norm(x) * w) (when weights
 //                      are given), then the rotary rotation at its position
 //
+// and the gated norm of a row whose columns lie on several ranks (Mamba2
+// under tensor parallelism: each rank holds its heads' columns of
+// d_inner), in two launches with the sum over the ranks between them,
+// done by the caller:
+//
+//   gated_rmsnorm_sumsq   ss = the row's fp32 sum of squares of
+//                         T(y * T(silu(z))) over this rank's columns
+//   gated_rmsnorm_scale   given S, ss summed over the ranks, and the whole
+//                         width D: out = T(v * rsqrt(S / D + eps) * w)
+//
 // where norm(v) = v * rsqrt(mean(v^2) + eps) in fp32, T is x's dtype and
 // T(.) one rounding to it; and the backward of each (rmsnorm_bwd,
-// add_rmsnorm_bwd, gated_rmsnorm_bwd, qk_norm_rope_bwd; see "the
+// add_rmsnorm_bwd, gated_rmsnorm_bwd, qk_norm_rope_bwd, and the split
+// gated norm's gated_rmsnorm_dot and gated_rmsnorm_scale_bwd; see "the
 // backward" below), which carry the gradient of the training path.  The
 // JAX package has no Pallas backward: it trains through the plain norm
 // (models/layers.py::rms_norm) under jax.grad.
@@ -170,11 +181,11 @@ struct GatedRow {
   }
 };
 
-// The one reduction: rsqrt(mean(v^2) + eps) of the row, kRowThreads
-// threads per row (32: a warp; else the whole block).  Thread t sums
-// groups t, t + kRowThreads, ... in that order.
+// The one reduction: the sum of v^2 over the row, kRowThreads threads
+// per row (32: a warp; else the whole block).  Thread t sums groups t,
+// t + kRowThreads, ... in that order.
 template <int kVec, int kRowThreads, class Row>
-__device__ __forceinline__ float inv_rms(const Row& row, int d, float eps) {
+__device__ __forceinline__ float row_sumsq(const Row& row, int d) {
   constexpr int kWarps = kRowThreads / 32;
   const int t = threadIdx.x % kRowThreads;
   float ss = 0.f;
@@ -201,12 +212,22 @@ __device__ __forceinline__ float inv_rms(const Row& row, int d, float eps) {
     __syncthreads();
     ss = total;
   }
-  return rsqrtf(ss / (float)d + eps);
+  return ss;
 }
 
-// --- rmsnorm_fwd, add_rmsnorm_fwd, gated_rmsnorm_fwd -----------------------
+// rsqrt(mean(v^2) + eps) of the row
+template <int kVec, int kRowThreads, class Row>
+__device__ __forceinline__ float inv_rms(const Row& row, int d, float eps) {
+  return rsqrtf(row_sumsq<kVec, kRowThreads>(row, d) / (float)d + eps);
+}
 
-enum class Op { kNorm, kAdd, kGated };
+// --- rmsnorm_fwd, add_rmsnorm_fwd, gated_rmsnorm_fwd, and the split gated
+// norm's gated_rmsnorm_sumsq and gated_rmsnorm_scale -------------------------
+
+// kGatedSumSq writes the row's sum of squares of GatedRow's values (the
+// reduction every entry point runs, stopped before its rsqrt); kGatedScale
+// writes the gated norm at a given sum over the whole row (S, D)
+enum class Op { kNorm, kAdd, kGated, kGatedSumSq, kGatedScale };
 
 struct RowArgs {
   const void* a;  // x (kNorm, kAdd) or y (kGated)
@@ -218,6 +239,9 @@ struct RowArgs {
   void* r;  // kAdd: the residual x + delta
   int rows, d;
   float eps;
+  float* ss_out = nullptr;      // kGatedSumSq: [rows]
+  const float* ss = nullptr;    // kGatedScale: [rows], the whole rows' sums
+  int d_total = 0;              // kGatedScale: the whole rows' width
 };
 
 template <Op kOp, typename T, typename W, int kVec, bool kVecLoad,
@@ -233,11 +257,16 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const RowArgs args) {
   const int d = args.d;
   const T* a = static_cast<const T*>(args.a) + row * args.a_stride;
   const T* b = static_cast<const T*>(args.b) + row * args.b_stride;
+  if constexpr (kOp == Op::kGatedSumSq) {  // no w and no out
+    const float ss =
+        row_sumsq<kVec, kRowThreads>(GatedRow<T, kVec, kVecLoad>{a, b}, d);
+    if (t == 0) args.ss_out[row] = ss;
+    return;
+  }
   const W* w = static_cast<const W*>(args.w);
   T* outr = static_cast<T*>(args.out) + row * (long long)d;
 
-  auto run = [&](const auto& values) {
-    const float inv = inv_rms<kVec, kRowThreads>(values, d, args.eps);
+  auto write = [&](const auto& values, float inv) {
     for (int g = t; g < d / kVec; g += kRowThreads) {
       float v[kVec], wv[kVec];
       values.again(g, v);
@@ -248,7 +277,13 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const RowArgs args) {
       store_group<kVec, kVecLoad>(outr + g * kVec, v);
     }
   };
-  if constexpr (kOp == Op::kNorm) {
+  auto run = [&](const auto& values) {
+    write(values, inv_rms<kVec, kRowThreads>(values, d, args.eps));
+  };
+  if constexpr (kOp == Op::kGatedScale) {
+    write(GatedRow<T, kVec, kVecLoad>{a, b},
+          rsqrtf(args.ss[row] / (float)args.d_total + args.eps));
+  } else if constexpr (kOp == Op::kNorm) {
     run(PlainRow<T, kVec, kVecLoad>{a});
   } else if constexpr (kOp == Op::kAdd) {
     T* r = static_cast<T*>(args.r) + row * (long long)d;
@@ -391,6 +426,13 @@ cudaError_t launch_rope(const RopeArgs& a, cudaStream_t stream) {
 // autograd of the unfused ops computes, up to fp32 sums taken in another
 // order.
 //
+// The split gated norm's backward takes the whole rows' sums from the
+// caller: S (the forward's summed sum of squares) and P = sum(g * v) over
+// every rank's columns (gated_rmsnorm_dot writes this rank's partial,
+// the caller sums it over the ranks); gated_rmsnorm_scale_bwd then runs
+// the gated row kernel with rstd = rsqrt(S / D + eps) and c = rstd^2 * P
+// / D, dw of this rank's columns of w.
+//
 // dw is deterministic, with no atomics: block b walks rows b * R + s,
 // (b + nb) * R + s, ... (R row slots per block, s its slot: a warp per
 // row up to d 512, a block above, as in the forward), each slot summing
@@ -458,6 +500,9 @@ struct RowBwdArgs {
   float* partial;  // [gridDim.x, d]
   int rows, d;
   float eps;
+  const float* ss = nullptr;   // kGatedScale: [rows], S
+  const float* dot = nullptr;  // kGatedScale: [rows], P
+  int d_total = 0;             // kGatedScale: D
 };
 
 template <Op kOp, typename T, typename W, int kThreads, int kRowThreads>
@@ -482,23 +527,30 @@ norm_bwd_kernel(const RowBwdArgs args) {
                      : static_cast<const T*>(args.b) + row * args.b_stride;
     // the forward's normed input at i
     auto value = [&](int i) -> float {
-      if constexpr (kOp == Op::kGated) {
+      if constexpr (kOp == Op::kGated || kOp == Op::kGatedScale) {
         const float s = gate<T>(attn::to_f32(b[i])).x;
         return round_to<T>(__fmul_rn(attn::to_f32(a[i]), s));
       } else {
         return attn::to_f32(a[i]);
       }
     };
-    float ss = 0.f, gv = 0.f;
-    for (int i = t; i < d; i += kRowThreads) {
-      const float v = value(i);
-      const float g = attn::to_f32(dy[i]) * attn::to_f32(w[i]);
-      ss = fmaf(v, v, ss);
-      gv = fmaf(g, v, gv);
+    float rstd, c;
+    if constexpr (kOp == Op::kGatedScale) {
+      const float n = (float)args.d_total;
+      rstd = rsqrtf(args.ss[row] / n + args.eps);
+      c = rstd * rstd * args.dot[row] / n;
+    } else {
+      float ss = 0.f, gv = 0.f;
+      for (int i = t; i < d; i += kRowThreads) {
+        const float v = value(i);
+        const float g = attn::to_f32(dy[i]) * attn::to_f32(w[i]);
+        ss = fmaf(v, v, ss);
+        gv = fmaf(g, v, gv);
+      }
+      const float2 sums = row_sum2<kRowThreads>(ss, gv);
+      rstd = rsqrtf(sums.x / (float)d + args.eps);
+      c = rstd * rstd * sums.y / (float)d;
     }
-    const float2 sums = row_sum2<kRowThreads>(ss, gv);
-    const float rstd = rsqrtf(sums.x / (float)d + args.eps);
-    const float c = rstd * rstd * sums.y / (float)d;
     T* da = static_cast<T*>(args.da) + row * (long long)d;
     for (int i = t; i < d; i += kRowThreads) {
       const float v = value(i), g_out = attn::to_f32(dy[i]);
@@ -528,6 +580,46 @@ norm_bwd_kernel(const RowBwdArgs args) {
     for (int k = 0; k < kSlots; ++k) s += acc[k * d + i];
     args.partial[(long long)blockIdx.x * d + i] = s;
   }
+}
+
+// gated_rmsnorm_dot: dot[row] = sum over the row's d columns of
+// (dy * w) * v, v = T(y * T(silu(z))) as the forward builds it; a warp
+// per row up to d 512, a block above
+template <typename T, typename W, int kThreads, int kRowThreads>
+__global__ void __launch_bounds__(kThreads)
+gated_dot_kernel(const RowBwdArgs args, float* dot) {
+  constexpr int kRowsPerBlock = kThreads / kRowThreads;
+  const int t = threadIdx.x % kRowThreads;
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + threadIdx.x / kRowThreads;
+  if (row >= args.rows) return;  // a whole warp, or a whole block
+  const int d = args.d;
+  const T* dy = static_cast<const T*>(args.dy) + row * args.dy_stride;
+  const T* y = static_cast<const T*>(args.a) + row * args.a_stride;
+  const T* z = static_cast<const T*>(args.b) + row * args.b_stride;
+  const W* w = static_cast<const W*>(args.w);
+  float gv = 0.f;
+  for (int i = t; i < d; i += kRowThreads) {
+    const float s = gate<T>(attn::to_f32(z[i])).x;
+    const float v = round_to<T>(__fmul_rn(attn::to_f32(y[i]), s));
+    gv = fmaf(attn::to_f32(dy[i]) * attn::to_f32(w[i]), v, gv);
+  }
+  gv = row_sum2<kRowThreads>(gv, 0.f).x;
+  if (t == 0) dot[row] = gv;
+}
+
+template <typename T, typename W>
+cudaError_t launch_dot(const RowBwdArgs& a, float* dot, cudaStream_t stream) {
+  if (a.d <= kWarpRowMaxD) {
+    constexpr int kRows = kWarpModeThreads / 32;
+    gated_dot_kernel<T, W, kWarpModeThreads, 32>
+        <<<(a.rows + kRows - 1) / kRows, kWarpModeThreads, 0, stream>>>(a,
+                                                                        dot);
+  } else {
+    gated_dot_kernel<T, W, kBlockModeThreads, kBlockModeThreads>
+        <<<a.rows, kBlockModeThreads, 0, stream>>>(a, dot);
+  }
+  return cudaGetLastError();
 }
 
 // out[i] = the sum of partial[b, i] over b = 0 .. nb - 1, in that order
@@ -742,6 +834,32 @@ extern "C" int gated_rmsnorm_fwd(const void* y, long long y_stride,
   return launch_rows<Op::kGated>(a, x_dtype, w_dtype, vec, stream);
 }
 
+// the split gated norm's forward: the row's partial sum of squares into
+// ss [rows] (fp32), then, given the sums over the ranks, the norm
+extern "C" int gated_rmsnorm_sumsq(const void* y, long long y_stride,
+                                   const void* z, long long z_stride,
+                                   float* ss, int rows, int d, int x_dtype,
+                                   int vec, void* stream) {
+  RowArgs a{y, y_stride, z, z_stride, nullptr, nullptr, nullptr, rows, d,
+            0.f};
+  a.ss_out = ss;
+  // w is not read: its dtype only picks the instantiation
+  return launch_rows<Op::kGatedSumSq>(a, x_dtype, x_dtype, vec, stream);
+}
+
+extern "C" int gated_rmsnorm_scale(const void* y, long long y_stride,
+                                   const void* z, long long z_stride,
+                                   const void* w, const float* ss, void* out,
+                                   int rows, int d, int d_total, float eps,
+                                   int x_dtype, int w_dtype, int vec,
+                                   void* stream) {
+  if (d_total < d) return cudaErrorInvalidValue;
+  RowArgs a{y, y_stride, z, z_stride, w, out, nullptr, rows, d, eps};
+  a.ss = ss;
+  a.d_total = d_total;
+  return launch_rows<Op::kGatedScale>(a, x_dtype, w_dtype, vec, stream);
+}
+
 extern "C" int qk_norm_rope_fwd(
     const void* q, long long q_sb, long long q_ss, long long q_sh,
     const void* k, long long k_sb, long long k_ss, long long k_sh,
@@ -805,6 +923,44 @@ extern "C" int gated_rmsnorm_bwd(const void* dout, long long dout_stride,
   const RowBwdArgs a{dout, dout_stride, y,  y_stride, z,    z_stride, w,
                      dy,   dz,          partial, rows, d,  eps};
   return launch_bwd<Op::kGated>(a, nb, dw, x_dtype, w_dtype, stream);
+}
+
+// the split gated norm's backward: this rank's partial of sum(dout * w *
+// v) per row into dot [rows] (fp32); then, given S and the summed P, dy,
+// dz and dw of this rank's columns
+extern "C" int gated_rmsnorm_dot(const void* dout, long long dout_stride,
+                                 const void* y, long long y_stride,
+                                 const void* z, long long z_stride,
+                                 const void* w, float* dot, int rows, int d,
+                                 int x_dtype, int w_dtype, void* stream) {
+  if (rows == 0) return cudaSuccess;
+  if (d < 1) return cudaErrorInvalidValue;
+  const RowBwdArgs a{dout,    dout_stride, y,    y_stride, z,  z_stride, w,
+                     nullptr, nullptr,     nullptr, rows,  d,  0.f};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0 && w_dtype == 0) return launch_dot<float, float>(a, dot, st);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch_dot<float, __nv_bfloat16>(a, dot, st);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch_dot<__nv_bfloat16, float>(a, dot, st);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch_dot<__nv_bfloat16, __nv_bfloat16>(a, dot, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int gated_rmsnorm_scale_bwd(
+    const void* dout, long long dout_stride, const void* y,
+    long long y_stride, const void* z, long long z_stride, const void* w,
+    const float* ss, const float* dot, void* dy, void* dz, void* dw,
+    float* partial, int nb, int rows, int d, int d_total, float eps,
+    int x_dtype, int w_dtype, void* stream) {
+  if (d_total < d) return cudaErrorInvalidValue;
+  RowBwdArgs a{dout, dout_stride, y,  y_stride, z,    z_stride, w,
+               dy,   dz,          partial, rows, d,  eps};
+  a.ss = ss;
+  a.dot = dot;
+  a.d_total = d_total;
+  return launch_bwd<Op::kGatedScale>(a, nb, dw, x_dtype, w_dtype, stream);
 }
 
 extern "C" int qk_norm_rope_bwd(

@@ -16,6 +16,20 @@ work, a longer row one block's; rows are read through their stride and
 never padded (see the source for the design).  Each launcher adds one to
 its own ``.launches`` per launch (none for zero rows).
 
+Mamba2's gated norm under tensor parallelism normalises rows whose
+columns lie on several ranks.  It runs in two launches per direction,
+with the sum over the ranks between them, done by the caller
+(``ops.py``), never in a kernel:
+
+* ``gated_rmsnorm_sumsq``: each row's fp32 partial sum of squares of
+  ``y * silu(z)`` over this rank's columns (the reduction above, stopped
+  before its rsqrt);
+* ``gated_rmsnorm_scale``: given the summed sums and the whole width,
+  the norm of this rank's columns;
+* ``gated_rmsnorm_dot`` and ``gated_rmsnorm_scale_bwd``: the backward's
+  partial ``sum(dout * w * g)`` per row, then, given the summed one,
+  dy, dz and this rank's dw.
+
 Each entry point has a backward launcher (``*_bwd``): a row kernel
 that recomputes the norm's rstd from the forward's input and writes the
 input gradients, and a second launch that sums dw's fp32 partial rows in
@@ -71,9 +85,20 @@ def _library() -> ctypes.CDLL:
                                      + [vp, vp, vp, i64, i64, i32]
                                      + [vp] * 5 + [i32] * 6
                                      + [f32, i32, i32, vp])
+    lib.gated_rmsnorm_sumsq.argtypes = [vp, i64, vp, i64, vp, i32, i32, i32,
+                                        i32, vp]
+    lib.gated_rmsnorm_scale.argtypes = [vp, i64, vp, i64, vp, vp, vp, i32,
+                                        i32, i32, f32, i32, i32, i32, vp]
+    lib.gated_rmsnorm_dot.argtypes = [vp, i64, vp, i64, vp, i64, vp, vp,
+                                      i32, i32, i32, i32, vp]
+    lib.gated_rmsnorm_scale_bwd.argtypes = ([vp, i64] * 3 + [vp] * 7
+                                            + [i32] * 4 + [f32, i32, i32,
+                                                           vp])
     for fn in (lib.rmsnorm_fwd, lib.add_rmsnorm_fwd, lib.gated_rmsnorm_fwd,
                lib.qk_norm_rope_fwd, lib.rmsnorm_bwd, lib.add_rmsnorm_bwd,
-               lib.gated_rmsnorm_bwd, lib.qk_norm_rope_bwd):
+               lib.gated_rmsnorm_bwd, lib.qk_norm_rope_bwd,
+               lib.gated_rmsnorm_sumsq, lib.gated_rmsnorm_scale,
+               lib.gated_rmsnorm_dot, lib.gated_rmsnorm_scale_bwd):
         fn.restype = i32
     lib.rmsnorm_error_string.argtypes = [i32]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
@@ -85,15 +110,16 @@ def vectorized(x2d: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     """Whether the kernel may read 16 bytes per load: d a multiple of the
     vector, every row stride a multiple of 16 bytes, x, out (and every
     further [rows, d] tensor of the call) 16-byte aligned and w aligned to
-    the vector's share of it.  It picks the loads only: the kernel groups
-    a row's values by d alone, so the result does not depend on it."""
+    the vector's share of it (w None: a call that reads none).  It picks
+    the loads only: the kernel groups a row's values by d alone, so the
+    result does not depend on it."""
     es = x2d.element_size()
     vec = 16 // es
     rows = (x2d, out) + more
     return (x2d.shape[1] % vec == 0
             and all(t.stride(0) * es % 16 == 0 and t.data_ptr() % 16 == 0
                     for t in rows)
-            and w.data_ptr() % (vec * w.element_size()) == 0)
+            and (w is None or w.data_ptr() % (vec * w.element_size()) == 0))
 
 
 def _on_device(device, **tensors) -> None:
@@ -232,6 +258,88 @@ def gated_rmsnorm_fwd(y2d: torch.Tensor, z2d: torch.Tensor, w: torch.Tensor,
             _DTYPE_CODES[y2d.dtype], _DTYPE_CODES[w.dtype],
             int(vectorized(y2d, w, out, z2d)))
     gated_rmsnorm_fwd.launches += 1
+    return out
+
+
+def _row_sums(rows: int, device) -> torch.Tensor:
+    return torch.empty((rows,), dtype=torch.float32, device=device)
+
+
+def _check_sums(name, t, rows, device) -> None:
+    """A per-row fp32 sum of the split gated norm: contiguous [rows]."""
+    if (t.dtype != torch.float32 or tuple(t.shape) != (rows,)
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous float32 [rows={rows}], "
+                         f"got {tuple(t.shape)} {t.dtype}")
+    _on_device(device, **{name: t})
+
+
+def _check_width(d_total: int, d: int) -> None:
+    if d_total < d:
+        raise ValueError(f"d_total {d_total} must be at least the local "
+                         f"width {d}")
+
+
+def gated_rmsnorm_sumsq(y2d: torch.Tensor, z2d: torch.Tensor
+                        ) -> torch.Tensor:
+    """y2d, z2d [rows, d] (one dtype, rows contiguous, any row strides):
+    this rank's columns of rows normalised over several ranks.  ->
+    contiguous fp32 [rows]: each row's sum of squares of ``y * silu(z)``
+    (each rounded to y's dtype), in ``gated_rmsnorm_fwd``'s reduction
+    order.  The caller sums it over the ranks and passes the sum to
+    ``gated_rmsnorm_scale``.
+
+    Same stream, grad and counting rules as ``rmsnorm_fwd``
+    (``gated_rmsnorm_sumsq.launches``)."""
+    refuse_grad("gated_rmsnorm_sumsq", y2d, z2d)
+    if y2d.dim() != 2 or y2d.shape[1] < 1:
+        raise ValueError(f"y must be [rows, d >= 1], got {tuple(y2d.shape)}")
+    rows, d = y2d.shape
+    if tuple(z2d.shape) != (rows, d) or z2d.dtype != y2d.dtype:
+        raise ValueError(f"z must match y ({tuple(y2d.shape)}, "
+                         f"{y2d.dtype}), got {tuple(z2d.shape)} {z2d.dtype}")
+    if y2d.dtype not in _DTYPE_CODES:
+        raise TypeError(f"y must be float32 or bfloat16, got {y2d.dtype}")
+    _on_device(y2d.device, y=y2d, z=z2d)
+    for name, t in (("y", y2d), ("z", z2d)):
+        _check_rows(name, t, d)
+    ss = _row_sums(rows, y2d.device)
+    if rows == 0:
+        return ss
+    _launch("gated_rmsnorm_sumsq", y2d.device,
+            y2d.data_ptr(), y2d.stride(0), z2d.data_ptr(), z2d.stride(0),
+            ss.data_ptr(), rows, d, _DTYPE_CODES[y2d.dtype],
+            int(vectorized(y2d, None, y2d, z2d)))
+    gated_rmsnorm_sumsq.launches += 1
+    return ss
+
+
+def gated_rmsnorm_scale(y2d: torch.Tensor, z2d: torch.Tensor,
+                        w: torch.Tensor, ss: torch.Tensor, *, d_total: int,
+                        eps: float) -> torch.Tensor:
+    """y2d, z2d [rows, d] and w [d] as ``gated_rmsnorm_fwd`` takes them,
+    this rank's columns of rows of ``d_total``; ``ss`` fp32 [rows] the
+    whole rows' sums of squares (``gated_rmsnorm_sumsq`` summed over the
+    ranks).  -> contiguous [rows, d] in y's dtype: ``(g * rsqrt(ss /
+    d_total + eps)) * w``, g = y * silu(z) rounded as the fused kernel
+    rounds it.
+
+    Same stream, grad and counting rules as ``rmsnorm_fwd``
+    (``gated_rmsnorm_scale.launches``)."""
+    refuse_grad("gated_rmsnorm_scale", y2d, z2d, w, ss)
+    _check(y2d, w, z=z2d)
+    rows, d = y2d.shape
+    _check_width(d_total, d)
+    _check_sums("ss", ss, rows, y2d.device)
+    out = torch.empty((rows, d), dtype=y2d.dtype, device=y2d.device)
+    if rows == 0:
+        return out
+    _launch("gated_rmsnorm_scale", y2d.device,
+            y2d.data_ptr(), y2d.stride(0), z2d.data_ptr(), z2d.stride(0),
+            w.data_ptr(), ss.data_ptr(), out.data_ptr(), rows, d,
+            int(d_total), float(eps), _DTYPE_CODES[y2d.dtype],
+            _DTYPE_CODES[w.dtype], int(vectorized(y2d, w, out, z2d)))
+    gated_rmsnorm_scale.launches += 1
     return out
 
 
@@ -427,6 +535,72 @@ def gated_rmsnorm_bwd(dout2d: torch.Tensor, y2d: torch.Tensor,
     return dy, dz, dw
 
 
+def gated_rmsnorm_dot(dout2d: torch.Tensor, y2d: torch.Tensor,
+                      z2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The split gated norm's backward, first launch: dout2d (the gradient
+    of ``gated_rmsnorm_scale``'s output), y2d and z2d [rows, d] (its
+    inputs), w [d].  -> contiguous fp32 [rows]: each row's ``sum(dout * w
+    * g)`` over this rank's columns, g = y * silu(z) as the forward
+    rounds it.  The caller sums it over the ranks for
+    ``gated_rmsnorm_scale_bwd``.
+
+    Same stream, grad and counting rules as ``rmsnorm_fwd``
+    (``gated_rmsnorm_dot.launches``)."""
+    refuse_grad("gated_rmsnorm_dot", dout2d, y2d, z2d, w)
+    _check(y2d, w, z=z2d, dout=dout2d)
+    rows, d = y2d.shape
+    dot = _row_sums(rows, y2d.device)
+    if rows == 0:
+        return dot
+    _launch("gated_rmsnorm_dot", y2d.device,
+            dout2d.data_ptr(), dout2d.stride(0), y2d.data_ptr(),
+            y2d.stride(0), z2d.data_ptr(), z2d.stride(0), w.data_ptr(),
+            dot.data_ptr(), rows, d, _DTYPE_CODES[y2d.dtype],
+            _DTYPE_CODES[w.dtype])
+    gated_rmsnorm_dot.launches += 1
+    return dot
+
+
+def gated_rmsnorm_scale_bwd(dout2d: torch.Tensor, y2d: torch.Tensor,
+                            z2d: torch.Tensor, w: torch.Tensor,
+                            ss: torch.Tensor, dot: torch.Tensor, *,
+                            d_total: int, eps: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward of ``gated_rmsnorm_scale``: dout2d, y2d, z2d [rows,
+    d] and w [d] as ``gated_rmsnorm_bwd`` takes them, ``ss`` the
+    forward's summed sums of squares and ``dot`` ``gated_rmsnorm_dot``
+    summed over the ranks (fp32 [rows] each).  -> (dy, dz contiguous
+    [rows, d] in y's dtype, dw [d] of this rank's columns in w's dtype),
+    with rstd = rsqrt(ss / d_total + eps) and c = rstd^2 * dot / d_total
+    in ``gated_rmsnorm_bwd``'s row kernel; dw summed over the rows in a
+    fixed order.
+
+    One row kernel and the sum of dw's partial rows, counted as one in
+    ``gated_rmsnorm_scale_bwd.launches``."""
+    refuse_grad("gated_rmsnorm_scale_bwd", dout2d, y2d, z2d, w, ss, dot)
+    _check(y2d, w, z=z2d, dout=dout2d)
+    rows, d = y2d.shape
+    _check_width(d_total, d)
+    _check_sums("ss", ss, rows, y2d.device)
+    _check_sums("dot", dot, rows, y2d.device)
+    dy = torch.empty((rows, d), dtype=y2d.dtype, device=y2d.device)
+    dz = torch.empty_like(dy)
+    if rows == 0:
+        return dy, dz, torch.zeros((d,), dtype=w.dtype, device=w.device)
+    dw = torch.empty((d,), dtype=w.dtype, device=w.device)
+    part = _partial_rows(rows, d, y2d.device)
+    _launch("gated_rmsnorm_scale_bwd", y2d.device,
+            dout2d.data_ptr(), dout2d.stride(0), y2d.data_ptr(),
+            y2d.stride(0), z2d.data_ptr(), z2d.stride(0), w.data_ptr(),
+            ss.data_ptr(), dot.data_ptr(), dy.data_ptr(), dz.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), part.shape[0], rows, d,
+            int(d_total), float(eps), _DTYPE_CODES[y2d.dtype],
+            _DTYPE_CODES[w.dtype])
+    gated_rmsnorm_scale_bwd.launches += 1
+    return dy, dz, dw
+
+
 def qk_norm_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, q: torch.Tensor,
                      k: torch.Tensor, wq: Optional[torch.Tensor],
                      wk: Optional[torch.Tensor], positions: torch.Tensor,
@@ -497,3 +671,7 @@ rmsnorm_bwd.launches = 0
 add_rmsnorm_bwd.launches = 0
 gated_rmsnorm_bwd.launches = 0
 qk_norm_rope_bwd.launches = 0
+gated_rmsnorm_sumsq.launches = 0
+gated_rmsnorm_scale.launches = 0
+gated_rmsnorm_dot.launches = 0
+gated_rmsnorm_scale_bwd.launches = 0

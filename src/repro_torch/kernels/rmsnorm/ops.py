@@ -21,12 +21,17 @@ import torch
 from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_bwd,
                                                 add_rmsnorm_fwd,
                                                 gated_rmsnorm_bwd,
+                                                gated_rmsnorm_dot,
                                                 gated_rmsnorm_fwd,
+                                                gated_rmsnorm_scale,
+                                                gated_rmsnorm_scale_bwd,
+                                                gated_rmsnorm_sumsq,
                                                 qk_norm_rope_bwd,
                                                 qk_norm_rope_fwd, rmsnorm_bwd,
                                                 rmsnorm_fwd)
 from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
                                              gated_rmsnorm_ref,
+                                             gated_rmsnorm_split_ref,
                                              qk_norm_rope_ref, rmsnorm_ref,
                                              rope_freqs)
 
@@ -114,6 +119,31 @@ class GatedRMSNormFn(torch.autograd.Function):
         return dy, dz, dw, None
 
 
+class GatedRMSNormSplitFn(torch.autograd.Function):
+    """The gated norm of this rank's columns of rows of ``d_total``:
+    ``gated_rmsnorm_sumsq``, ``reduce`` (the sum over the ranks), then
+    ``gated_rmsnorm_scale`` forward; ``gated_rmsnorm_dot``, ``reduce``,
+    then ``gated_rmsnorm_scale_bwd`` backward.  The forward's summed sums
+    of squares are kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, y2d, z2d, w, eps, d_total, reduce):
+        ss = reduce(gated_rmsnorm_sumsq(y2d, z2d))
+        ctx.save_for_backward(y2d, z2d, w, ss)
+        ctx.eps, ctx.d_total, ctx.reduce = eps, d_total, reduce
+        return gated_rmsnorm_scale(y2d, z2d, w, ss, d_total=d_total,
+                                   eps=eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        y2d, z2d, w, ss = ctx.saved_tensors
+        dout = row_view(dout)
+        dot = ctx.reduce(gated_rmsnorm_dot(dout, y2d, z2d, w))
+        dy, dz, dw = gated_rmsnorm_scale_bwd(
+            dout, y2d, z2d, w, ss, dot, d_total=ctx.d_total, eps=ctx.eps)
+        return dy, dz, dw, None, None, None
+
+
 class QKNormRopeFn(torch.autograd.Function):
     """``qk_norm_rope_fwd`` / ``qk_norm_rope_bwd``: (q', k') of q [B, S,
     Hq, D], k [B, S, Hkv, D], wq and wk [D] (or both None) at
@@ -169,6 +199,30 @@ def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
                else gated_rmsnorm_fwd(y2d, z2d, w, eps=eps))
         return out.reshape(y.shape)
     return gated_rmsnorm_ref(y, z, w, eps)
+
+
+def gated_rmsnorm_split(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                        d_total: int, reduce,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """The gated norm of rows of ``d_total`` whose columns lie on several
+    ranks, of this rank's columns: y, z [..., d] (one shape), w [d] ->
+    ``(g * rsqrt(S / d_total + eps)) * w`` in y's shape and dtype, g = y *
+    silu(z), S the whole rows' sum of squares.  ``reduce`` sums an fp32
+    tensor over the ranks (the caller's collective; on the CPU autograd
+    differentiates it, so its backward must sum as well).  On the card two
+    launches each way with ``reduce`` between them
+    (``GatedRMSNormSplitFn``); not bit-identical to ``gated_rmsnorm``,
+    whose one reduction adds the squares in another order."""
+    if _device_of(y, "gated_rmsnorm_split") == "cuda":
+        y2d, z2d = row_view(y), row_view(z)
+        if _records(y, z, w):
+            out = GatedRMSNormSplitFn.apply(y2d, z2d, w, eps, d_total,
+                                            reduce)
+        else:
+            out = gated_rmsnorm_scale(y2d, z2d, w, reduce(
+                gated_rmsnorm_sumsq(y2d, z2d)), d_total=d_total, eps=eps)
+        return out.reshape(y.shape)
+    return gated_rmsnorm_split_ref(y, z, w, d_total, reduce, eps)
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,6 +15,13 @@ The ``*_bwd_ref`` functions are the backward kernels' plain versions:
 the explicit formulas, in fp32, that the CUDA backward kernels compute.
 Only the tests and ``chip_smoke.py`` call them; on the CPU the ops take
 the gradient by autograd of the plain forward.
+
+The gated norm split over ranks by columns (Mamba2 under tensor
+parallelism) has four plain versions, one per CUDA entry point:
+``gated_rmsnorm_sumsq_ref`` (a row's partial sum of squares) and
+``gated_rmsnorm_scale_ref`` (the norm given the summed one) forward,
+``gated_rmsnorm_dot_ref`` and ``gated_rmsnorm_scale_bwd_ref`` backward;
+the sums over the ranks lie between them, in the caller.
 """
 from __future__ import annotations
 
@@ -44,6 +51,38 @@ def gated_rmsnorm_ref(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
                       eps: float = 1e-6) -> torch.Tensor:
     """Mamba2's gated norm: rmsnorm(y * silu(z)) * w."""
     return rmsnorm_ref(y * F.silu(z), w, eps)
+
+
+def gated_rmsnorm_sumsq_ref(y: torch.Tensor,
+                            z: torch.Tensor) -> torch.Tensor:
+    """The fp32 sum of squares over the last axis of the gated product
+    ``y * silu(z)`` (each rounded to y's dtype): one rank's partial of a
+    row whose columns lie on several ranks -> [...] fp32."""
+    g = (y * F.silu(z)).float()
+    return torch.sum(g * g, dim=-1)
+
+
+def gated_rmsnorm_scale_ref(y: torch.Tensor, z: torch.Tensor,
+                            w: torch.Tensor, ss: torch.Tensor, d: int,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """The gated norm of this rank's columns of rows of ``d``, given the
+    whole rows' sum of squares ``ss`` [...] (fp32, summed over the
+    ranks): ``(g * rsqrt(ss / d + eps)) * w`` in y's dtype, g = y *
+    silu(z).  With ``ss`` this rank's own sum and ``d`` its width it is
+    ``gated_rmsnorm_ref`` (the mean taken as sum / d)."""
+    g = (y * F.silu(z)).float()
+    out = g * torch.rsqrt(ss[..., None] / d + eps)
+    return (out * w.float()).to(y.dtype)
+
+
+def gated_rmsnorm_split_ref(y: torch.Tensor, z: torch.Tensor,
+                            w: torch.Tensor, d: int, reduce,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """The split gated norm as autograd traces it on the CPU: the
+    partial sum of squares, ``reduce`` (the sum over the ranks holding
+    the row's other columns, differentiable), then the scale."""
+    return gated_rmsnorm_scale_ref(y, z, w, reduce(
+        gated_rmsnorm_sumsq_ref(y, z)), d, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -125,6 +164,40 @@ def gated_rmsnorm_bwd_ref(dout: torch.Tensor, y: torch.Tensor,
     sig = 1.0 / (1.0 + torch.exp(-zf))
     dz = (dg * y).float() * (sig * (1.0 + zf * (1.0 - sig)))
     return dg * s, dz.to(z.dtype), dw
+
+
+def gated_rmsnorm_dot_ref(dout: torch.Tensor, y: torch.Tensor,
+                          z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The split backward's partial: ``sum(dout * w * g)`` over the last
+    axis in fp32, g = y * silu(z) as the forward rounds it -> [...]."""
+    g = (y * F.silu(z)).float()
+    return torch.sum(dout.float() * w.float() * g, dim=-1)
+
+
+def gated_rmsnorm_scale_bwd_ref(dout: torch.Tensor, y: torch.Tensor,
+                                z: torch.Tensor, w: torch.Tensor,
+                                ss: torch.Tensor, dot: torch.Tensor, d: int,
+                                eps: float = 1e-6
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The gradient of ``gated_rmsnorm_scale_ref`` at the whole rows' sum
+    of squares ``ss`` and sum ``dot`` of ``dout * w * g`` (both summed
+    over the ranks): (dy, dz, dw of this rank's columns).  With rstd =
+    rsqrt(ss / d + eps) and c = rstd^2 * dot / d: dg = rstd * (dout * w -
+    g * c) in y's dtype, then the gate's chain as
+    ``gated_rmsnorm_bwd_ref``; dw = the sum over rows of dout * g *
+    rstd."""
+    s = F.silu(z)
+    g = (y * s).float()
+    rstd = torch.rsqrt(ss[..., None] / d + eps)
+    c = rstd * rstd * dot[..., None] / d
+    dof = dout.float()
+    dg = (rstd * (dof * w.float() - g * c)).to(y.dtype)
+    dw = (dof * (g * rstd)).reshape(-1, w.shape[0]).sum(0)
+    zf = z.float()
+    sig = 1.0 / (1.0 + torch.exp(-zf))
+    dz = (dg * y).float() * (sig * (1.0 + zf * (1.0 - sig)))
+    return dg * s, dz.to(z.dtype), dw.to(w.dtype)
 
 
 def rope_bwd_ref(dout: torch.Tensor, positions: torch.Tensor,

@@ -12,7 +12,10 @@ import torch
 #: G > 1, G == H, P and N not powers of two, an initial state, and the
 #: two SSM main paths' launches as ``chip_smoke.py`` serves them (batch 8;
 #: mamba2-780m's prompts of 192-384 tokens pad to 384, three chunks;
-#: zamba2-2.7b's of 64-128 to 128; a prefill passes no initial state)
+#: zamba2-2.7b's of 64-128 to 128; a prefill passes no initial state),
+#: and one model rank's launch of each on a model axis of two
+#: (``chip_smoke.py`` phase 33's sharded prefill: 24 and 40 heads a rank,
+#: 8 rows of 256 and 128 tokens)
 SSD_CASES = [
     ("multi-chunk", (2, 384, 4, 64, 1, 128, 128), None),
     ("ragged", (2, 200, 4, 64, 1, 128, 128), None),
@@ -24,9 +27,13 @@ SSD_CASES = [
     ("zero-state", (2, 37, 3, 8, 1, 8, 16), "zeros"),
     ("mamba2-main", (8, 384, 48, 64, 1, 128, 128), None),
     ("zamba2-main", (8, 128, 80, 64, 1, 64, 128), None),
+    ("mamba2-tp2", (8, 256, 24, 64, 1, 128, 128), None),
+    ("zamba2-tp2", (8, 128, 40, 64, 1, 64, 128), None),
 ]
 #: the main paths' cases by arch
 SSD_MAIN = {"mamba2-780m": "mamba2-main", "zamba2-2.7b": "zamba2-main"}
+#: one model rank's case of each arch on a model axis of two
+SSD_TP = {"mamba2-780m": "mamba2-tp2", "zamba2-2.7b": "zamba2-tp2"}
 #: the JAX package's own SSD tolerances (tests/test_kernels.py)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 

@@ -48,9 +48,12 @@ quantities.  Deliberate differences from the JAX record:
   for ``ICI_BW``.
 * ``timing.lower_s``: the seconds of building the step and running it on
   fake tensors; ``compile_s`` is 0.0 (nothing compiles).
-* The Mamba2 layers compute whole on every rank (their leaves gathered;
-  ``train/sharded.py``), so the mamba2 and zamba2 cells count whole
-  layers per device.
+* The Mamba2 layers compute their H/M heads on each rank
+  (``launch/sharding.py::tp_leaves``), as the attention blocks their
+  heads; their ``in_proj``, ``conv_w`` and ``conv_b`` are gathered (the
+  rule table's column runs cross the packed boundaries) and their
+  columns taken on the rank, so those leaves' gathered copies count in
+  the temporaries where GSPMD would compute on the stored split.
 * ``--only-missing`` skips every cell already in ``--out``, failed ones
   too (the JAX dry-run accepts the flag and retries failed cells);
   without it a cell recorded ``ok`` is skipped and a failed one run

@@ -280,7 +280,12 @@ def cache_specs(cfg: ModelConfig, cache_tree, mesh):
 
 
 #: the leaf names tensor parallelism may split (``tp_leaves``)
-TP_NAMES = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embed", "lm_head")
+TP_NAMES = ("wq", "wk", "wv", "wo", "wi_gate", "wi_up", "embed", "lm_head",
+            "out_proj", "norm_w", "dt_bias", "A_log", "D")
+#: a Mamba2 layer's leaves stored split by heads (``tp_leaves``' local
+#: set), and those it computes from their columns (its summed set)
+MAMBA_LOCAL = ("out_proj", "norm_w", "dt_bias", "A_log", "D")
+MAMBA_COLUMNS = ("in_proj", "conv_w", "conv_b")
 
 
 def tp_leaves(cfg: ModelConfig, param_spec_tree, mesh):
@@ -293,9 +298,17 @@ def tp_leaves(cfg: ModelConfig, param_spec_tree, mesh):
     they are gathered and their gradients summed (each rank reads only
     its q heads' kv heads), as are its ``q_norm`` / ``k_norm``'s; a gated
     MLP where M divides d_ff; the embedding and the LM head where M
-    divides the vocabulary.  Every other leaf (norms, router, experts,
-    Mamba2 layers, and leaves ``fix_spec`` leaves whole) is computed
-    whole.  Both sets are empty on a model axis of one rank."""
+    divides the vocabulary.  A Mamba2 layer splits by heads where M
+    divides its SSM heads and it has one group (B and C shared by every
+    head): its ``out_proj`` (rows over d_inner), ``norm_w``, ``dt_bias``,
+    ``A_log`` and ``D`` are local, their stored shards head-aligned;
+    ``in_proj``, ``conv_w`` and ``conv_b``, whose stored column runs cross
+    the packed ``[z | x | B | C | dt]`` boundaries, are gathered (the
+    layer takes its columns, ``tp.mamba_columns``) and summed: the B and C
+    columns carry each rank's partial gradient, the others are zero off
+    their rank.  Every other leaf (norms, router, experts, and leaves
+    ``fix_spec`` leaves whole) is computed whole.  Both sets are empty on
+    a model axis of one rank."""
     M = model_axis_size(mesh)
     local, summed = set(), set()
     if M == 1:
@@ -325,6 +338,11 @@ def tp_leaves(cfg: ModelConfig, param_spec_tree, mesh):
             trio = (pre + "wi_gate", pre + "wi_up", pre + "wo")
             if on(trio[0], -1) and on(trio[1], -1) and on(trio[2], -2):
                 local |= set(trio)
+        elif name == "out_proj" and cfg.ssm_heads % M == 0 \
+                and cfg.ssm_groups == 1 and on(path, -2) \
+                and all(on(pre + n, -1) for n in MAMBA_LOCAL[1:]):
+            local |= {pre + n for n in MAMBA_LOCAL}
+            summed |= {pre + n for n in MAMBA_COLUMNS}
     if on("embed", -2):
         local.add("embed")
     if on("lm_head", -1):

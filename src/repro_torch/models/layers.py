@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.models.tp import model_summer
 # RoPE's formula lives beside the plain version of the fused qk-norm-RoPE
 # kernel that computes it
 from repro_torch.kernels.rmsnorm.ref import (  # noqa: F401
@@ -39,6 +40,19 @@ def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
     """Mamba2's gated norm, rms_norm(y * silu(z)): one launch on the
     card."""
     return rmsnorm_ops.gated_rmsnorm(y, z, weight, eps)
+
+
+def gated_rms_norm_split(y: torch.Tensor, z: torch.Tensor,
+                         weight: torch.Tensor, d: int,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated norm of this rank's columns of rows of ``d`` under
+    the tensor-parallel context: the rows' sum of squares summed over
+    'model' (``tp.model_summer``, bound to the group here: the card's
+    backward calls it on autograd's own thread, and it sums the gradient
+    too); two launches each way on the card, the all-reduce between
+    them."""
+    return rmsnorm_ops.gated_rmsnorm_split(y, z, weight, d, model_summer(),
+                                           eps)
 
 
 def qk_norm_rope(q: torch.Tensor, k: torch.Tensor,

@@ -11,10 +11,10 @@ JAX package, which refuses the others there; the dense-cache pair
 (``prefill`` / ``decode_step``) for every family; and ``forward_train``
 for every family.  Under ``moe_ep.ep_mesh_context`` the MoE layers take
 the expert-parallel path (``models/moe_ep.py``), as in the JAX package.
-Under ``tp.tp_mesh_context`` the attention and MLP blocks and the
-vocabulary compute on this rank's shards over 'model' wherever they are
-given shards (``models/tp.py``); the Mamba2 layers, the norms and the
-router always compute whole.
+Under ``tp.tp_mesh_context`` the attention, MLP and Mamba2 blocks and
+the vocabulary compute on this rank's shards over 'model' wherever they
+are given shards (``models/tp.py``); the norms and the router always
+compute whole.
 
 The train mode (``forward_train``) keeps no cache and writes no state.
 Its attention and SSD scan take their plain versions on any device (the
@@ -192,14 +192,16 @@ def init(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                abstract_only: bool = False, cross_len: int = 1500,
-               device=None):
+               device=None, ssm_heads: Optional[int] = None):
     """Dense KV/SSM cache tree for every family: zeros on ``device``, or
     ``device="meta"`` tensors with ``abstract_only`` (what the footprint
     estimator sizes).  Under the tensor-parallel context each KV leaf
     holds this rank's share as ``tp.kv_layout`` lays it: its Hkv/M heads
     (``[L, batch, max_len, Hkv/M, hd]``), its range of ``max_len / M``
     slots of every head, or the whole leaf.  ``batch`` is the rank's own
-    rows."""
+    rows; ``ssm_heads`` the Mamba2 heads the rank computes (default all):
+    the SSM state holds those and the conv state their channels ``[x_r |
+    B | C]``."""
     dt = torch_dtype(cfg.compute_dtype)
     dev = "meta" if abstract_only else device
 
@@ -231,13 +233,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["cross_k"] = kv("cross", L, cross_len)
         cache["cross_v"] = kv("cross", L, cross_len)
     elif cfg.family == "ssm":
-        dm = ssm_mod.mamba2_dims(cfg)
+        dm = ssm_mod.mamba2_dims(cfg, ssm_heads)
         L = cfg.num_layers
         cache["ssm"] = mk((L, batch, dm["H"], dm["P"], dm["N"]),
                           torch.float32)
         cache["conv"] = mk((L, batch, cfg.conv_width - 1, dm["conv_ch"]), dt)
     elif cfg.family == "hybrid":
-        dm = ssm_mod.mamba2_dims(cfg)
+        dm = ssm_mod.mamba2_dims(cfg, ssm_heads)
         L, n_apps = cfg.num_layers, cfg.num_layers // cfg.attn_every
         cache["ssm"] = mk((L, batch, dm["H"], dm["P"], dm["N"]),
                           torch.float32)
@@ -1117,7 +1119,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     S = x.shape[1]
     if cfg.family in ("ssm", "hybrid"):
         # SSM prefill needs real state carry: run with a concrete zero cache
-        cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+        # of the heads the layers compute (this rank's, when split)
+        cache = init_cache(cfg, x.shape[0], max_len, device=x.device,
+                           ssm_heads=params["blocks"]["mamba"]["dt_bias"]
+                           .shape[-1])
         h, d, nc, _ = _STACKS[cfg.family](params, cfg, x, "prefill", cache)
     else:
         h, d, nc, _ = _dense_stack(params, cfg, x, "prefill", None)

@@ -9,6 +9,10 @@ in the JAX package (no kernel there either).  The train mode
 (``differentiable=True``, set by the model's mode) takes the plain scan
 on any device: the kernel has no backward, and the JAX package trains
 through its plain ``ssd_chunked``.
+
+Under the tensor-parallel context (``models/tp.py``), given this rank's
+H/M heads' leaves, ``mamba2_block`` computes those heads only (see its
+docstring); elsewhere it computes the layer whole.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-from repro_torch.models.layers import gated_rms_norm
+from repro_torch.models.layers import gated_rms_norm, gated_rms_norm_split
+from repro_torch.models.tp import (copy_to, current_tp, mamba_columns,
+                                   reduce_from, split, take_columns)
 
 
 class SSMState(NamedTuple):
@@ -101,9 +107,13 @@ def ssd_decode_step(
 # Full Mamba2 block
 # ---------------------------------------------------------------------------
 
-def mamba2_dims(cfg) -> dict:
-    di = cfg.d_inner
-    H = cfg.ssm_heads
+def mamba2_dims(cfg, heads: Optional[int] = None) -> dict:
+    """A Mamba2 layer's widths: d_inner, heads, groups, state, head dim,
+    conv channels ``[x | B | C]`` and ``in_proj``'s columns ``[z | x | B |
+    C | dt]``; with ``heads``, those of a layer of that many of its heads
+    (one rank's share under tensor parallelism, B and C whole)."""
+    H = cfg.ssm_heads if heads is None else heads
+    di = cfg.d_inner if heads is None else heads * cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
     conv_ch = di + 2 * G * N
     return dict(di=di, H=H, G=G, N=N, P=cfg.ssm_head_dim, conv_ch=conv_ch,
@@ -118,22 +128,44 @@ def mamba2_block(p: dict, cfg, x: torch.Tensor,
     The train mode passes ``state=None`` and ``differentiable=True`` (the
     plain scan; no state is returned).
 
+    Under the tensor-parallel context, given this rank's H/M heads of
+    ``dt_bias``, ``A_log``, ``D``, ``norm_w`` and ``out_proj``'s rows
+    (the rule table's head-aligned shards), the block computes those
+    heads: of ``in_proj``, ``conv_w`` and ``conv_b``, given whole, it
+    takes the columns ``[z_r | x_r | B | C | dt_r]`` and channels ``[x_r
+    | B | C]`` (``tp.mamba_columns``; B and C whole, G = 1), the scan and
+    the decode update run on the rank's heads, the gated norm sums its
+    squares over 'model' and ``out_proj`` is row-parallel (its partial
+    products summed over 'model').  The input enters through
+    ``copy_to``.  ``state`` then holds the rank's heads of the SSM state
+    and its channels of the conv state.
+
     Returns (y [B,S,d], new_state | None).
     """
-    d = mamba2_dims(cfg)
+    whole = mamba2_dims(cfg)
+    Hl = p["dt_bias"].shape[-1]
+    tp = split(Hl, whole["H"])
+    d = mamba2_dims(cfg, heads=Hl) if tp else whole
     di, H, G, N, P = d["di"], d["H"], d["G"], d["N"], d["P"]
     Bsz, S, _ = x.shape
+    in_proj, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    if tp:
+        info = current_tp()
+        cols, chans = mamba_columns(info.rank, info.size, whole)
+        in_proj = take_columns(in_proj, cols)
+        conv_w, conv_b = (take_columns(t, chans) for t in (conv_w, conv_b))
+        x = copy_to(x)
 
-    proj = x @ p["in_proj"]
+    proj = x @ in_proj
     z, xBC_raw, dt_raw = torch.split(proj, [di, di + 2 * G * N, H], dim=-1)
 
     if decode:
         assert state is not None and S == 1
-        new_conv, xBC_t = conv_step(state.conv, xBC_raw[:, 0], p["conv_w"],
-                                    p["conv_b"])
+        new_conv, xBC_t = conv_step(state.conv, xBC_raw[:, 0], conv_w,
+                                    conv_b)
         xBC = F.silu(xBC_t)[:, None]                 # [B,1,conv_ch]
     else:
-        xBC = F.silu(causal_conv1d(xBC_raw, p["conv_w"], p["conv_b"]))
+        xBC = F.silu(causal_conv1d(xBC_raw, conv_w, conv_b))
 
     x_ssm, B_mat, C_mat = torch.split(xBC, [di, G * N, G * N], dim=-1)
     x_ssm = x_ssm.reshape(Bsz, S, H, P)
@@ -163,6 +195,10 @@ def mamba2_block(p: dict, cfg, x: torch.Tensor,
 
     y = y + x_ssm.float() * p["D"].float()[:, None]
     y = y.reshape(Bsz, S, di).to(x.dtype)
+    if tp:
+        y = gated_rms_norm_split(y, z, p["norm_w"], whole["di"],
+                                 cfg.norm_eps)
+        return reduce_from(y @ p["out_proj"]), new_state
     y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], new_state
 

@@ -16,7 +16,16 @@ rule table stores (``models/model.py``):
   * the vocabulary: the embedding lookup over this rank's rows
     ``[v0, v1)`` (``vocab_embed``), the logits of this rank's columns,
     the cross-entropy's log-sum-exp and gold logit over them
-    (``vocab_lse_gold``) and greedy sampling (``vocab_argmax``).
+    (``vocab_lse_gold``) and greedy sampling (``vocab_argmax``);
+  * the Mamba2 layers, where M divides the SSM heads (and G = 1): this
+    rank's H/M heads, from its columns of ``in_proj`` and of the conv
+    (``mamba_columns``: ``[z_r | x_r | B | C | dt_r]`` and ``[x_r | B |
+    C]``, B and C whole on every rank), its rows of ``out_proj`` (row-
+    parallel, ``reduce_from``) and its shards of ``norm_w``, ``dt_bias``,
+    ``A_log`` and ``D``; the gated norm's sum of squares over the whole
+    ``d_inner`` is summed over 'model' by ``model_summer``'s function,
+    whose backward sums too (each rank's sum feeds only its own
+    columns).
 
 The serving steps' KV cache lies over 'model' as ``cache_specs`` lays
 it and the steps declare (``kv_layout``): by heads where M divides Hkv
@@ -141,6 +150,21 @@ class _GatherLast(torch.autograd.Function):
             None, None
 
 
+class _AllReduce(torch.autograd.Function):
+    """Summed over ``groups`` forward and backward: the sum every rank
+    takes feeds only that rank's own outputs, so the gradient of each
+    rank's summand is the sum of every rank's gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.groups), None
+
+
 def copy_to(x: torch.Tensor) -> torch.Tensor:
     """A block's input under the context (its gradient summed over
     'model'); ``x`` itself outside it."""
@@ -153,6 +177,50 @@ def reduce_from(x: torch.Tensor) -> torch.Tensor:
     ``x`` itself outside it."""
     tp = current_tp()
     return x if tp is None else _ReduceFrom.apply(x, [tp.group])
+
+
+def model_summer():
+    """A function that sums a tensor over 'model' forward and backward
+    (``_AllReduce``: a sum each rank then uses for its own shard, the
+    gated norm's sum of squares), bound to the context's group when
+    ``model_summer`` is called; the identity outside the context.  Bound,
+    it still sums where an autograd Function's backward calls it on
+    autograd's own thread, which does not see the thread-local context
+    (a CUDA backward runs there)."""
+    tp = current_tp()
+    if tp is None:
+        return _identity
+    groups = [tp.group]
+    return lambda x: _AllReduce.apply(x, groups)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def mamba_columns(rank: int, M: int, dims: dict) -> tuple:
+    """Rank ``rank`` of M's share of a Mamba2 layer split by heads, for
+    the whole layer's ``dims`` (``models/ssm.py::mamba2_dims``; G = 1):
+    (the runs of ``in_proj``'s columns ``[z_r | x_r | B | C | dt_r]``,
+    the runs of the conv's channels ``[x_r | B | C]``), each run a
+    ``(start, stop)`` pair, in the order the local layer packs them.
+    Head block r is heads ``[r H/M, (r + 1) H/M)``: z and x columns
+    ``r d_inner/M`` on, dt column ``r H/M`` on; B and C are whole."""
+    di, H, gn = dims["di"], dims["H"], dims["G"] * dims["N"]
+    w, h = di // M, H // M
+    xr = (rank * w, (rank + 1) * w)
+    dt0 = 2 * di + 2 * gn
+    cols = (xr, (di + xr[0], di + xr[1]), (2 * di, dt0),
+            (dt0 + rank * h, dt0 + (rank + 1) * h))
+    return cols, (xr, (di, di + 2 * gn))
+
+
+def take_columns(t: torch.Tensor, runs) -> torch.Tensor:
+    """The last dim's ``runs`` of ``t`` (``mamba_columns``), side by
+    side: one ``index_select``, whose gradient is one tensor of ``t``'s
+    shape with those columns filled."""
+    idx = torch.cat([torch.arange(a, b, device=t.device) for a, b in runs])
+    return torch.index_select(t, -1, idx)
 
 
 def gather_last(x: torch.Tensor) -> torch.Tensor:

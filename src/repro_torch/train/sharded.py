@@ -10,8 +10,10 @@ takes its rows of the global batch by ``batch_specs``.  One step:
 
 1. takes the leaves the tensor-parallel compute splits
    (``launch/sharding.py::tp_leaves``: the attention blocks' ``wq`` /
-   ``wk`` / ``wv`` / ``wo``, the MLPs' ``wi_*`` / ``wo``, the embedding
-   and LM head) as this rank's shard over 'model', and under expert
+   ``wk`` / ``wv`` / ``wo``, the MLPs' ``wi_*`` / ``wo``, the Mamba2
+   layers' ``out_proj`` / ``norm_w`` / ``dt_bias`` / ``A_log`` / ``D``,
+   the embedding and LM head) as this rank's shard over 'model', and
+   under expert
    parallelism the expert leaves as this rank's shards; gathers every
    other leaf whole;
 2. computes the loss and its gradients on the rank's batch shard under
@@ -30,10 +32,13 @@ takes its rows of the global batch by ``batch_specs``.  One step:
    gradient of the global batch's loss (the expert shards' and the
    router's come out of ``moe_ffn_ep``'s backward already summed over
    the token shards, as ``shard_map``'s do).  Over 'model' it sums only
-   the replicated leaves whose consumer saw this rank's heads alone:
-   ``q_norm`` / ``k_norm`` of a split attention block, and ``wk`` /
-   ``wv`` where M does not divide the kv heads (each rank computes every
-   kv head and reads its q heads' ones).  The norms', the router's and
+   the gathered leaves whose consumer saw this rank's heads alone:
+   ``q_norm`` / ``k_norm`` of a split attention block, ``wk`` / ``wv``
+   where M does not divide the kv heads (each rank computes every kv
+   head and reads its q heads' ones), and a split Mamba2 layer's
+   ``in_proj`` / ``conv_w`` / ``conv_b`` (each rank takes its heads'
+   columns and B and C: its gradient is zero off those, and B's and C's
+   are its heads' partials).  The norms', the router's and
    the other replicated leaves' gradients are already the same on every
    model rank (their consumers' inputs enter the split blocks through
    ``copy_to``, whose backward sums over 'model');
@@ -47,15 +52,20 @@ That is one gather of the leaves computed whole and one reduce of
 gradients per step, outside the layer loop (``zero1_opt_specs``), and
 inside it the tensor-parallel all-reduces: per attention or MLP block
 one forward (``wo``'s partial sums) and one backward (its input's
-gradient), and the embedding's and the CE's.
+gradient); per Mamba2 layer two forward (the gated norm's sum of
+squares, ``out_proj``'s partial sums) and two backward (the norm's
+second sum, its input's gradient); and the embedding's and the CE's.
 
 **What stays gathered** (a deliberate difference from the JAX package,
 whose GSPMD may split these too): the norms and the router (small, and
-replicated by the rule table); the Mamba2 layers (``in_proj`` packs z,
-x, B, C and dt, so a column split does not line up with heads); leaves
-``fix_spec`` leaves whole or splits mid-head (whisper's 51,866-token
-vocabulary at M = 4, an attention block whose q heads M does not
-divide); and the experts without expert parallelism.  The MoE family
+replicated by the rule table); a Mamba2 layer's ``in_proj``, ``conv_w``
+and ``conv_b`` (stored as column runs across the packed ``[z | x | B |
+C | dt]`` boundaries: gathered, and each rank computes with its heads'
+columns, B and C whole); a Mamba2 layer whose heads M does not divide,
+or with more than one group, whole; leaves ``fix_spec`` leaves whole or
+splits mid-head (whisper's 51,866-token vocabulary at M = 4, an
+attention block whose q heads M does not divide); and the experts
+without expert parallelism.  The MoE family
 without expert parallelism routes each data shard's tokens on its own,
 so its capacity and aux loss are per shard, as under expert
 parallelism, where JAX's dense path routes the global batch.

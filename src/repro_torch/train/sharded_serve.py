@@ -9,12 +9,19 @@ global batch (the token's spec) and computes under ``tp_mesh_context``
 (``models/tp.py``): the leaves ``launch/sharding.py::tp_leaves`` names
 as its shard over 'model', every other leaf gathered whole.  The KV
 cache is held as this rank's rows and its share over 'model' (below),
-written in place by the decode step; the Mamba2 states, which the Mamba2
-layers compute whole, are gathered over 'model' for each step and split
-again after it.  The logits are vocab-parallel (``serve_shardings``'
-``P(batch, None, "model")``), and greedy sampling runs over them
-(``tp.vocab_argmax``: a local max and argmax, then the lowest index
-holding the global max).
+written in place by the decode step.  Where the Mamba2 layers split by
+heads (``tp_leaves``), the SSM state stays as ``cache_specs`` holds it,
+the rank's heads ``[L, B/D, H/M, P, N]``, and the decode step writes it
+in place; the conv state, stored as contiguous channel runs that cross
+the packed ``[x | B | C]`` boundaries, is gathered over 'model' and cut
+to the rank's channels ``[x_r | B | C]`` (``tp.mamba_columns``) on the
+way in, and on the way out the ranks' ``x_r`` channels are gathered
+(B and C are the same on every rank) and the stored runs cut again.
+Where they compute whole, both states are gathered over 'model' for
+each step and split again after it.  The logits are vocab-parallel
+(``serve_shardings``' ``P(batch, None, "model")``), and greedy sampling
+runs over them (``tp.vocab_argmax``: a local max and argmax, then the
+lowest index holding the global max).
 
 The KV cache lies as ``cache_specs`` lays it over 'model', and the steps
 declare that layout to the model (``tp_mesh_context(kv=...)``, one per
@@ -35,13 +42,16 @@ from contextlib import ExitStack
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.sharding import NamedSharding, P
 from repro_torch.models import model as model_lib
 from repro_torch.models.moe_ep import ep_mesh_context
-from repro_torch.models.tp import tp_mesh_context, vocab_argmax
+from repro_torch.models.ssm import mamba2_dims
+from repro_torch.models.tp import (mamba_columns, take_columns,
+                                   tp_mesh_context, vocab_argmax)
 from repro_torch.train.sharded import (EXPERT_LEAVES, gather,
                                        local_block, model_shard, tp_state)
 from repro_torch.utils.tree import flatten_with_paths, tree_unflatten
@@ -75,6 +85,14 @@ class _Plan:
         self.rows = shardings["token"].spec[0]
         self.tp_local, _ = tp_state(cfg, shardings["params"])
         self.cshard = dict(flatten_with_paths(shardings["cache"]))
+        # the Mamba2 layers compute this rank's heads: its conv channels
+        self.chans = None
+        if any(p.endswith("mamba/out_proj") for p in self.tp_local):
+            g = self.mesh.get_group("model")
+            self.model_group = g
+            self.chans = mamba_columns(dist.get_rank(g),
+                                       dist.get_world_size(g),
+                                       mamba2_dims(cfg))[1]
         self.kv = kv_layouts(shardings)
         self.ep = None
         if ep:
@@ -116,20 +134,50 @@ class _Plan:
         return local_block(t, NamedSharding(
             self.mesh, P(self.rows, *([None] * (t.ndim - 1)))))
 
+    def _held(self, name: str) -> bool:
+        """Whether the step computes with the rank's block of cache leaf
+        ``name`` as held: the KV leaves, ``len``, and the SSM state where
+        the Mamba2 layers split by heads."""
+        return _is_kv(name) or name == "len" or (
+            name == "ssm" and self.chans is not None)
+
     def cache_in(self, cache: Dict) -> Dict:
         """The rank's cache (a flat dict, as ``init_cache`` makes it): the
         KV leaves (its heads, its slot range or whole) and ``len`` as
-        held, the Mamba2 states gathered over 'model'."""
-        return {name: t.to_local() if _is_kv(name) or t.ndim == 0
-                else gather(t, ["model"]) for name, t in cache.items()}
+        held; the SSM state as held (its heads) where the Mamba2 layers
+        split, else gathered over 'model'; the conv state gathered over
+        'model' and, where they split, cut to the rank's channels."""
+        out = {}
+        for name, t in cache.items():
+            if self._held(name):
+                out[name] = t.to_local()
+                continue
+            t = gather(t, ["model"])
+            if name == "conv" and self.chans is not None:
+                t = take_columns(t, self.chans)
+            out[name] = t
+        return out
+
+    def _whole_conv(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole conv state from this rank's channels ``[x_r | B |
+        C]``: every rank's x channels (gathered over 'model') in rank
+        order, then B and C (the same on every rank)."""
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(self.model_group))]
+        dist.all_gather(parts, t.contiguous(), group=self.model_group)
+        nx = self.chans[0][1] - self.chans[0][0]
+        return torch.cat([p[..., :nx] for p in parts] + [t[..., nx:]], -1)
 
     def cache_out(self, cache: Dict) -> Dict:
         """The rank's new cache as DTensors at the cache's placements
-        (the Mamba2 states split over 'model' again)."""
+        (the states computed whole, and the conv state, split over
+        'model' again)."""
         out = {}
         for path, t in cache.items():
             sh = self.cshard[path]
-            if not (_is_kv(path) or t.ndim == 0):
+            if not self._held(path):
+                if path == "conv" and self.chans is not None:
+                    t = self._whole_conv(t)
                 t = local_block(t, NamedSharding(self.mesh, P(*(
                     "model" if x == "model" else None for x in sh.spec))))
             out[path] = DTensor.from_local(t, self.mesh, sh.placements,
@@ -162,6 +210,8 @@ def build_sharded_prefill_step(cfg: ModelConfig, max_len: int,
         with plan.context():
             logits, cache = model_lib.prefill(ps, cfg, lb, max_len)
         return plan.logits_out(logits), plan.cache_out(cache)
+    # what the step computes with, for the tests to look into
+    prefill_step.plan = plan
     return prefill_step
 
 
@@ -180,6 +230,7 @@ def build_sharded_decode_step(cfg: ModelConfig, shardings: Dict, *,
             logits, nc = model_lib.decode_step(
                 ps, cfg, plan.cache_in(cache), plan.local_rows(token))
         return plan.logits_out(logits), plan.cache_out(nc)
+    decode_step.plan = plan
     return decode_step
 
 
@@ -195,6 +246,7 @@ def build_sharded_serve_step(cfg: ModelConfig, shardings: Dict, *,
     def serve_step(params, token, cache):
         logits, cache = decode(params, cache, token)
         return greedy(logits, cfg), cache
+    serve_step.plan = decode.plan
     return serve_step
 
 

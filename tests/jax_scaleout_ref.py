@@ -10,7 +10,8 @@ sum(y * r) + 0.37 * aux, and the assignments each source shard drops;
 ``pipeline``: ``pipeline_apply`` on a (2, 2) (pipe, dp) mesh and a
 (4, 1) one, and its gradients; ``sharded_step``: the launcher's sharded
 train step; ``serve_steps``: the dry-run's prefill and serve steps
-jitted under ``serve_shardings`` on a (2, 2) or a (1, 4) mesh."""
+jitted under ``serve_shardings`` on a (2, 2) or a (1, 4) mesh; ``many``:
+several of those in one process (``many``'s docstring)."""
 import sys
 
 import jax
@@ -225,10 +226,24 @@ def serve_steps(z):
     return out
 
 
+def many(z):
+    """Each run of ``z["runs"]``: the case ``z[run + ":case"]`` on the
+    inputs ``z[run + ":" + key]``, its outputs returned under ``run +
+    ":" + key``."""
+    out = {}
+    for run in (str(r) for r in z["runs"]):
+        pre = run + ":"
+        sub = {k[len(pre):]: v for k, v in z.items() if k.startswith(pre)}
+        res = CASES[str(sub.pop("case"))](sub)
+        out.update({pre + k: v for k, v in res.items()})
+    return out
+
+
+CASES = {"moe_ep": moe_ep, "pipeline": pipeline, "sharded_step": sharded_step,
+         "serve_steps": serve_steps, "many": many}
+
+
 if __name__ == "__main__":
     case, src, dst = sys.argv[1:4]
     assert jax.device_count() == 4, jax.devices()
-    np.savez(dst, **{"moe_ep": moe_ep, "pipeline": pipeline,
-                     "sharded_step": sharded_step,
-                     "serve_steps": serve_steps}[case](
-                         dict(np.load(src))))
+    np.savez(dst, **CASES[case](dict(np.load(src))))

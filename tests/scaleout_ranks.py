@@ -518,3 +518,100 @@ def smoke_rank(rank, moe_inp, k, pipe_inp, ckpt_dir, runs, B, S, steps):
             "pipeline": pipeline_rank(rank, pipe_inp),
             "steps": sharded_steps_rank(rank, runs, B, S, steps),
             "restore": restore_rank(rank, ckpt_dir)}
+
+
+def mamba_holdings_rank(rank, shape, runs, B, S, max_len):
+    """For each (arch, config overrides) of ``runs`` on a mesh of
+    ``shape``: what the sharded serving steps compute with, taken leaf by
+    leaf under a collective counter: each parameter's compute tensor's
+    shape and whether taking it all-gathered, and each cache leaf's
+    (after a prefill of ``serve_inputs``' batch) likewise, through the
+    decode step's ``cache_in``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import serve_shardings
+    from repro_torch.models import model as tm
+    from repro_torch.train.sharded import distribute
+    from repro_torch.train.sharded_serve import (build_sharded_decode_step,
+                                                 build_sharded_prefill_step)
+    from repro_torch.utils.step_analyzer import CollectiveCounter
+    from repro_torch.utils.tree import flatten_with_paths, tree_map
+    mesh = make_debug_mesh(shape)
+    out = {}
+    for arch, over in runs:
+        cfg, params, batch = serve_inputs(arch, over, B, S)
+        cache = tm.init_cache(cfg, B, max_len, abstract_only=True)
+        sh = serve_shardings(cfg, mesh, params, cache, B)
+        p = tree_map(distribute, params, sh["params"])
+        _, c = build_sharded_prefill_step(cfg, max_len, sh)(p, batch)
+        plan = build_sharded_decode_step(cfg, sh).plan
+        got = {"params": {}, "cache": {}}
+        for path, leaf in flatten_with_paths(p):
+            with CollectiveCounter() as n:
+                t = plan.params(_nest(path, leaf))
+            got["params"][path] = (tuple(flatten_with_paths(t)[0][1].shape),
+                                   n.counts.get("all-gather", 0))
+        for name, leaf in c.items():
+            with CollectiveCounter() as n:
+                t = plan.cache_in({name: leaf})[name]
+            got["cache"][name] = (tuple(t.shape),
+                                  n.counts.get("all-gather", 0))
+        out[arch] = got
+    return out
+
+
+def gated_norm_split_rank(rank, inp_path):
+    """``layers.gated_rms_norm_split`` on a (1, 4) mesh, each model rank
+    given its quarter of the columns of y, z and w (the plain route on
+    the CPU): the output, and the gradients of sum(out * r) for y, z and
+    w, of its columns; and ``tp.model_summer()``'s function, taken under
+    the context, called on another thread (as autograd calls a CUDA
+    backward): that thread's context, and the sum of the rank's row sums
+    of y it gives."""
+    import threading
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import tp
+    from repro_torch.models.layers import gated_rms_norm_split
+    mesh = make_debug_mesh((1, 4))
+    mi = mesh.get_coordinate()[1]
+    z = np.load(inp_path)
+    d = z["y"].shape[-1]
+    cols = slice(mi * d // 4, (mi + 1) * d // 4)
+    y, zz, w = (_t(z[k][..., cols], True) for k in ("y", "z", "w"))
+    with tp.tp_mesh_context(mesh):
+        out = gated_rms_norm_split(y, zz, w, d, 1e-6)
+        torch.sum(out * _t(z["r"][..., cols])).backward()
+        summer = tp.model_summer()
+    seen = {}
+
+    def elsewhere():
+        seen["context"] = tp.current_tp()
+        seen["sum"] = summer(y.detach().sum(-1))
+    t = threading.Thread(target=elsewhere)
+    t.start()
+    t.join()
+    return {"model": mi, "out": out.detach(), "dy": y.grad, "dz": zz.grad,
+            "dw": w.grad, **{f"thread_{k}": v for k, v in seen.items()}}
+
+
+def mamba_tp_checks_rank(rank, shapes, train_runs, B, S, steps, whole_run,
+                         serve_runs, sB, sS, max_len, serve_steps,
+                         norm_inp):
+    """The Mamba2 tensor-parallel checks in one spawn: the train steps of
+    ``train_runs`` on each mesh of ``shapes`` (``tp_train_rank``), one
+    step of ``whole_run`` (a config whose heads M does not divide) on
+    (1, 4), the sharded serving of ``serve_runs`` on each mesh
+    (``tp_serve_rank``) and what it computes with
+    (``mamba_holdings_rank``), ``tp_locality_rank`` of each train run's
+    arch on (2, 2), and the split gated norm (``gated_norm_split_rank``)."""
+    return {
+        "train": tp_train_rank(rank, shapes, train_runs, B, S, steps),
+        "whole": tp_train_rank(rank, [(1, 4)], [whole_run], B, S, 1),
+        "served": {shape: tp_serve_rank(rank, shape, serve_runs, sB, sS,
+                                        max_len, serve_steps)
+                   for shape in shapes},
+        "holdings": {shape: mamba_holdings_rank(rank, shape, serve_runs, sB,
+                                                sS, max_len)
+                     for shape in shapes},
+        "locality": {arch: tp_locality_rank(rank, arch, B, S)
+                     for arch, _, _ in train_runs},
+        "norm": gated_norm_split_rank(rank, norm_inp)}

@@ -11,7 +11,11 @@ its own, so no later test sees that group; the three start together.
 * the argument bytes are the sum of the local shards' bytes of the
   parameters, the AdamW state, the batch, the token and the cache under
   the port's rule tables (``param_specs``, ``zero1_opt_specs``,
-  ``batch_specs``, ``cache_specs``), computed here from the specs alone;
+  ``batch_specs``, ``cache_specs``), computed here from the specs alone,
+  also for mamba2-780m at 2 layers, whose Mamba2 layers compute their
+  H/M heads on each rank (one subprocess of its own); its cells issue
+  per Mamba2 layer forward two all-reduces (the gated norm's sum of
+  squares, ``out_proj``) and gather no head-split leaf or SSM state;
 * the decode cell (qwen3's 8 kv heads over 16 model ranks: the KV
   cache split over the sequence) issues per layer one all-gather of the
   q heads and one all-to-all of the partials, and holds the whole KV
@@ -23,8 +27,9 @@ its own, so no later test sees that group; the three start together.
   failed ones too, and records a failing cell ``ok: false`` with its
   error.
 
-A comparison of ``flops_per_device`` and the argument bytes with the
-JAX dry-run's compiled cell (XLA on 512 host devices) is marked slow."""
+Comparisons of ``flops_per_device`` and the argument bytes with the
+JAX dry-run's compiled cells (XLA on 512 host devices), qwen3-0.6b's and
+mamba2-780m's train_4k, are marked slow."""
 import json
 import os
 import subprocess
@@ -47,6 +52,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
            JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
 ARCH, LAYERS = "qwen3-0.6b", 2
+MAMBA = "mamba2-780m"
 SHAPE_NAMES = ["train_4k", "prefill_32k", "decode_32k"]
 MESHES = {False: {"data": 16, "model": 16},
           True: {"pod": 2, "data": 16, "model": 16}}
@@ -64,17 +70,17 @@ READ_KEYS = {
 TOP_KEYS = ("loops", "tokens", "params_total", "params_active", "chips",
             "kind", "shape", "ok", "arch", "mesh")
 
-_CELLS = f"""
+_CELLS = """
 import json, sys
 import torch
 torch.set_num_threads(1)
 from repro_torch.launch.dryrun import lower_cell
-out = {{}}
-for shape, mp in {CELLS!r}:
-    out[f"{{shape}}|{{mp}}"] = lower_cell({ARCH!r}, shape, mp,
-                                         {{"num_layers": {LAYERS}}})[0]
+out = {}
+for shape, mp in %r:
+    out[f"{shape}|{mp}"] = lower_cell(sys.argv[2], shape, mp,
+                                      {"num_layers": %d})[0]
 json.dump(out, open(sys.argv[1], "w"))
-"""
+""" % (CELLS, LAYERS)
 
 _CLI = f"""
 import contextlib, io, json, sys
@@ -107,9 +113,9 @@ json.dump({a: count_params(get_config(a), jm.abstract(get_config(a)))
 """
 
 
-def _start(code, out):
-    return subprocess.Popen([sys.executable, "-c", code, str(out)], cwd=ROOT,
-                            env=ENV, stdout=subprocess.PIPE,
+def _start(code, out, *args):
+    return subprocess.Popen([sys.executable, "-c", code, str(out), *args],
+                            cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
@@ -121,18 +127,20 @@ def _wait(proc, timeout=300):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dryrun")
-    procs = {"cells": _start(_CELLS, tmp / "cells.json"),
+    procs = {"cells": _start(_CELLS, tmp / "cells.json", ARCH),
+             "mamba": _start(_CELLS, tmp / "mamba.json", MAMBA),
              "cli": _start(_CLI, tmp / "cli.json"),
              "jax": _start(_JAX_COUNTS, tmp / "jax.json")}
     for p in procs.values():
         _wait(p)
     return {"cells": json.load(open(tmp / "cells.json")),
+            "mamba": json.load(open(tmp / "mamba.json")),
             "cli": json.load(open(tmp / "cli.json.runs")),
             "jax": json.load(open(tmp / "jax.json"))}
 
 
-def _cfg():
-    return get_config(ARCH).replace(num_layers=LAYERS)
+def _cfg(arch=ARCH):
+    return get_config(arch).replace(num_layers=LAYERS)
 
 
 def _local_bytes(tree, specs, mesh: dict) -> int:
@@ -151,13 +159,14 @@ def _local_bytes(tree, specs, mesh: dict) -> int:
     return total
 
 
-def _want_argument_bytes(shape_name: str, multi_pod: bool) -> int:
-    cfg, shape = _cfg(), SHAPES[shape_name]
+def _want_argument_bytes(shape_name: str, multi_pod: bool,
+                         arch: str = ARCH) -> int:
+    cfg, shape = _cfg(arch), SHAPES[shape_name]
     mesh = MeshShape(MESHES[multi_pod])
     specs = input_specs(cfg, shape)
     params = model_lib.abstract(cfg)
     if shape.kind == "train":
-        opt = optim.abstract_opt_state(params, arch_train_config(ARCH))
+        opt = optim.abstract_opt_state(params, arch_train_config(arch))
         ps = shd.param_specs(cfg, params, mesh, kind="train")
         zs = shd.zero1_opt_specs(ps, params, mesh)
         return (_local_bytes(params, ps, mesh.shape)
@@ -219,6 +228,39 @@ def test_argument_bytes_are_the_local_shards_under_the_rule_tables(runs,
     assert rec["memory"]["argument_bytes"] == _want_argument_bytes(*cell)
 
 
+@pytest.mark.parametrize("cell", CELLS, ids=CELL_IDS)
+def test_mamba2_argument_bytes_are_the_local_shards_under_the_rule_tables(
+        runs, cell):
+    rec = runs["mamba"][f"{cell[0]}|{cell[1]}"]
+    assert rec["ok"] and rec["arch"] == MAMBA
+    assert rec["memory"]["argument_bytes"] == _want_argument_bytes(
+        *cell, arch=MAMBA)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=CELL_IDS)
+def test_the_mamba2_cells_compute_their_heads(runs, cell):
+    """48 SSM heads over 16 model ranks: per Mamba2 layer forward one
+    all-reduce for the gated norm's sum of squares and one for
+    ``out_proj`` (the 50,280-row embedding and LM head do not split over
+    16 ranks: computed whole, they add none); the train step's backward
+    adds the norm's second sum and the input's gradient, and the step
+    its gradient sums.  Every step gathers ``in_proj``, ``conv_w`` and
+    ``conv_b`` (their column runs cross the packed boundaries), a
+    prefill also its conv state's x channels on the way out, a decode
+    step the conv state on the way in too; never a head-split leaf or
+    the SSM state."""
+    shape_name, mp = cell
+    rec = runs["mamba"][f"{shape_name}|{mp}"]
+    counts = rec["collectives"]["counts"]
+    if shape_name == "train_4k":
+        assert counts["all-reduce"] >= 4 * LAYERS
+        assert counts["all-gather"] == 3
+    else:
+        assert counts["all-reduce"] == 2 * LAYERS
+        assert counts["all-gather"] == (4 if shape_name == "prefill_32k"
+                                        else 5)
+
+
 @pytest.mark.parametrize("mp", [False, True], ids=["16x16", "2x16x16"])
 def test_the_sequence_split_decode_cell(runs, mp):
     """qwen3's 8 kv heads over 16 model ranks: each rank holds every kv
@@ -276,6 +318,15 @@ json.dump(rec, open(sys.argv[1], "w"))
 """
 
 
+def _jax_cell(tmp_path, arch, shape_name):
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_CELL, str(tmp_path / "j.json"), arch,
+         shape_name], cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    _wait(proc, timeout=1800)
+    return json.load(open(tmp_path / "j.json"))
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("shape_name", SHAPE_NAMES)
 def test_flops_per_device_against_the_jax_dry_runs_compiled_cell(
@@ -287,12 +338,7 @@ def test_flops_per_device_against_the_jax_dry_runs_compiled_cell(
     computes a leaf whole (qwen3's kv projections, which 16 ranks cannot
     split by whole heads; the norms), so its FLOPs are at least JAX's and
     within RTOL of them."""
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _JAX_CELL, str(tmp_path / "j.json"), ARCH,
-         shape_name], cwd=ROOT, env=ENV, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    _wait(proc, timeout=1800)
-    want = json.load(open(tmp_path / "j.json"))
+    want = _jax_cell(tmp_path, ARCH, shape_name)
     got = runs["cells"][f"{shape_name}|False"]
     assert got["memory"]["argument_bytes"] \
         == want["memory"]["argument_bytes"]
@@ -303,3 +349,23 @@ def test_flops_per_device_against_the_jax_dry_runs_compiled_cell(
 #: how far above JAX's per-device FLOPs the port's may lie: measured
 #: 1.14 (decode), 1.21 (prefill) and 1.35 (train) times JAX's
 RTOL = 0.5
+
+
+@pytest.mark.slow
+def test_mamba2_flops_per_device_against_the_jax_dry_runs_compiled_cell(
+        runs, tmp_path):
+    """mamba2-780m's train_4k at 2 layers on 16x16: the argument bytes
+    are JAX's exactly, and with each rank computing its 3 of the 48 SSM
+    heads the FLOPs are within MAMBA_RTOL above JAX's (both compute the
+    50,280-row LM head whole: 16 ranks do not split it)."""
+    want = _jax_cell(tmp_path, MAMBA, "train_4k")
+    got = runs["mamba"]["train_4k|False"]
+    assert got["memory"]["argument_bytes"] \
+        == want["memory"]["argument_bytes"]
+    f, wf = (r["cost"]["flops_per_device"] for r in (got, want))
+    assert wf <= f <= wf * (1 + MAMBA_RTOL), (f, wf)
+
+
+#: measured 1.012 times JAX's (3.1765e13 against 3.1378e13 per device;
+#: 1.483 while the Mamba2 layers computed whole)
+MAMBA_RTOL = 0.05

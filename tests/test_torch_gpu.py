@@ -32,8 +32,9 @@ from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm.cases import (
     BWD_ENTRIES, QK_ROPE_CASES, QK_ROPE_THETA, RMSNORM_CASES, RMSNORM_DTYPES,
-    add_rmsnorm_unfused, bwd_case, bwd_max_err, gated_rmsnorm_unfused,
-    pair_case_on, qk_norm_rope_unfused, qk_rope_case_on, rmsnorm_case_on)
+    SPLIT_CASES, SPLIT_ENTRIES, add_rmsnorm_unfused, bwd_case, bwd_max_err,
+    gated_rmsnorm_unfused, pair_case_on, qk_norm_rope_unfused,
+    qk_rope_case_on, rmsnorm_case_on, split_case_on, split_check)
 from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
                                              gated_rmsnorm_ref,
                                              qk_norm_rope_ref, rmsnorm_ref)
@@ -611,6 +612,78 @@ def test_fused_row_kernels_take_no_rows():
     assert t_rms_ops.gated_rmsnorm(x, x, w, 1e-6).shape == (0, 64)
     assert [f.launches for f in fns] == before
 
+
+
+# --- the split gated norm (Mamba2 under tensor parallelism) -----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+@pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
+def test_split_gated_norm_kernels_vs_plain_and_the_whole_row_on_card(
+        case, dtypes):
+    """Each rank's ``gated_rmsnorm_sumsq`` / ``_scale`` / ``_dot`` /
+    ``_scale_bwd`` against its plain version (given the kernels' sums
+    over the ranks, in rank order), and the ranks' outputs side by side
+    against the whole-row ``gated_rmsnorm_fwd`` / ``_bwd``
+    (``cases.py::split_check``'s bounds: f32 1e-6 of max(1, max|ref|),
+    bf16 one ulp for the output and four for dy and dz, dw one ulp plus
+    its sum's f32 floor); one launch per entry and rank."""
+    _cuda_or_skip()
+    fns = [getattr(t_rms_kernel, e) for e in SPLIT_ENTRIES]
+    before = [f.launches for f in fns]
+    errs = split_check("cuda", *dtypes, case)
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in errs.items() if not v[1]}
+    assert not bad, bad
+    assert [f.launches - b for f, b in zip(fns, before)] == [case[2]] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_gated_norm_op_carries_its_gradient_on_card(dtype):
+    """``ops.gated_rmsnorm_split`` on CUDA inputs that require grad, one
+    rank's whole row (``reduce`` the identity): its Function launches
+    the two forward entries once and, in the backward, the two backward
+    ones once; output and gradients equal autograd of the plain whole
+    row within TOL."""
+    _cuda_or_skip()
+    (y, z, dout, w), _ = split_case_on("cuda", dtype, dtype, (6, 3, 256), 1)
+    fns = [getattr(t_rms_kernel, e) for e in SPLIT_ENTRIES]
+    before = [f.launches for f in fns]
+    leaves = [t.clone().requires_grad_(True) for t in (y, z, w)]
+    out = t_rms_ops.gated_rmsnorm_split(*leaves, 256, lambda t: t, 1e-6)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    ref_leaves = [t.clone().requires_grad_(True) for t in (y, z, w)]
+    ref = gated_rmsnorm_ref(*ref_leaves, 1e-6)
+    ref.backward(dout)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for a, b in zip(leaves, ref_leaves):
+        scale = max(1.0, float(b.grad.float().abs().max()))
+        torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                   atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_split_gated_norm_entries_refuse_a_short_width_and_take_no_rows():
+    """``d_total`` below the local width raises; rows == 0 launch
+    nothing."""
+    _cuda_or_skip()
+    x = torch.zeros(0, 64, device="cuda")
+    w = torch.ones(64, device="cuda")
+    fns = [getattr(t_rms_kernel, e) for e in SPLIT_ENTRIES]
+    before = [f.launches for f in fns]
+    ss = t_rms_kernel.gated_rmsnorm_sumsq(x, x)
+    assert ss.shape == (0,) and ss.dtype == torch.float32
+    assert t_rms_kernel.gated_rmsnorm_scale(x, x, w, ss, d_total=128,
+                                            eps=1e-6).shape == (0, 64)
+    assert [f.launches for f in fns] == before
+    y = torch.ones(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="d_total"):
+        t_rms_kernel.gated_rmsnorm_scale(
+            y, y, w, torch.ones(2, device="cuda"), d_total=32, eps=1e-6)
 
 
 # --- the backward kernels (the training slice) ------------------------------

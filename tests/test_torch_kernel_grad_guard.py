@@ -1,5 +1,6 @@
 """A bare launcher records nothing for autograd, so each of the eight
-forward launchers (and the four RMSNorm backward launchers) refuses an
+forward launchers (and the four RMSNorm backward launchers, and the four
+of the gated norm split over ranks) refuses an
 input that requires grad while grad is enabled, before it looks at the
 device (so these run on the CPU).  Without grad the same call goes on to
 the launcher's own checks, which refuse a CPU tensor.
@@ -8,7 +9,8 @@ The RMSNorm ops are ``torch.autograd.Function``s on the card (the forward
 kernel, then the backward kernel): they accept inputs that require grad
 and return a ``grad_fn``.  On the CPU the ops trace the plain version;
 a Function's own forward runs with grad off, so its launcher's guard lets
-it through to the device check."""
+it through to the device check.  The split gated norm's op takes the sum
+over the ranks as a function; its Function does the same."""
 import pytest
 import torch
 
@@ -19,7 +21,11 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_bwd,
                                                 add_rmsnorm_fwd,
                                                 gated_rmsnorm_bwd,
+                                                gated_rmsnorm_dot,
                                                 gated_rmsnorm_fwd,
+                                                gated_rmsnorm_scale,
+                                                gated_rmsnorm_scale_bwd,
+                                                gated_rmsnorm_sumsq,
                                                 qk_norm_rope_bwd,
                                                 qk_norm_rope_fwd, rmsnorm_bwd,
                                                 rmsnorm_fwd)
@@ -87,6 +93,26 @@ def _qk_bwd():
             wk, pos, freq), kw
 
 
+def _sumsq():
+    return (torch.zeros(4, 32), torch.zeros(4, 32)), {}
+
+
+def _scale():
+    return ((torch.zeros(4, 32), torch.zeros(4, 32), torch.ones(32),
+             torch.ones(4)), dict(d_total=64, eps=1e-6))
+
+
+def _dot():
+    return ((torch.zeros(4, 32), torch.zeros(4, 32), torch.zeros(4, 32),
+             torch.ones(32)), {})
+
+
+def _scale_bwd():
+    return ((torch.zeros(4, 32), torch.zeros(4, 32), torch.zeros(4, 32),
+             torch.ones(32), torch.ones(4), torch.zeros(4)),
+            dict(d_total=64, eps=1e-6))
+
+
 #: (launcher, inputs, indices of the float inputs that may require grad)
 WRAPPERS = [
     (paged_attention_fwd, _paged, (0, 1, 2)),
@@ -101,6 +127,10 @@ WRAPPERS = [
     (add_rmsnorm_bwd, _add_bwd, (0, 1, 2, 3)),
     (gated_rmsnorm_bwd, _gated_bwd, (0, 1, 2, 3)),
     (qk_norm_rope_bwd, _qk_bwd, (0, 1, 2, 3, 4, 5, 7)),
+    (gated_rmsnorm_sumsq, _sumsq, (0, 1)),
+    (gated_rmsnorm_scale, _scale, (0, 1, 2, 3)),
+    (gated_rmsnorm_dot, _dot, (0, 1, 2, 3)),
+    (gated_rmsnorm_scale_bwd, _scale_bwd, (0, 1, 2, 3, 4, 5)),
 ]
 IDS = [w[0].__name__ for w in WRAPPERS]
 
@@ -187,3 +217,22 @@ def test_norm_ops_accept_inputs_that_require_grad(op, fn, make, grad_args):
             fn.apply(*args, 1e-6)
         with pytest.raises(RuntimeError, match="has no backward"):
             launcher(*args, **kw)
+
+
+def test_split_gated_norm_op_accepts_inputs_that_require_grad():
+    """``gated_rmsnorm_split`` on the CPU traces the plain version (the
+    gradient reaches y, z and w through ``reduce``), and its Function's
+    forward passes the launchers' grad guard and reaches the device
+    check; the bare launchers refuse the same inputs."""
+    (y, z, w), _ = _rows_pair()
+    for i in range(3):
+        args = [y.clone(), z.clone(), w.clone()]
+        args[i].requires_grad_(True)
+        out = rms_ops.gated_rmsnorm_split(*args, 64, lambda t: t * 2, 1e-6)
+        assert out.grad_fn is not None
+        out.sum().backward()
+        assert args[i].grad is not None
+        with pytest.raises(ValueError, match="CUDA"):
+            rms_ops.GatedRMSNormSplitFn.apply(*args, 1e-6, 64, lambda t: t)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        gated_rmsnorm_sumsq(y.clone().requires_grad_(True), z)

@@ -3,8 +3,9 @@ gloo ranks on a (2, 2) (data, model) mesh: the prefill of 4 rows x 8
 tokens into a 16-slot cache and 4 greedy serve steps of each attention
 family's smoke config in f32 (qwen3-0.6b, gemma2, whisper, pixtral, and
 qwen3-moe at a capacity where nothing drops, also expert-parallel), and
-of mamba2 and zamba2, whose Mamba2 states the steps gather over
-'model'; each against the
+of mamba2 and zamba2, whose Mamba2 layers compute their heads on each
+rank (``tests/test_torch_mamba_tp.py`` holds them on both meshes); each
+against the
 port's one-rank ``build_prefill_step`` / ``build_serve_step`` and the
 attention families against the JAX dry-run's steps jitted under
 ``serve_shardings`` on 4 host devices: tokens equal, the prefill's
