@@ -105,16 +105,16 @@ and any failure exits non-zero:
     mismatch, never hidden by a looser bound);
 16. the RMSNorm backward kernels vs plain: ``rmsnorm_bwd``,
     ``add_rmsnorm_bwd``, ``gated_rmsnorm_bwd`` (on every case of
-    RMSNORM_CASES) and ``qk_norm_rope_bwd`` (on every case of
-    QK_ROPE_CASES), in the four (x, w) dtype pairs, against their plain
+    RMSNORM_BWD_CASES) and ``qk_norm_rope_bwd`` (on every case of
+    QK_ROPE_BWD_CASES), in the four (x, w) dtype pairs, against their plain
     formulas and against torch.autograd of the plain forwards (TOL by x's
     dtype, a weight gradient by the looser of x's and w's, relative to
     its largest value);
     each call repeated on the same inputs must give the same bits (dw's
     partial rows summed in a fixed order).  Then each timed at the train
-    step's launch beside its bound and its plain formula and, for
-    ``rmsnorm_bwd``, the backward of ``torch.nn.functional.rms_norm``
-    under autograd;
+    step's launch (the row kernel and dw's sum also apart) beside its
+    bound and its plain formula and, for ``rmsnorm_bwd``, the backward of
+    ``torch.nn.functional.rms_norm`` under autograd;
 17. the training main path: ``repro_torch.launch.train.main`` trains the
     full-width, full-depth qwen3-0.6b (bf16 params, fp32 Adam moments,
     random weights from a seed) for 20 steps of 8 x 1024 tokens of the
@@ -276,11 +276,13 @@ JSON status line.
 
     python3 chip_smoke.py --kernel-times [SRC]
 
-builds the kernels and runs the timing of phases 2, 5, 8 and 12 alone
-(the paged kernel at G = 2 and 8, flash and dense decode at every served
-shape, the SSD scan at both SSM launches and one model rank's of each,
-the RMSNorm kernels and the unfused sequences at the paths' shapes, the
-split gated norm's entries), with the ``repro_torch``
+builds the kernels and runs the timing of phases 2, 5, 8, 12 and 16
+alone (the paged kernel at G = 2 and 8, flash and dense decode at every
+served shape, the SSD scan at both SSM launches and one model rank's of
+each, the RMSNorm kernels and the unfused sequences at the paths'
+shapes, the split gated norm's entries, the backward kernels at the
+train step's launches, row kernel and dw sum apart), with the
+``repro_torch``
 package of the checkout whose ``src`` directory is SRC (another commit
 unpacked with ``git archive``, say), so that two versions of the kernels
 are timed on one card in one call.
@@ -297,6 +299,18 @@ builds the kernels and runs phases 31 and 32 alone.
 
 builds the kernels and runs the split gated norm's part of phase 12,
 phase 8 and phase 33 alone.
+
+    python3 chip_smoke.py --norm-bwd
+
+builds the kernels and runs phase 16 (the backward kernels on every case
+and at the train step's launches) and the split gated norm's part of
+phase 12 alone.
+
+    python3 chip_smoke.py --train-profile [SRC]
+
+builds the kernels and runs phase 17's qwen3-0.6b training (20 steps of
+8 x 1024) and its step profile alone, with the package of SRC as
+``--kernel-times`` takes it.
 
     python3 chip_smoke.py --prefill-profiles [SRC]
 
@@ -543,17 +557,19 @@ def _queued_ms(fn, iters: int) -> float:
                          f"sleep of {cycles // 4} cycles held the stream")
 
 
-def _device_ms(fn, iters: int, kernel: str = "") -> float:
+def _device_ms(fn, iters: int, kernel: str = "", per_call: int = 0
+               ) -> float:
     """Device time per call: the summed times of the kernels that
     ``iters`` calls of ``fn`` launch (``torch.profiler``; one stream, so
     they do not overlap), over ``iters``.  With ``kernel``, the mean time
-    of the kernels whose name holds it (one per call; the profiler may
-    drop events, so at least nine tenths of them must be seen, and a
-    window that drops more is profiled again, up to three times; after a
-    third such window the calls are timed by ``_queued_ms`` instead, which
-    also counts any other kernel of a call and the device's gaps between
-    launches).  Unlike ``_cuda_ms`` it leaves out the gaps while the host
-    issues the next call."""
+    of the kernels whose name holds it (one per call); with ``per_call``,
+    the calls' kernels counted (that many a call).  The profiler may drop
+    events, so with either at least nine tenths of the kernels must be
+    seen, and a window that drops more is profiled again, up to three
+    times; after a third such window the calls are timed by
+    ``_queued_ms`` instead, which also counts any other kernel of a call
+    and the device's gaps between launches.  Unlike ``_cuda_ms`` it
+    leaves out the gaps while the host issues the next call."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
@@ -567,9 +583,11 @@ def _device_ms(fn, iters: int, kernel: str = "") -> float:
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and kernel in e.name]
-        if kernels and (not kernel or 0.9 * iters <= len(kernels) <= iters):
+        want = iters * (per_call or 1) if kernel or per_call else 0
+        if kernels and (not want or 0.9 * want <= len(kernels) <= want):
             total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-            return total / (len(kernels) if kernel else iters)
+            return total / (len(kernels) / (per_call or 1) if want
+                            else iters)
         print(f"the profiler saw {len(kernels)} device events named "
               f"{kernel!r} for {iters} calls")
     ms = _queued_ms(fn, iters)
@@ -579,10 +597,51 @@ def _device_ms(fn, iters: int, kernel: str = "") -> float:
     return ms
 
 
-def timed(fn, iters: int, kernel: str = "") -> dict:
-    """{"ms": device time per call (of ``kernel`` alone, if named),
+def _ms_by_kernel(fn, iters: int) -> dict:
+    """(summed device ms, launches seen) of each kernel that ``iters``
+    calls of ``fn`` launch, by the kernel's name (``torch.profiler``, one
+    window; it may drop events)."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return out
+
+
+def bwd_launches(fn, iters: int) -> str:
+    """A backward's two launches apart: the row kernel's and dw's
+    fixed-order sum's (``sum_partials_kernel``) device times per call,
+    each the mean over the launches the profiler saw (their count
+    printed)."""
+    by_name = _ms_by_kernel(fn, iters)
+    if not by_name:
+        return "the profiler saw no device time"
+    sums = {True: [0.0, 0], False: [0.0, 0]}
+    for name, (ms, n) in by_name.items():
+        sums["sum_partials" in name][0] += ms
+        sums["sum_partials" in name][1] += n
+    (dw, n_dw), (row, n_row) = sums[True], sums[False]
+    row, dw = row / max(n_row, 1), dw / max(n_dw, 1)
+    return (f"row kernel {row * 1e3:.2f} us + dw sum {dw * 1e3:.2f} us "
+            f"({dw / (row + dw):.3f} of the two; {n_row} and {n_dw} "
+            f"launches seen of {iters})")
+
+
+def timed(fn, iters: int, kernel: str = "", per_call: int = 0) -> dict:
+    """{"ms": device time per call (of ``kernel`` alone, if named;
+    ``per_call``: the kernels a call launches, checked),
     "call_ms": event time per call}."""
-    return {"ms": _device_ms(fn, iters, kernel),
+    return {"ms": _device_ms(fn, iters, kernel, per_call),
             "call_ms": _cuda_ms(fn, iters)}
 
 
@@ -2094,7 +2153,9 @@ def time_split_norm(label: str, C) -> dict:
         name_of = {"gated_rmsnorm_sumsq": "norm_kernel",
                    "gated_rmsnorm_scale": "norm_kernel",
                    "gated_rmsnorm_dot": "gated_dot_kernel"}.get(entry, "")
-        ker = timed(kfn, 100, name_of)
+        ker = timed(kfn, 100, name_of, 0 if name_of else 2)
+        split = ("" if name_of else
+                 f" ({bwd_launches(kfn, 100)})")
         plain = timed(pfn, 25)
         y, z, dout, w, ss, dot = ins[0]
         rows, d = y.shape
@@ -2111,7 +2172,8 @@ def time_split_norm(label: str, C) -> dict:
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=None)
         print(f"{label} {entry} {name} {dt} (one of {M} ranks: {rows} rows "
-              f"x {d} of {D} columns): device time kernel {_us(ker)}, plain "
+              f"x {d} of {D} columns): device time kernel {_us(ker)}"
+              f"{split}, plain "
               f"{_us(plain)}; bound {bound_ms * 1e3:.4f} us ({bound_by}: "
               f"{nbytes / 1e6:.3f} MB), {bound_ms / ker['ms']:.3f} of it "
               f"reached; library: none (no single PyTorch call computes "
@@ -2246,7 +2308,9 @@ def phase_rmsnorm_bwd_vs_plain() -> dict:
     """The four RMSNorm backward kernels on the card against their plain
     formulas and against torch.autograd of the plain forwards, on every
     case of ``kernels/rmsnorm/cases.py`` (the row kernels on
-    RMSNORM_CASES, the qk-norm-RoPE one on QK_ROPE_CASES) in the four
+    RMSNORM_BWD_CASES, the qk-norm-RoPE one on QK_ROPE_BWD_CASES: the
+    forward's cases and train-size ones that walk the launch plan's
+    loops) in the four
     (x, w) dtype pairs (TOL by x's dtype, a weight gradient by the looser
     of x's and w's, relative to its largest value: a bf16 x rounds the
     terms its sum adds); each call made twice on the same
@@ -2258,8 +2322,8 @@ def phase_rmsnorm_bwd_vs_plain() -> dict:
     cases = {e: 0 for e in C.BWD_ENTRIES}
     differ = {e: 0 for e in C.BWD_ENTRIES}
     for entry in C.BWD_ENTRIES:
-        case_list = (C.QK_ROPE_CASES if entry == "qk_norm_rope_bwd"
-                     else C.RMSNORM_CASES)
+        case_list = (C.QK_ROPE_BWD_CASES if entry == "qk_norm_rope_bwd"
+                     else C.RMSNORM_BWD_CASES)
         for seed, case in enumerate(case_list):
             for xdt, wdt in C.RMSNORM_DTYPES:
                 kernel, plain, auto = C.bwd_case(entry, DEVICE, xdt, wdt,
@@ -2316,7 +2380,8 @@ def time_norm_bwd_kernels(label: str, C) -> dict:
             else:
                 def call(i):
                     return fn(*ins[i % 4], eps=1e-6)
-            ker = timed(call, 40)
+            ker = timed(call, 40, per_call=2)  # the row kernel, dw's sum
+            split = bwd_launches(call, 40)
             plain = timed(lambda i: bwd_plain(entry, ins[i % 4], theta),
                           10)
             lib = None
@@ -2344,8 +2409,7 @@ def time_norm_bwd_kernels(label: str, C) -> dict:
             shapes = tuple(tuple(t.shape) for t in ins[0]
                            if t is not None and t.dim() > 1)
             print(f"{label} {entry} {name} bf16 {shapes}: device time "
-                  f"kernel {_us(ker)} (the row kernel and the sum of dw's "
-                  f"partial rows), plain {_us(plain)}"
+                  f"kernel {_us(ker)} ({split}), plain {_us(plain)}"
                   + (f", F.rms_norm's backward under autograd {_us(lib)}"
                      if lib else ", library: none (no single PyTorch call)")
                   + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: "
@@ -2473,6 +2537,8 @@ def train_step_profile(out, label: str, step_s: float,
     norm = sum(t for n, t in by_name.items()
                if "norm_kernel" in n or "norm_bwd_kernel" in n
                or "sum_partials_kernel" in n or "qk_norm_rope" in n)
+    norm_bwd = sum(t for n, t in by_name.items()
+                   if "bwd_kernel" in n or "sum_partials_kernel" in n)
     nccl = sum(t for n, t in by_name.items() if "nccl" in n.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"{label}: {1e3 * step_s:.1f} ms per step (host clock; "
@@ -2481,7 +2547,9 @@ def train_step_profile(out, label: str, step_s: float,
           f"{max(0.0, 1 - busy / (1e3 * step_s)):.3f} of an unprofiled "
           f"step, {1 - busy / (1e3 * wall):.3f} of the profiled one; "
           f"RMSNorm kernels "
-          f"{norm:.2f} ms, {norm / busy:.4f} of busy; NCCL kernels "
+          f"{norm:.2f} ms, {norm / busy:.4f} of busy (the backward "
+          f"kernels and dw sums {norm_bwd:.2f} ms, {norm_bwd / busy:.4f} "
+          f"of busy); NCCL kernels "
           f"{nccl:.3f} ms, {nccl / busy:.4f} of busy; top device ops ms: "
           + "; ".join(f"{n[:90]} {t:.2f}" for n, t in top))
     del state
@@ -4788,8 +4856,9 @@ def kernel_times(src: str) -> None:
     """``--kernel-times [SRC]``: build the kernels and time the paged
     kernel at both paged paths' launches (phase 2's timing), both dense
     attention kernels at every served launch shape (phase 5's), the SSD
-    kernel at both SSM paths' launches (phase 8's) and the RMSNorm kernels
-    and unfused sequences at the paths' shapes (phase 12's), taking the
+    kernel at both SSM paths' launches (phase 8's), the RMSNorm kernels
+    and unfused sequences at the paths' shapes (phase 12's) and the
+    backward kernels at the train step's launches (phase 16's), taking the
     ``repro_torch`` package from the ``src`` directory SRC of another
     checkout (default: this one), so that two versions are timed on one
     card in one call; prints no JSON."""
@@ -4806,6 +4875,7 @@ def kernel_times(src: str) -> None:
         time_ssd(name)
     time_norm_kernels("kernel times", norm_cases())
     time_split_norm("kernel times", norm_cases())
+    time_norm_bwd_kernels("kernel times", norm_cases())
     print(card)
 
 
@@ -4870,6 +4940,46 @@ def mamba_tp_phases() -> None:
     print(card_line())
 
 
+def train_profile(src: str) -> None:
+    """``--train-profile [SRC]``: build the kernels and run phase 17's
+    qwen3-0.6b training main path and its step profile alone, with the
+    ``repro_torch`` package of the ``src`` directory SRC of another
+    checkout (default: this one), so that two versions' train steps are
+    profiled on one card in one call; prints no JSON."""
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    card = phase_device_and_build()
+    import repro_torch
+    from repro_torch.configs import get_config
+    print(f"train profile of {Path(repro_torch.__file__).parent}")
+    ckpt = ROOT / "build" / "train_profile_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out, counts = train_counted(TRAIN_ARGV + ["--ckpt-dir", str(ckpt)])
+    check_train_run("train profile", out, counts, get_config("qwen3-0.6b"),
+                    TRAIN_STEPS)
+    steady = sorted(out["step_s"][2:])[len(out["step_s"][2:]) // 2]
+    print(f"train profile qwen3-0.6b: {TRAIN_STEPS} steps of 8 x 1024 "
+          f"tokens, losses {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f}, median step (from step 2) "
+          f"{steady:.3f} s, {out['tokens_per_step'] / steady:.0f} tokens/s")
+    train_step_profile(out, "train profile qwen3-0.6b step", steady)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(card)
+
+
+def norm_bwd_phases() -> None:
+    """``--norm-bwd``: build the kernels and run phase 16 and the split
+    gated norm's part of phase 12 alone (every backward kernel); prints
+    no JSON."""
+    phase_device_and_build()
+    t0 = time.perf_counter()
+    phase_rmsnorm_bwd_vs_plain()
+    phase_split_norm_vs_plain()
+    print(f"phases 16 and 12 (split norm) seconds: "
+          f"{time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 def tp_phases() -> None:
     """``--tp``: build the kernels and run phases 29 and 30 alone (two
     ranks on one card, training and serving); prints no JSON."""
@@ -4886,6 +4996,10 @@ if __name__ == "__main__":
         tp_phases()
     elif sys.argv[1:2] == ["--mamba-tp"]:
         mamba_tp_phases()
+    elif sys.argv[1:2] == ["--norm-bwd"]:
+        norm_bwd_phases()
+    elif sys.argv[1:2] == ["--train-profile"]:
+        train_profile(sys.argv[2] if len(sys.argv) > 2 else "")
     elif sys.argv[1:2] == ["--seq-split"]:
         seq_split_phases()
     elif sys.argv[1:2] == ["--kernel-times"]:

@@ -4,6 +4,8 @@ tests (``tests/test_torch_gpu.py``), whose CPU counterparts feed the same
 numpy inputs to the JAX package."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -67,18 +69,23 @@ def rmsnorm_case(shape, layout="dense", seed=0):
     return x, w
 
 
+#: the draws of the last few cases, which the card checks take in each of
+#: their four dtype pairs (read only: every tensor made of them is a copy)
+_rmsnorm_draws = functools.lru_cache(maxsize=4)(rmsnorm_case)
+
+
 def rmsnorm_case_on(device, x_dtype, w_dtype, shape, layout="dense",
                     seed=0):
     """``rmsnorm_case`` on ``device``: x in ``x_dtype`` as the case's view
     (of shape ``shape``), w in ``w_dtype``."""
-    x, w = rmsnorm_case(shape, layout, seed)
-    xt = torch.from_numpy(x).to(device, x_dtype)
+    x, w = _rmsnorm_draws(tuple(shape), layout, seed)
+    xt = torch.from_numpy(x).to(device, x_dtype, copy=True)
     if layout == "last-token":
         xt = xt[:, -1:]
     elif layout != "dense":
         xt = xt[..., :shape[-1]]
     assert tuple(xt.shape) == tuple(shape)
-    return xt, torch.from_numpy(w).to(device, w_dtype)
+    return xt, torch.from_numpy(w).to(device, w_dtype, copy=True)
 
 
 def pair_case_on(device, x_dtype, w_dtype, shape, layout="dense", seed=0):
@@ -140,15 +147,18 @@ def qk_rope_case(dims, positions, norm, seed=0):
     return q, k, wq, wk, pos
 
 
+_qk_rope_draws = functools.lru_cache(maxsize=4)(qk_rope_case)
+
+
 def qk_rope_case_on(device, x_dtype, w_dtype, dims, positions, norm,
                     layout="dense", seed=0):
     """``qk_rope_case`` as tensors on ``device``: q and k in ``x_dtype``
     (for "fused-qkv", head views of one [B, S, (Hq + 2 Hkv) * D]
     projection), the weights in ``w_dtype``."""
     B, S, Hq, Hkv, D = dims
-    q, k, wq, wk, pos = qk_rope_case(dims, positions, norm, seed)
-    qt = torch.from_numpy(q).to(device, x_dtype)
-    kt = torch.from_numpy(k).to(device, x_dtype)
+    q, k, wq, wk, pos = _qk_rope_draws(tuple(dims), positions, norm, seed)
+    qt = torch.from_numpy(q).to(device, x_dtype, copy=True)
+    kt = torch.from_numpy(k).to(device, x_dtype, copy=True)
     if layout == "fused-qkv":
         qkv = torch.zeros((B, S, (Hq + 2 * Hkv) * D), dtype=x_dtype,
                           device=device)
@@ -156,9 +166,10 @@ def qk_rope_case_on(device, x_dtype, w_dtype, dims, positions, norm,
         qkv[..., Hq * D:(Hq + Hkv) * D] = kt.flatten(2)
         qt = qkv[..., :Hq * D].unflatten(-1, (Hq, D))
         kt = qkv[..., Hq * D:(Hq + Hkv) * D].unflatten(-1, (Hkv, D))
-    ws = [None if a is None else torch.from_numpy(a).to(device, w_dtype)
+    ws = [None if a is None else torch.from_numpy(a).to(device, w_dtype,
+                                                         copy=True)
           for a in (wq, wk)]
-    return qt, kt, ws[0], ws[1], torch.from_numpy(pos).to(device)
+    return qt, kt, ws[0], ws[1], torch.from_numpy(pos).to(device, copy=True)
 
 
 #: the fused kernels at the paths' launches that ``chip_smoke.py`` times, by
@@ -228,6 +239,24 @@ def qk_norm_rope_unfused(q, k, wq, wk, positions, theta, eps=1e-6):
 # tests.  The forward's inputs are read in the case's layout; the
 # incoming gradients are dense, as autograd hands them over.
 
+#: the backward kernels' cases: every forward case, and on the card only
+#: (``chip_smoke.py`` phase 16 and the card tests; the CPU tests hold the
+#: plain formulas on the forward cases) shapes that walk the launch plan's
+#: loops (``kernel.py::row_plan``, ``rope_plan``): qwen3-0.6b's train
+#: launch [8192, 1024] (bf16: 64 threads a row, 528 blocks of 2 slots,
+#: ~8 rows a slot), 4,096 rows of 128 (bf16: 8 threads a row, 16 slots a
+#: block, 256 blocks), rows of 16,400 (past the register plan in both
+#: dtypes: the chunked walk), and qk_norm_rope_bwd at qwen3-0.6b's train
+#: launch (8,192 tokens over 396 blocks of 4 warps, 4 heads a warp at
+#: once)
+RMSNORM_BWD_CASES = RMSNORM_CASES + [
+    ("d1024-rows8192-train", (8192, 1024), "dense"),
+    ("d128-rows4096-warp", (4096, 128), "dense"),
+    ("d16400-chunked", (64, 16400), "dense"),
+]
+QK_ROPE_BWD_CASES = QK_ROPE_CASES + [
+    ("qwen3-train", (8, 1024, 16, 8, 128), "seq", True, "dense"),
+]
 #: the backward kernels, in ``chip_smoke.py``'s order
 BWD_ENTRIES = ("rmsnorm_bwd", "add_rmsnorm_bwd", "gated_rmsnorm_bwd",
                "qk_norm_rope_bwd")
@@ -239,10 +268,15 @@ BWD_OUTPUTS = {"rmsnorm_bwd": ("dx", "dw"),
                "qk_norm_rope_bwd": ("dq", "dk", "dwq", "dwk")}
 
 
-def _grad_like(t, seed):
+@functools.lru_cache(maxsize=4)
+def _grad_draws(shape, seed):
     r = np.random.default_rng(seed)
-    return torch.from_numpy(r.normal(0, 1, tuple(t.shape)).astype(
-        np.float32)).to(t.device, t.dtype)
+    return r.normal(0, 1, shape).astype(np.float32)
+
+
+def _grad_like(t, seed):
+    return torch.from_numpy(_grad_draws(tuple(t.shape), seed)).to(
+        t.device, t.dtype, copy=True)
 
 
 def _autograd(fn, args, cots):
@@ -260,7 +294,8 @@ def bwd_case(entry, device, x_dtype, w_dtype, case, seed=0):
     zero-argument callables each giving the backward's outputs in
     ``BWD_OUTPUTS[entry]``'s order (None for a weight gradient RoPE alone
     does not have), in the forward inputs' shapes.  ``case`` is an entry
-    of RMSNORM_CASES (the three row kernels) or of QK_ROPE_CASES."""
+    of RMSNORM_BWD_CASES (the three row kernels) or of
+    QK_ROPE_BWD_CASES."""
     from repro_torch.kernels.rmsnorm import kernel as K
     from repro_torch.kernels.rmsnorm import ref as R
     from repro_torch.kernels.rmsnorm.ops import inv_freq, row_view

@@ -79,6 +79,7 @@
 // ``vectorized``).  Rows are read through their row stride; every output
 // is contiguous.
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -424,7 +425,8 @@ cudaError_t launch_rope(const RopeArgs& a, cudaStream_t stream) {
 // add and in the gate, the normed q and k before RoPE), it is rounded to
 // T at the same point (round_to), so a fused backward computes what
 // autograd of the unfused ops computes, up to fp32 sums taken in another
-// order.
+// order.  Silu and RoPE stay full precision (expf, __fdiv_rn, cosf and
+// sinf of __fmul_rn(p, inv_freq[i]), as the forward computes them).
 //
 // The split gated norm's backward takes the whole rows' sums from the
 // caller: S (the forward's summed sum of squares) and P = sum(g * v) over
@@ -433,23 +435,160 @@ cudaError_t launch_rope(const RopeArgs& a, cudaStream_t stream) {
 // the gated row kernel with rstd = rsqrt(S / D + eps) and c = rstd^2 * P
 // / D, dw of this rank's columns of w.
 //
-// dw is deterministic, with no atomics: block b walks rows b * R + s,
-// (b + nb) * R + s, ... (R row slots per block, s its slot: a warp per
-// row up to d 512, a block above, as in the forward), each slot summing
-// its rows' dy * xhat into its own fp32 row of shared memory; the block
-// then sums its R rows in order into partial[b, :], and a second launch
-// (sum_partials_kernel) sums partial[0 .. nb) in order, a thread per
-// column.  nb comes from the launcher (kernel.py ``partials``: the row
-// count alone decides it).  Two calls on the same inputs give the same
-// bits.
-//
 // Bound: memory.  A call must read dy, the forward's inputs and w once,
-// and write the input gradients and dw once.  This first version reads a
-// row's inputs twice (the sums, then the write-out, the second pass from
-// L1/L2) and one element per load; speed is later work.
+// and write the input gradients and dw once: rmsnorm_bwd at qwen3-0.6b's
+// train launch ([8192, 1024] bf16) moves 50 MB, 15 us at 3.35 TB/s, and
+// does ~10 fp32 operations an element (RoPE's backward ~18, the gate's
+// ~22), far below the card's rate.  So the design keeps bytes in flight:
+// every value is loaded once, 16 bytes a load where the layout allows.
+//
+// The row kernel (norm_bwd_kernel; its plan, row_plan, is a function of
+// rows, d and T alone, mirrored by kernel.py ``row_plan``):
+// * A row's values are grouped as the forward groups them (kVec: 16 bytes
+//   of T where d is a multiple of it, else 1; ``vec`` only picks whether a
+//   group is one 16-byte load), and thread t of the row's R threads owns
+//   groups t, t + R, ..., at most kBwdGroups of them (16 values of a bf16
+//   row): R is the least power of two that allows it, 64 threads at
+//   qwen3's d 1,024 in bf16, 256 at mamba2's d_inner 3,072, 512 at
+//   pixtral's 5,120.  The thread loads its columns of w once, and of each
+//   row dy and the forward's input(s), and keeps them in registers from
+//   the two sums to the write-out; the gate (T(silu(z)), silu'(z)) is
+//   computed once per element.  Two groups a thread, not four: with four
+//   (a warp a row at d 1,024) the kernels took 166-254 registers, two
+//   blocks an SM, and the gated one stalled on its expf and divides (PR
+//   25's measurements, PERF.md).
+// * With 16-byte loads a row's inputs come through a two-stage ring in
+//   shared memory: each thread starts the cp.async copies of its groups
+//   of its slot's next row before it computes this one, so the loads of
+//   one row overlap the arithmetic of the last (rmsnorm_bwd at qwen3's
+//   train launch 29.5 -> 24.9 us, the gated one 51.7 -> 48.1 us; PR 25's
+//   measurements, PERF.md).
+// * The two sums: each thread's groups in order (fmaf), a butterfly of
+//   shuffles over the row's lanes (every lane ends with the same bits),
+//   and for R > 32 the row's warps in order through shared memory, one
+//   barrier a row (a double buffer).
+// * A block of max(R, 128) threads holds 128 / R row slots (R < 32: rows
+//   share a warp).  The grid is at most kBwdPartials blocks (four of 128
+//   threads per SM of the H100); block b's slot s takes rows (b + k *
+//   blocks) * slots + s, k = 0, 1, ...
+// * dw stays in registers: each thread sums dy * v * rstd of its own
+//   columns over its rows; the block adds its slots in slot order into
+//   one fp32 partial row, and sum_partials_kernel adds the blocks'
+//   partial rows, 32 columns a block: warp k adds rows k, k + 32, ... in
+//   order, then warp 0 the 32 warps' sums in order.  No atomics: the
+//   order is fixed by the plan, and two calls on the same inputs give
+//   the same bits.
+// * A row wider than 512 threads' registers hold (d > 8,192 in bf16,
+//   > 4,096 in f32, > 1,024 without the vector) is walked in chunks of
+//   512 * kBwdGroups groups, read twice (the second pass from L2), and
+//   its dw summed in the block's partial row in place, each column by the
+//   one thread that owns it.
+//
+// qk_norm_rope_bwd_kernel (plan rope_plan, kernel.py ``rope_plan``): a
+// warp takes one token at a time and computes its D / 2 (cos, sin) pairs
+// once, into shared memory, for all of its Hq + Hkv heads.  A head is L
+// lanes' work (L the least power of two that gives a lane at most
+// kRopeBwdPairs pairs (i, i + D / 2), 8 lanes at D 128 in bf16), so a
+// warp takes 32 / L heads at once; each lane holds its pairs' dout, x,
+// wq and wk in registers and its dwq and dwk sums over every head and
+// token it walks.  The dw rows are summed across the warp's head groups
+// by a butterfly, across the block's warps in warp order, and across the
+// blocks (at most kRopeBwdPartials: three of 128 threads per SM, as its
+// ~168 registers allow) by sum_partials_kernel.
+
+constexpr int kBwdGroups = 2;           // kernel.py BWD_GROUPS
+constexpr int kBwdMaxRowThreads = 512;  // kernel.py BWD_MAX_ROW_THREADS
+constexpr int kBwdBlockThreads = 128;   // kernel.py BWD_BLOCK_THREADS
+constexpr int kBwdPartials = 528;       // kernel.py BWD_PARTIALS
+constexpr int kRopeBwdPairs = 8;        // kernel.py ROPE_BWD_PAIRS
+constexpr int kRopeBwdWarps = 4;        // kernel.py ROPE_BWD_WARPS
+constexpr int kRopeBwdPartials = 396;   // kernel.py ROPE_BWD_PARTIALS
+constexpr int kSumWarps = 32;           // sum_partials_kernel's row split
+
+// the least l with 2^l >= n
+inline int log2_ceil(long long n) {
+  int l = 0;
+  while ((1LL << l) < n) ++l;
+  return l;
+}
+
+inline int clamp_blocks(long long need, int cap) {
+  return (int)(need < 1 ? 1 : need < cap ? need : cap);
+}
+
+struct RowPlan {
+  int vec;     // values of a group
+  int log_r;   // threads of a row: R = 1 << log_r
+  int threads, slots, blocks;
+  bool stream;  // chunks: the row is wider than R * kBwdGroups groups
+};
+
+// kernel.py row_plan mirrors it
+inline RowPlan row_plan(int rows, int d, int itemsize) {
+  RowPlan p;
+  const int kv = 16 / itemsize;
+  p.vec = d % kv == 0 ? kv : 1;
+  const int per = (d / p.vec + kBwdGroups - 1) / kBwdGroups;
+  p.stream = per > kBwdMaxRowThreads;
+  p.log_r = log2_ceil(p.stream ? kBwdMaxRowThreads : per);
+  const int r = 1 << p.log_r;
+  p.threads = r > kBwdBlockThreads ? r : kBwdBlockThreads;
+  p.slots = p.threads / r;
+  p.blocks = clamp_blocks(((long long)rows + p.slots - 1) / p.slots,
+                          kBwdPartials);
+  return p;
+}
+
+struct RopePlan {
+  int vec;     // pairs of a group
+  int log_l;   // lanes of a head: L = 1 << log_l
+  int blocks;  // of kRopeBwdWarps warps, a token each at a time
+};
+
+// kernel.py rope_plan mirrors it
+inline RopePlan rope_plan(long long tokens, int D, int itemsize) {
+  RopePlan p;
+  const int kv = 16 / itemsize, half = D / 2;
+  p.vec = half % kv == 0 ? kv : 1;
+  const int per_lane = kRopeBwdPairs / p.vec;  // groups a lane holds
+  p.log_l = log2_ceil((half / p.vec + per_lane - 1) / per_lane);
+  p.blocks = clamp_blocks((tokens + kRopeBwdWarps - 1) / kRopeBwdWarps,
+                          kRopeBwdPartials);
+  return p;
+}
+
+// kVec values of T at p as they lie in memory: one 16-byte load when
+// kVecLoad, else kVec loads of one element
+template <int kVec, bool kVecLoad, typename T>
+__device__ __forceinline__ void load_raw(const T* p, Vec<T, kVec>& v) {
+  if constexpr (kVecLoad) {
+    v = *reinterpret_cast<const Vec<T, kVec>*>(p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v.v[k] = p[k];
+  }
+}
+
+// kVec values of w at element e as floats; w is float or, with w_bf16,
+// bfloat16 (a runtime choice: one instantiation serves both)
+template <int kVec, bool kVecLoad>
+__device__ __forceinline__ void load_w(const void* w, bool w_bf16, int e,
+                                       float (&v)[kVec]) {
+  if (w_bf16) {
+    Vec<__nv_bfloat16, kVec> r;
+    load_raw<kVec, kVecLoad>(static_cast<const __nv_bfloat16*>(w) + e, r);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = attn::to_f32(r.v[k]);
+  } else {
+    Vec<float, kVec> r;
+    load_raw<kVec, kVecLoad>(static_cast<const float*>(w) + e, r);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = r.v[k];
+  }
+}
 
 // the sums of a and of b over the row's kRowThreads threads (a warp, or
-// the whole block)
+// the whole block; gated_dot_kernel's reduction)
 template <int kRowThreads>
 __device__ __forceinline__ float2 row_sum2(float a, float b) {
   constexpr int kWarps = kRowThreads / 32;
@@ -479,6 +618,28 @@ __device__ __forceinline__ float2 row_sum2(float a, float b) {
   return make_float2(a, b);
 }
 
+// the sums of a and of b over a row of R threads (a power of two): a
+// butterfly of shuffles inside the warp, then, for R > 32, the row's
+// warps in order through buf (this row's half of a double buffer; every
+// thread of the block calls it, the same number of times)
+__device__ __forceinline__ float2 row_sums(float a, float b, int R,
+                                           float2* buf) {
+  for (int o = (R < 32 ? R : 32) >> 1; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (R <= 32) return make_float2(a, b);
+  const int warp = threadIdx.x >> 5, nw = R >> 5, first = warp & ~(nw - 1);
+  if ((threadIdx.x & 31) == 0) buf[warp] = make_float2(a, b);
+  __syncthreads();
+  float2 s = buf[first];
+  for (int k = 1; k < nw; ++k) {
+    s.x += buf[first + k].x;
+    s.y += buf[first + k].y;
+  }
+  return s;
+}
+
 // Mamba2's gate at one element as GatedRow computes it: (T(silu(z)),
 // 1 + exp(-z))
 template <typename T>
@@ -503,82 +664,235 @@ struct RowBwdArgs {
   const float* ss = nullptr;   // kGatedScale: [rows], S
   const float* dot = nullptr;  // kGatedScale: [rows], P
   int d_total = 0;             // kGatedScale: D
+  int w_bf16 = 0;              // the row kernel: w is bfloat16, else float
 };
 
-template <Op kOp, typename T, typename W, int kThreads, int kRowThreads>
+// kThreads: 128 (R <= 128), or kBwdMaxRowThreads for a block of R = 256
+// or 512 threads (one row slot); kStream: the chunked walk
+template <Op kOp, typename T, int kVec, bool kVecLoad, int kThreads,
+          bool kStream>
 __global__ void __launch_bounds__(kThreads)
-norm_bwd_kernel(const RowBwdArgs args) {
-  constexpr int kSlots = kThreads / kRowThreads;
-  extern __shared__ float acc[];  // [kSlots, d]: each slot's dw sums
-  const int t = threadIdx.x % kRowThreads, slot = threadIdx.x / kRowThreads;
-  const int d = args.d;
-  float* mine = acc + slot * d;
-  for (int i = t; i < d; i += kRowThreads) mine[i] = 0.f;
-  const W* w = static_cast<const W*>(args.w);
-  // every row slot walks its rows; in block mode the whole block walks
-  // them together (row_sum2 synchronises it), in warp mode each warp on
-  // its own (row_sum2 stays inside the warp)
-  for (long long row = (long long)blockIdx.x * kSlots + slot; row < args.rows;
-       row += (long long)gridDim.x * kSlots) {
+norm_bwd_kernel(const RowBwdArgs args, const int log_r) {
+  constexpr int G = kBwdGroups;
+  constexpr bool kGate = kOp == Op::kGated || kOp == Op::kGatedScale;
+  // with 16-byte loads, a row's inputs come through a two-stage ring in
+  // shared memory, [2][kArrays][G][threads] x 16 bytes: the next row's
+  // copies (cp.async) are in flight while this row computes; each thread
+  // copies and reads only its own groups, so no barrier guards the ring
+  constexpr bool kPrefetch = kVecLoad && !kStream;
+  constexpr int kArrays = kOp == Op::kNorm ? 2 : 3;
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ float2 red[2][kThreads / 32];
+  const int R = 1 << log_r, slots = blockDim.x >> log_r;
+  const int t = threadIdx.x & (R - 1), slot = threadIdx.x >> log_r;
+  const int d = args.d, n = d / kVec;
+  const int chunks = kStream ? (n + G * R - 1) / (G * R) : 1;
+  const void* w = args.w;
+  const bool w_bf16 = args.w_bf16 != 0;
+  float* part = args.partial + (long long)blockIdx.x * d;
+
+  // w at this thread's groups (loaded once, or per chunk when kStream),
+  // and the dw sums of its columns (kStream: in part)
+  float wr[G][kVec], dw[G][kVec];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) dw[j][k] = 0.f;
+    const int g = t + j * R;
+    if (!kStream && g < n) load_w<kVec, kVecLoad>(w, w_bf16, g * kVec, wr[j]);
+  }
+  if constexpr (kStream) {
+    for (int i = threadIdx.x; i < d; i += blockDim.x) part[i] = 0.f;
+    __syncthreads();
+  }
+
+  auto ring_at = [&](int stage, int arr, int j) {
+    return ring + ((((stage * kArrays + arr) * G + j) * (int)blockDim.x +
+                    (int)threadIdx.x) << 4);
+  };
+  // start the copies of row r's groups into stage (none past the rows)
+  auto prefetch = [&](long long r, int stage) {
+    if (r < args.rows) {
+      const T* dy = static_cast<const T*>(args.dy) + r * args.dy_stride;
+      const T* a = static_cast<const T*>(args.a) + r * args.a_stride;
+      const T* b = args.b == nullptr
+                       ? nullptr
+                       : static_cast<const T*>(args.b) + r * args.b_stride;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = t + j * R;
+        if (g >= n) continue;
+        wg::cp_async16(wg::smem_addr(ring_at(stage, 0, j)), dy + g * kVec,
+                       true);
+        wg::cp_async16(wg::smem_addr(ring_at(stage, 1, j)), a + g * kVec,
+                       true);
+        if (kArrays == 3 && b != nullptr)
+          wg::cp_async16(wg::smem_addr(ring_at(stage, 2, j)), b + g * kVec,
+                         true);
+      }
+    }
+    wg::cp_async_commit();
+  };
+  const long long step = (long long)gridDim.x * slots;
+  if constexpr (kPrefetch) prefetch((long long)blockIdx.x * slots + slot, 0);
+
+  int it = 0;
+  for (long long base = (long long)blockIdx.x * slots; base < args.rows;
+       base += step, ++it) {
+    const long long row = base + slot;
+    const bool live = row < args.rows;
+    if constexpr (kPrefetch) {
+      prefetch(row + step, (it + 1) & 1);
+      wg::cp_async_wait_1();  // this row's copies have landed
+    }
     const T* dy = static_cast<const T*>(args.dy) + row * args.dy_stride;
     const T* a = static_cast<const T*>(args.a) + row * args.a_stride;
     const T* b = args.b == nullptr
                      ? nullptr
                      : static_cast<const T*>(args.b) + row * args.b_stride;
-    // the forward's normed input at i
-    auto value = [&](int i) -> float {
-      if constexpr (kOp == Op::kGated || kOp == Op::kGatedScale) {
-        const float s = gate<T>(attn::to_f32(b[i])).x;
-        return round_to<T>(__fmul_rn(attn::to_f32(a[i]), s));
-      } else {
-        return attn::to_f32(a[i]);
+    // the row's values at this thread's groups: dy, a, and b (kAdd: dr,
+    // 0 without it; gated: T(silu(z)), with silu'(z) in q)
+    Vec<T, kVec> dyr[G], ar[G], br[G];
+    float q[kGate ? G : 1][kVec];
+    auto load = [&](int c) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = c * G * R + t + j * R;
+        if (!live || g >= n) continue;
+        using V = Vec<T, kVec>;
+        auto get = [&](int arr, const T* p, V& v) {
+          if constexpr (kPrefetch)
+            v = *reinterpret_cast<const V*>(ring_at(it & 1, arr, j));
+          else
+            load_raw<kVec, kVecLoad>(p + g * kVec, v);
+        };
+        get(0, dy, dyr[j]);
+        get(1, a, ar[j]);
+        if constexpr (kStream)
+          load_w<kVec, kVecLoad>(w, w_bf16, g * kVec, wr[j]);
+        if constexpr (kOp == Op::kAdd) {
+          if (b != nullptr) {
+            get(2, b, br[j]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) attn::store(&br[j].v[k], 0.f);
+          }
+        }
+        if constexpr (kGate) {
+          get(2, b, br[j]);
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            const float z = attn::to_f32(br[j].v[k]);
+            const float2 se = gate<T>(z);  // (T(silu(z)), 1 + exp(-z))
+            const float sig = 1.f / se.y;  // silu'(z) = s (1 + z (1 - s))
+            q[j][k] = sig * (1.f + z * (1.f - sig));
+            attn::store(&br[j].v[k], se.x);  // exact: se.x is in T
+          }
+        }
       }
     };
-    float rstd, c;
+    // the forward's normed input at (j, k)
+    auto value = [&](int j, int k) -> float {
+      if constexpr (kGate)
+        return round_to<T>(
+            __fmul_rn(attn::to_f32(ar[j].v[k]), attn::to_f32(br[j].v[k])));
+      else
+        return attn::to_f32(ar[j].v[k]);
+    };
+
+    float rstd = 0.f, cc = 0.f;
     if constexpr (kOp == Op::kGatedScale) {
-      const float n = (float)args.d_total;
-      rstd = rsqrtf(args.ss[row] / n + args.eps);
-      c = rstd * rstd * args.dot[row] / n;
+      load(0);
+      if (live) {
+        const float nd = (float)args.d_total;
+        rstd = rsqrtf(args.ss[row] / nd + args.eps);
+        cc = rstd * rstd * args.dot[row] / nd;
+      }
     } else {
       float ss = 0.f, gv = 0.f;
-      for (int i = t; i < d; i += kRowThreads) {
-        const float v = value(i);
-        const float g = attn::to_f32(dy[i]) * attn::to_f32(w[i]);
-        ss = fmaf(v, v, ss);
-        gv = fmaf(g, v, gv);
+      for (int c = 0; c < chunks; ++c) {
+        load(c);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int g = c * G * R + t + j * R;
+          if (!live || g >= n) continue;
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            const float v = value(j, k);
+            const float gw = attn::to_f32(dyr[j].v[k]) * wr[j][k];
+            ss = fmaf(v, v, ss);
+            gv = fmaf(gw, v, gv);
+          }
+        }
       }
-      const float2 sums = row_sum2<kRowThreads>(ss, gv);
+      const float2 sums = row_sums(ss, gv, R, red[it & 1]);
       rstd = rsqrtf(sums.x / (float)d + args.eps);
-      c = rstd * rstd * sums.y / (float)d;
+      cc = rstd * rstd * sums.y / (float)d;
     }
+
     T* da = static_cast<T*>(args.da) + row * (long long)d;
-    for (int i = t; i < d; i += kRowThreads) {
-      const float v = value(i), g_out = attn::to_f32(dy[i]);
-      const float dv = rstd * (g_out * attn::to_f32(w[i]) - v * c);
-      mine[i] += g_out * (v * rstd);
-      if constexpr (kOp == Op::kNorm) {
-        attn::store(da + i, dv);
-      } else if constexpr (kOp == Op::kAdd) {
-        // the norm's input gradient in T, then torch's add of dr
-        const float dr = b == nullptr ? 0.f : attn::to_f32(b[i]);
-        attn::store(da + i, round_to<T>(dv) + dr);
-      } else {
-        const float y = attn::to_f32(a[i]), z = attn::to_f32(b[i]);
-        const float2 se = gate<T>(z);  // (T(silu(z)), 1 + exp(-z))
-        const float dg = round_to<T>(dv);
-        attn::store(da + i, dg * se.x);
-        const float ds = round_to<T>(dg * y);
-        const float sig = 1.f / se.y;  // silu'(z) = s (1 + z (1 - s))
-        T* dz = static_cast<T*>(args.db) + row * (long long)d;
-        attn::store(dz + i, ds * (sig * (1.f + z * (1.f - sig))));
+    T* dz = kGate ? static_cast<T*>(args.db) + row * (long long)d : nullptr;
+    for (int c = 0; c < chunks; ++c) {
+      if constexpr (kStream) load(c);  // the row read again
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = c * G * R + t + j * R;
+        if (!live || g >= n) continue;
+        float o[kVec], oz[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float v = value(j, k), gy = attn::to_f32(dyr[j].v[k]);
+          const float dv = rstd * (gy * wr[j][k] - v * cc);
+          const float dwk = gy * (v * rstd);
+          if constexpr (kStream)
+            part[g * kVec + k] += dwk;
+          else
+            dw[j][k] += dwk;
+          if constexpr (kOp == Op::kNorm) {
+            o[k] = dv;
+          } else if constexpr (kOp == Op::kAdd) {
+            // the norm's input gradient in T, then torch's add of dr
+            o[k] = round_to<T>(dv) + attn::to_f32(br[j].v[k]);
+          } else {
+            const float dg = round_to<T>(dv);
+            o[k] = dg * attn::to_f32(br[j].v[k]);
+            const float ds = round_to<T>(dg * attn::to_f32(ar[j].v[k]));
+            oz[k] = ds * q[j][k];
+          }
+        }
+        store_group<kVec, kVecLoad>(da + g * kVec, o);
+        if constexpr (kGate) store_group<kVec, kVecLoad>(dz + g * kVec, oz);
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    float s = 0.f;
-    for (int k = 0; k < kSlots; ++k) s += acc[k * d + i];
-    args.partial[(long long)blockIdx.x * d + i] = s;
+  if constexpr (kStream) return;
+
+  // the block's partial row of dw: its slots' sums in slot order
+  if constexpr (kThreads == kBwdBlockThreads) {
+    if (slots > 1) {  // slots * d <= kThreads * G * kVec
+      __shared__ float acc[kThreads * G * kVec];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = t + j * R;
+        if (g >= n) continue;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) acc[slot * d + g * kVec + k] = dw[j][k];
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < d; i += kThreads) {
+        float s = acc[i];
+        for (int k = 1; k < slots; ++k) s += acc[k * d + i];
+        part[i] = s;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = t + j * R;
+    if (g >= n) continue;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) part[g * kVec + k] = dw[j][k];
   }
 }
 
@@ -622,68 +936,107 @@ cudaError_t launch_dot(const RowBwdArgs& a, float* dot, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// out[i] = the sum of partial[b, i] over b = 0 .. nb - 1, in that order
+// out[i] = the sum of partial[b, i] over b = 0 .. nb - 1 in a fixed
+// order: a block takes 32 columns, warp k adds rows k, k + kSumWarps, ...
+// in order, then warp 0 adds the warps' sums in warp order
 template <typename W>
-__global__ void sum_partials_kernel(const float* partial, int nb, int n,
-                                    W* out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(kSumWarps * 32)
+sum_partials_kernel(const float* partial, int nb, int n, W* out) {
+  __shared__ float part[kSumWarps][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += partial[(long long)b * n + i];
-  attn::store(out + i, s);
+  if (i < n) {
+#pragma unroll 4
+    for (int b = warp; b < nb; b += kSumWarps)
+      s += partial[(long long)b * n + i];
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    float total = part[0][lane];
+    for (int k = 1; k < kSumWarps; ++k) total += part[k][lane];
+    attn::store(out + i, total);
+  }
 }
 
 template <typename W>
 cudaError_t launch_sum(const float* partial, int nb, int n, void* out,
                        cudaStream_t stream) {
-  sum_partials_kernel<W><<<(n + 255) / 256, 256, 0, stream>>>(
+  sum_partials_kernel<W><<<(n + 31) / 32, kSumWarps * 32, 0, stream>>>(
       partial, nb, n, static_cast<W*>(out));
   return cudaGetLastError();
 }
 
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+template <Op kOp, typename T, int kVec, bool kVecLoad, int kThreads,
+          bool kStream>
+cudaError_t launch_row_kernel(const RowBwdArgs& a, const RowPlan& p,
+                              cudaStream_t stream) {
+  auto kernel = norm_bwd_kernel<kOp, T, kVec, kVecLoad, kThreads, kStream>;
+  // the prefetch ring: 2 stages of 2 or 3 arrays of kBwdGroups 16-byte
+  // groups a thread (up to 96 KB a block: with the static arrays, above
+  // 48 KB needs the opt-in)
+  constexpr size_t kRingBytes = kVecLoad && !kStream
+                                    ? (size_t)2 * (kOp == Op::kNorm ? 2 : 3) *
+                                          kBwdGroups * 16
+                                    : 0;
+  const size_t ring = kRingBytes * p.threads;
+  if (ring) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ring);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<p.blocks, p.threads, ring, stream>>>(a, p.log_r);
+  return cudaGetLastError();
 }
 
-template <Op kOp, typename T, typename W>
-cudaError_t launch_bwd_rows(const RowBwdArgs& a, int nb, void* dw,
+template <Op kOp, typename T, int kVec, bool kVecLoad>
+cudaError_t launch_row_plan(const RowBwdArgs& a, const RowPlan& p,
                             cudaStream_t stream) {
+  if (p.stream)
+    return launch_row_kernel<kOp, T, kVec, kVecLoad, kBwdMaxRowThreads,
+                             true>(a, p, stream);
+  if (p.threads == kBwdBlockThreads)
+    return launch_row_kernel<kOp, T, kVec, kVecLoad, kBwdBlockThreads,
+                             false>(a, p, stream);
+  return launch_row_kernel<kOp, T, kVec, kVecLoad, kBwdMaxRowThreads, false>(
+      a, p, stream);
+}
+
+// nb must be the plan's blocks (the launcher sized ``partial`` by it)
+template <Op kOp, typename T, typename W>
+cudaError_t launch_bwd_rows(RowBwdArgs a, int nb, int vec, void* dw,
+                            cudaStream_t stream) {
+  const RowPlan p = row_plan(a.rows, a.d, sizeof(T));
+  if (nb != p.blocks) return cudaErrorInvalidValue;
+  a.w_bf16 = sizeof(W) == 2;
+  constexpr int kV = 16 / sizeof(T);
   cudaError_t err;
-  if (a.d <= kWarpRowMaxD) {
-    constexpr int kSlots = kWarpModeThreads / 32;
-    auto kernel = norm_bwd_kernel<kOp, T, W, kWarpModeThreads, 32>;
-    const size_t smem = sizeof(float) * kSlots * a.d;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<nb, kWarpModeThreads, smem, stream>>>(a);
-  } else {
-    auto kernel =
-        norm_bwd_kernel<kOp, T, W, kBlockModeThreads, kBlockModeThreads>;
-    const size_t smem = sizeof(float) * a.d;
-    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<nb, kBlockModeThreads, smem, stream>>>(a);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (p.vec == 1)
+    err = launch_row_plan<kOp, T, 1, false>(a, p, stream);
+  else if (vec)
+    err = launch_row_plan<kOp, T, kV, true>(a, p, stream);
+  else
+    err = launch_row_plan<kOp, T, kV, false>(a, p, stream);
+  if (err != cudaSuccess) return err;
   return launch_sum<W>(a.partial, nb, a.d, dw, stream);
 }
 
 template <Op kOp>
-int launch_bwd(const RowBwdArgs& a, int nb, void* dw, int x_dtype,
+int launch_bwd(const RowBwdArgs& a, int nb, int vec, void* dw, int x_dtype,
                int w_dtype, void* stream) {
   if (a.rows == 0) return cudaSuccess;
   if (a.d < 1 || nb < 1) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && w_dtype == 0)
-    return launch_bwd_rows<kOp, float, float>(a, nb, dw, st);
+    return launch_bwd_rows<kOp, float, float>(a, nb, vec, dw, st);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch_bwd_rows<kOp, float, __nv_bfloat16>(a, nb, dw, st);
+    return launch_bwd_rows<kOp, float, __nv_bfloat16>(a, nb, vec, dw, st);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch_bwd_rows<kOp, __nv_bfloat16, float>(a, nb, dw, st);
+    return launch_bwd_rows<kOp, __nv_bfloat16, float>(a, nb, vec, dw, st);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch_bwd_rows<kOp, __nv_bfloat16, __nv_bfloat16>(a, nb, dw, st);
+    return launch_bwd_rows<kOp, __nv_bfloat16, __nv_bfloat16>(a, nb, vec, dw,
+                                                              st);
   return cudaErrorInvalidValue;
 }
 
@@ -707,102 +1060,204 @@ struct RopeBwdArgs {
   float* partial;  // [gridDim.x, 2, D]: dwq then dwk (null without weights)
   int B, S, Hq, Hkv, D;
   float eps;
+  int w_bf16 = 0;  // wq and wk are bfloat16, else float
 };
 
-// pairs (i, i + D / 2) per lane of a row of D <= kWarpRowMaxD
-constexpr int kRopePairs = kWarpRowMaxD / 2 / 32;
-
-// one warp per (token, head) row of q, then of k: RoPE's transpose (the
-// rotation by the negative angle), then, with weights, the norm's
-// backward; dwq and dwk sum over every (token, head)
-template <typename T, typename W>
-__global__ void __launch_bounds__(kWarpModeThreads)
-qk_norm_rope_bwd_kernel(const RopeBwdArgs a) {
-  constexpr int kSlots = kWarpModeThreads / 32;
-  extern __shared__ float acc[];  // [2, kSlots, D]: q's then k's dw sums
-  const int lane = threadIdx.x & 31, slot = threadIdx.x >> 5;
+// a warp per token: its (cos, sin) once, then its q heads and k heads,
+// 32 / L at a time, L lanes a head (see "the backward" above): RoPE's
+// transpose (the rotation by the negative angle), then, with weights,
+// the norm's backward; dwq and dwk in registers over every head
+template <typename T, int kVec, bool kVecLoad>
+__global__ void __launch_bounds__(kRopeBwdWarps * 32)
+qk_norm_rope_bwd_kernel(const RopeBwdArgs a, const int log_l) {
+  constexpr int G = kRopeBwdPairs / kVec;  // groups of kVec pairs a lane holds
+  constexpr int kThreads = kRopeBwdWarps * 32;
+  // each warp's (cos, sin) [D / 2] in the loop; the warps' dw rows
+  // [kRopeBwdWarps, 2, D] after it
+  __shared__ __align__(16) float smem[kRopeBwdWarps * 2 * kWarpRowMaxD];
+  const int L = 1 << log_l, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & (L - 1), sub = lane >> log_l, nsub = 32 >> log_l;
   const bool norm = a.wq != nullptr;  // the same for the whole grid
-  const int D = a.D, half = D / 2;
-  if (norm)
-    for (int i = lane; i < D; i += 32)
-      acc[slot * D + i] = acc[(kSlots + slot) * D + i] = 0.f;
-  const long long q_rows = (long long)a.B * a.S * a.Hq;
-  const long long rows = q_rows + (long long)a.B * a.S * a.Hkv;
-  for (long long row = (long long)blockIdx.x * kSlots + slot; row < rows;
-       row += (long long)gridDim.x * kSlots) {
-    const bool is_q = row < q_rows;
-    const long long rr = is_q ? row : row - q_rows;
-    const int H = is_q ? a.Hq : a.Hkv;
-    const int h = (int)(rr % H);
-    const long long bs = rr / H;
-    const int s = (int)(bs % a.S), b = (int)(bs / a.S);
-    const T* x = static_cast<const T*>(is_q ? a.q : a.k) +
-                 (is_q ? b * a.q_sb + s * a.q_ss + h * a.q_sh
-                       : b * a.k_sb + s * a.k_ss + h * a.k_sh);
-    const W* w = static_cast<const W*>(is_q ? a.wq : a.wk);
-    const T* dout = static_cast<const T*>(is_q ? a.dq : a.dk) + rr * D;
-    T* dx = static_cast<T*>(is_q ? a.dq_out : a.dk_out) + rr * D;
+  const int D = a.D, half = D / 2, ng = half / kVec, H = a.Hq + a.Hkv;
+  const long long tokens = (long long)a.B * a.S;
+  float2* cs = reinterpret_cast<float2*>(smem) + warp * (kWarpRowMaxD / 2);
+
+  // wq and wk at this lane's pairs (i, i + D / 2), and their dw sums
+  float wq1[G][kVec], wq2[G][kVec], wk1[G][kVec], wk2[G][kVec];
+  float dq1[G][kVec], dq2[G][kVec], dk1[G][kVec], dk2[G][kVec];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) dq1[j][k] = dq2[j][k] = dk1[j][k] =
+        dk2[j][k] = 0.f;
+    const int g = t + j * L;
+    if (!norm || g >= ng) continue;
+    const bool wb = a.w_bf16 != 0;
+    load_w<kVec, kVecLoad>(a.wq, wb, g * kVec, wq1[j]);
+    load_w<kVec, kVecLoad>(a.wq, wb, half + g * kVec, wq2[j]);
+    load_w<kVec, kVecLoad>(a.wk, wb, g * kVec, wk1[j]);
+    load_w<kVec, kVecLoad>(a.wk, wb, half + g * kVec, wk2[j]);
+  }
+
+  for (long long tok = (long long)blockIdx.x * kRopeBwdWarps + warp;
+       tok < tokens; tok += (long long)gridDim.x * kRopeBwdWarps) {
+    const int s = (int)(tok % a.S), b = (int)(tok / a.S);
     const long long pi = b * a.p_sb + s * a.p_ss;
     const float p = a.pos64 ? (float)static_cast<const long long*>(a.pos)[pi]
                             : (float)static_cast<const int*>(a.pos)[pi];
-    float dn1[kRopePairs], dn2[kRopePairs];
-    float ss = 0.f, gv = 0.f;
-#pragma unroll
-    for (int j = 0; j < kRopePairs; ++j) {
-      const int i = lane + 32 * j;
-      dn1[j] = dn2[j] = 0.f;
-      if (i >= half) continue;
+    __syncwarp();  // the previous token's (cos, sin) are read
+    for (int i = lane; i < half; i += 32) {
       const float ang = __fmul_rn(p, a.inv_freq[i]);
-      const float c = cosf(ang), sn = sinf(ang);
-      const float d1 = attn::to_f32(dout[i]);
-      const float d2 = attn::to_f32(dout[i + half]);
-      const float n1 = d1 * c + d2 * sn, n2 = d2 * c - d1 * sn;
-      if (!norm) {
-        attn::store(dx + i, n1);
-        attn::store(dx + i + half, n2);
-        continue;
-      }
-      dn1[j] = round_to<T>(n1);  // the gradient of the normed head, in T
-      dn2[j] = round_to<T>(n2);
-      const float x1 = attn::to_f32(x[i]), x2 = attn::to_f32(x[i + half]);
-      ss = fmaf(x1, x1, fmaf(x2, x2, ss));
-      gv = fmaf(dn1[j] * attn::to_f32(w[i]), x1,
-                fmaf(dn2[j] * attn::to_f32(w[i + half]), x2, gv));
+      cs[i] = make_float2(cosf(ang), sinf(ang));
     }
-    if (!norm) continue;
-    const float2 sums = row_sum2<32>(ss, gv);
-    const float rstd = rsqrtf(sums.x / (float)D + a.eps);
-    const float c = rstd * rstd * sums.y / (float)D;
-    float* mine = acc + ((is_q ? 0 : kSlots) + slot) * D;
+    __syncwarp();
+    float cv[G][kVec], sv[G][kVec];
 #pragma unroll
-    for (int j = 0; j < kRopePairs; ++j) {
-      const int i = lane + 32 * j;
-      if (i >= half) continue;
-      const float x1 = attn::to_f32(x[i]), x2 = attn::to_f32(x[i + half]);
-      attn::store(dx + i, rstd * (dn1[j] * attn::to_f32(w[i]) - x1 * c));
-      attn::store(dx + i + half,
-                  rstd * (dn2[j] * attn::to_f32(w[i + half]) - x2 * c));
-      mine[i] += dn1[j] * (x1 * rstd);
-      mine[i + half] += dn2[j] * (x2 * rstd);
+    for (int j = 0; j < G; ++j) {
+      const int g = t + j * L;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const float2 v = g < ng ? cs[g * kVec + k] : make_float2(0.f, 0.f);
+        cv[j][k] = v.x;
+        sv[j][k] = v.y;
+      }
+    }
+    for (int h0 = 0; h0 < H; h0 += nsub) {
+      const int h = h0 + sub;
+      const bool live = h < H, is_q = h < a.Hq;
+      const int hh = is_q ? h : h - a.Hq;
+      const T* x = static_cast<const T*>(is_q ? a.q : a.k) +
+                   (is_q ? b * a.q_sb + s * a.q_ss + hh * a.q_sh
+                         : b * a.k_sb + s * a.k_ss + hh * a.k_sh);
+      const long long rr = tok * (is_q ? a.Hq : a.Hkv) + hh;
+      const T* dout = static_cast<const T*>(is_q ? a.dq : a.dk) + rr * D;
+      T* dx = static_cast<T*>(is_q ? a.dq_out : a.dk_out) + rr * D;
+      Vec<T, kVec> x1r[G], x2r[G];
+      float n1[G][kVec], n2[G][kVec];
+      float ss = 0.f, gv = 0.f;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = t + j * L;
+        if (!live || g >= ng) continue;
+        Vec<T, kVec> d1r, d2r;
+        load_raw<kVec, kVecLoad>(dout + g * kVec, d1r);
+        load_raw<kVec, kVecLoad>(dout + half + g * kVec, d2r);
+        if (norm) {
+          load_raw<kVec, kVecLoad>(x + g * kVec, x1r[j]);
+          load_raw<kVec, kVecLoad>(x + half + g * kVec, x2r[j]);
+        }
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float d1 = attn::to_f32(d1r.v[k]), d2 = attn::to_f32(d2r.v[k]);
+          const float c = cv[j][k], sn = sv[j][k];
+          n1[j][k] = d1 * c + d2 * sn;
+          n2[j][k] = d2 * c - d1 * sn;
+          if (!norm) continue;
+          n1[j][k] = round_to<T>(n1[j][k]);  // the normed head's gradient
+          n2[j][k] = round_to<T>(n2[j][k]);  // in T
+          const float x1 = attn::to_f32(x1r[j].v[k]);
+          const float x2 = attn::to_f32(x2r[j].v[k]);
+          const float w1 = is_q ? wq1[j][k] : wk1[j][k];
+          const float w2 = is_q ? wq2[j][k] : wk2[j][k];
+          ss = fmaf(x1, x1, fmaf(x2, x2, ss));
+          gv = fmaf(n1[j][k] * w1, x1, fmaf(n2[j][k] * w2, x2, gv));
+        }
+        if (!norm) {
+          store_group<kVec, kVecLoad>(dx + g * kVec, n1[j]);
+          store_group<kVec, kVecLoad>(dx + half + g * kVec, n2[j]);
+        }
+      }
+      if (!norm) continue;
+      for (int o = L >> 1; o > 0; o >>= 1) {  // the head's L lanes
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        gv += __shfl_xor_sync(0xffffffffu, gv, o);
+      }
+      const float rstd = rsqrtf(ss / (float)D + a.eps);
+      const float c = rstd * rstd * gv / (float)D;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = t + j * L;
+        if (!live || g >= ng) continue;
+        float o1[kVec], o2[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float x1 = attn::to_f32(x1r[j].v[k]);
+          const float x2 = attn::to_f32(x2r[j].v[k]);
+          const float w1 = is_q ? wq1[j][k] : wk1[j][k];
+          const float w2 = is_q ? wq2[j][k] : wk2[j][k];
+          o1[k] = rstd * (n1[j][k] * w1 - x1 * c);
+          o2[k] = rstd * (n2[j][k] * w2 - x2 * c);
+          const float e1 = n1[j][k] * (x1 * rstd);
+          const float e2 = n2[j][k] * (x2 * rstd);
+          if (is_q) {
+            dq1[j][k] += e1;
+            dq2[j][k] += e2;
+          } else {
+            dk1[j][k] += e1;
+            dk2[j][k] += e2;
+          }
+        }
+        store_group<kVec, kVecLoad>(dx + g * kVec, o1);
+        store_group<kVec, kVecLoad>(dx + half + g * kVec, o2);
+      }
     }
   }
   if (!norm) return;
+
+  // the warp's head groups hold the same columns: a butterfly over them
+  // (lanes t, t + L, ...), then the block's warps in order
+  __syncthreads();  // every warp is done with its (cos, sin)
+  float* acc = smem;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int g = t + j * L;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      float v[4] = {dq1[j][k], dq2[j][k], dk1[j][k], dk2[j][k]};
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        for (int o = L; o < 32; o <<= 1)
+          v[m] += __shfl_xor_sync(0xffffffffu, v[m], o);
+      if (sub == 0 && g < ng) {
+        float* row = acc + warp * 2 * D + g * kVec + k;
+        row[0] = v[0];
+        row[half] = v[1];
+        row[D] = v[2];
+        row[D + half] = v[3];
+      }
+    }
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < 2 * D; i += kWarpModeThreads) {
-    const int which = i / D, col = i % D;
-    float s = 0.f;
-    for (int k = 0; k < kSlots; ++k) s += acc[(which * kSlots + k) * D + col];
+  for (int i = threadIdx.x; i < 2 * D; i += kThreads) {
+    float s = acc[i];
+    for (int k = 1; k < kRopeBwdWarps; ++k) s += acc[k * 2 * D + i];
     a.partial[(long long)blockIdx.x * 2 * D + i] = s;
   }
 }
 
+template <typename T, int kVec, bool kVecLoad>
+cudaError_t launch_rope_plan(const RopeBwdArgs& a, const RopePlan& p,
+                             cudaStream_t stream) {
+  qk_norm_rope_bwd_kernel<T, kVec, kVecLoad>
+      <<<p.blocks, kRopeBwdWarps * 32, 0, stream>>>(a, p.log_l);
+  return cudaGetLastError();
+}
+
+// nb must be the plan's blocks (the launcher sized ``partial`` by it)
 template <typename T, typename W>
-cudaError_t launch_rope_bwd(const RopeBwdArgs& a, int nb, void* dw,
+cudaError_t launch_rope_bwd(RopeBwdArgs a, int nb, int vec, void* dw,
                             cudaStream_t stream) {
-  constexpr int kSlots = kWarpModeThreads / 32;
-  const size_t smem = a.wq == nullptr ? 0 : sizeof(float) * 2 * kSlots * a.D;
-  qk_norm_rope_bwd_kernel<T, W><<<nb, kWarpModeThreads, smem, stream>>>(a);
-  const cudaError_t err = cudaGetLastError();
+  const RopePlan p = rope_plan((long long)a.B * a.S, a.D, sizeof(T));
+  if (nb != p.blocks) return cudaErrorInvalidValue;
+  a.w_bf16 = sizeof(W) == 2;
+  constexpr int kV = 16 / sizeof(T);
+  cudaError_t err;
+  if (p.vec == 1)
+    err = launch_rope_plan<T, 1, false>(a, p, stream);
+  else if (vec)
+    err = launch_rope_plan<T, kV, true>(a, p, stream);
+  else
+    err = launch_rope_plan<T, kV, false>(a, p, stream);
   if (err != cudaSuccess || a.wq == nullptr) return err;
   return launch_sum<W>(a.partial, nb, 2 * a.D, dw, stream);
 }
@@ -886,17 +1341,21 @@ extern "C" int qk_norm_rope_fwd(
 
 // The backward entry points: each launches its row kernel and then, for
 // dw, sum_partials_kernel over the nb partial rows in ``partial`` (fp32,
-// [nb, d]; qk_norm_rope_bwd: [nb, 2, D], dw then [2, D] = (dwq, dwk)).
+// [nb, d]; qk_norm_rope_bwd: [nb, 2, D], dw then [2, D] = (dwq, dwk)); nb
+// must be the plan's blocks (row_plan, rope_plan; kernel.py mirrors
+// them), else cudaErrorInvalidValue.  vec = 1 takes 16-byte loads and
+// stores where the plan groups by them (kernel.py ``vectorized``).
 // Every incoming gradient and every output is read or written through a
 // row stride or contiguous as the comments say; dtypes as the forward's.
 
 extern "C" int rmsnorm_bwd(const void* dy, long long dy_stride, const void* x,
                            long long x_stride, const void* w, void* dx,
-                           void* dw, float* partial, int nb, int rows, int d,
-                           float eps, int x_dtype, int w_dtype, void* stream) {
+                           void* dw, float* partial, int nb, int vec,
+                           int rows, int d, float eps, int x_dtype,
+                           int w_dtype, void* stream) {
   const RowBwdArgs a{dy, dy_stride, x,  x_stride, nullptr, 0,    w,
                      dx, nullptr,   partial, rows, d,       eps};
-  return launch_bwd<Op::kNorm>(a, nb, dw, x_dtype, w_dtype, stream);
+  return launch_bwd<Op::kNorm>(a, nb, vec, dw, x_dtype, w_dtype, stream);
 }
 
 // dr may be null (r's gradient is then 0); dx is the gradient of both x
@@ -905,24 +1364,24 @@ extern "C" int add_rmsnorm_bwd(const void* dh, long long dh_stride,
                                const void* dr, long long dr_stride,
                                const void* r, long long r_stride,
                                const void* w, void* dx, void* dw,
-                               float* partial, int nb, int rows, int d,
-                               float eps, int x_dtype, int w_dtype,
+                               float* partial, int nb, int vec, int rows,
+                               int d, float eps, int x_dtype, int w_dtype,
                                void* stream) {
   const RowBwdArgs a{dh, dh_stride, r,  r_stride, dr,   dr_stride, w,
                      dx, nullptr,   partial, rows, d,    eps};
-  return launch_bwd<Op::kAdd>(a, nb, dw, x_dtype, w_dtype, stream);
+  return launch_bwd<Op::kAdd>(a, nb, vec, dw, x_dtype, w_dtype, stream);
 }
 
 extern "C" int gated_rmsnorm_bwd(const void* dout, long long dout_stride,
                                  const void* y, long long y_stride,
                                  const void* z, long long z_stride,
                                  const void* w, void* dy, void* dz, void* dw,
-                                 float* partial, int nb, int rows, int d,
-                                 float eps, int x_dtype, int w_dtype,
+                                 float* partial, int nb, int vec, int rows,
+                                 int d, float eps, int x_dtype, int w_dtype,
                                  void* stream) {
   const RowBwdArgs a{dout, dout_stride, y,  y_stride, z,    z_stride, w,
                      dy,   dz,          partial, rows, d,  eps};
-  return launch_bwd<Op::kGated>(a, nb, dw, x_dtype, w_dtype, stream);
+  return launch_bwd<Op::kGated>(a, nb, vec, dw, x_dtype, w_dtype, stream);
 }
 
 // the split gated norm's backward: this rank's partial of sum(dout * w *
@@ -952,15 +1411,16 @@ extern "C" int gated_rmsnorm_scale_bwd(
     const void* dout, long long dout_stride, const void* y,
     long long y_stride, const void* z, long long z_stride, const void* w,
     const float* ss, const float* dot, void* dy, void* dz, void* dw,
-    float* partial, int nb, int rows, int d, int d_total, float eps,
-    int x_dtype, int w_dtype, void* stream) {
+    float* partial, int nb, int vec, int rows, int d, int d_total,
+    float eps, int x_dtype, int w_dtype, void* stream) {
   if (d_total < d) return cudaErrorInvalidValue;
   RowBwdArgs a{dout, dout_stride, y,  y_stride, z,    z_stride, w,
                dy,   dz,          partial, rows, d,  eps};
   a.ss = ss;
   a.dot = dot;
   a.d_total = d_total;
-  return launch_bwd<Op::kGatedScale>(a, nb, dw, x_dtype, w_dtype, stream);
+  return launch_bwd<Op::kGatedScale>(a, nb, vec, dw, x_dtype, w_dtype,
+                                     stream);
 }
 
 extern "C" int qk_norm_rope_bwd(
@@ -969,8 +1429,8 @@ extern "C" int qk_norm_rope_bwd(
     long long k_ss, long long k_sh, const void* wq, const void* wk,
     const void* pos, long long p_sb, long long p_ss, int pos64,
     const float* inv_freq, void* dq_out, void* dk_out, float* partial,
-    void* dw, int nb, int B, int S, int Hq, int Hkv, int D, float eps,
-    int x_dtype, int w_dtype, void* stream) {
+    void* dw, int nb, int vec, int B, int S, int Hq, int Hkv, int D,
+    float eps, int x_dtype, int w_dtype, void* stream) {
   if ((long long)B * S * (Hq + Hkv) == 0) return cudaSuccess;
   if (D < 2 || D % 2 != 0 || D > kWarpRowMaxD || nb < 1)
     return cudaErrorInvalidValue;
@@ -980,13 +1440,13 @@ extern "C" int qk_norm_rope_bwd(
                       S,    Hq,   Hkv,   D,      eps};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && w_dtype == 0)
-    return launch_rope_bwd<float, float>(a, nb, dw, st);
+    return launch_rope_bwd<float, float>(a, nb, vec, dw, st);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch_rope_bwd<float, __nv_bfloat16>(a, nb, dw, st);
+    return launch_rope_bwd<float, __nv_bfloat16>(a, nb, vec, dw, st);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch_rope_bwd<__nv_bfloat16, float>(a, nb, dw, st);
+    return launch_rope_bwd<__nv_bfloat16, float>(a, nb, vec, dw, st);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch_rope_bwd<__nv_bfloat16, __nv_bfloat16>(a, nb, dw, st);
+    return launch_rope_bwd<__nv_bfloat16, __nv_bfloat16>(a, nb, vec, dw, st);
   return cudaErrorInvalidValue;
 }
 

@@ -31,10 +31,13 @@ with the sum over the ranks between them, done by the caller
   dy, dz and this rank's dw.
 
 Each entry point has a backward launcher (``*_bwd``): a row kernel
-that recomputes the norm's rstd from the forward's input and writes the
-input gradients, and a second launch that sums dw's fp32 partial rows in
-a fixed order (deterministic: no atomics).  ``ops.py`` binds each pair
-into a ``torch.autograd.Function``.  The JAX package's Pallas kernel has
+that recomputes the norm's rstd from the forward's input, holds a row in
+registers and writes the input gradients, each block summing dw of its
+rows into one fp32 partial row, and a second launch that sums the
+partial rows in a fixed order (deterministic: no atomics).  The launch
+plan (``row_plan``, ``rope_plan``) is a function of the shape and dtype
+alone and mirrors the source's.  ``ops.py`` binds each pair into a
+``torch.autograd.Function``.  The JAX package's Pallas kernel has
 no backward (it trains through the plain norm); these carry the port's
 gradient where its forward kernel sits on the training path.
 
@@ -46,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,15 +78,15 @@ def _library() -> ctypes.CDLL:
     lib.qk_norm_rope_fwd.argtypes = ([vp, i64, i64, i64] * 2
                                      + [vp, vp, vp, i64, i64, i32, vp, vp, vp]
                                      + [i32] * 5 + [f32, i32, i32, vp])
-    lib.rmsnorm_bwd.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp] + [i32] * 3 \
+    lib.rmsnorm_bwd.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp] + [i32] * 4 \
         + [f32, i32, i32, vp]
     lib.add_rmsnorm_bwd.argtypes = ([vp, i64] * 3 + [vp, vp, vp, vp]
-                                    + [i32] * 3 + [f32, i32, i32, vp])
+                                    + [i32] * 4 + [f32, i32, i32, vp])
     lib.gated_rmsnorm_bwd.argtypes = ([vp, i64] * 3 + [vp, vp, vp, vp, vp]
-                                      + [i32] * 3 + [f32, i32, i32, vp])
+                                      + [i32] * 4 + [f32, i32, i32, vp])
     lib.qk_norm_rope_bwd.argtypes = ([vp, vp] + [vp, i64, i64, i64] * 2
                                      + [vp, vp, vp, i64, i64, i32]
-                                     + [vp] * 5 + [i32] * 6
+                                     + [vp] * 5 + [i32] * 7
                                      + [f32, i32, i32, vp])
     lib.gated_rmsnorm_sumsq.argtypes = [vp, i64, vp, i64, vp, i32, i32, i32,
                                         i32, vp]
@@ -92,7 +95,7 @@ def _library() -> ctypes.CDLL:
     lib.gated_rmsnorm_dot.argtypes = [vp, i64, vp, i64, vp, i64, vp, vp,
                                       i32, i32, i32, i32, vp]
     lib.gated_rmsnorm_scale_bwd.argtypes = ([vp, i64] * 3 + [vp] * 7
-                                            + [i32] * 4 + [f32, i32, i32,
+                                            + [i32] * 5 + [f32, i32, i32,
                                                            vp])
     for fn in (lib.rmsnorm_fwd, lib.add_rmsnorm_fwd, lib.gated_rmsnorm_fwd,
                lib.qk_norm_rope_fwd, lib.rmsnorm_bwd, lib.add_rmsnorm_bwd,
@@ -426,24 +429,108 @@ def qk_norm_rope_fwd(q: torch.Tensor, k: torch.Tensor,
 
 # --- the backward -----------------------------------------------------------
 
-#: the most partial rows of dw a backward sums (one per block of its row
-#: kernel)
-BWD_PARTIALS = 256
+# The backward kernels' launch plan, a function of the shape and x's
+# dtype alone (so the order in which dw is summed is fixed).  Each
+# constant mirrors a ``constexpr`` of ``rmsnorm.cu`` (BWD_GROUPS is
+# kBwdGroups, ...), whose ``row_plan`` and ``rope_plan`` compute what the
+# two functions below compute; a launch whose partial rows disagree with
+# the source's plan is refused.
+#
+# The row kernel: a row's values in groups of ``vec`` (16 bytes of x's
+# dtype where d is a multiple of it, else 1; the forward's grouping);
+# thread t of the row's R threads holds groups t, t + R, ..., at most
+# BWD_GROUPS of them, in registers (R the least power of two that allows
+# it, at most BWD_MAX_ROW_THREADS; a wider row is walked in chunks of R *
+# BWD_GROUPS groups, ``stream``); a block of max(R, BWD_BLOCK_THREADS)
+# threads holds its threads / R row slots; at most BWD_PARTIALS blocks,
+# block b's slot s taking rows (b + k * blocks) * slots + s, k = 0, 1,
+# ...; each block writes one fp32 partial row of dw.
+#
+# qk_norm_rope_bwd: a warp takes a token at a time (ROPE_BWD_WARPS warps
+# a block, at most ROPE_BWD_PARTIALS blocks); a head is ``head_lanes``
+# lanes' work, each holding at most ROPE_BWD_PAIRS of its (i, i + D / 2)
+# pairs, in groups of ``vec`` pairs (16 bytes where D / 2 allows).
+
+#: groups (16 bytes of x, or one element) a thread holds of a row
+BWD_GROUPS = 2
+#: the most threads of a row held in registers
+BWD_MAX_ROW_THREADS = 512
+#: the threads of a block whose rows take at most this many
+BWD_BLOCK_THREADS = 128
+#: the most blocks of the row kernel: fp32 partial rows of dw
+BWD_PARTIALS = 528
+#: the most (i, i + D / 2) pairs a lane holds of a head
+ROPE_BWD_PAIRS = 8
+#: warps (tokens at once) of a qk_norm_rope_bwd block
+ROPE_BWD_WARPS = 4
+#: the most blocks of qk_norm_rope_bwd: fp32 partial rows of (dwq, dwk)
+ROPE_BWD_PARTIALS = 396
 
 
-def partials(rows: int, d: int) -> int:
-    """Blocks of a backward's row kernel, each writing one fp32 partial
-    row of dw: the rows over a block's row slots (four warps up to d
-    ``WARP_ROW_MAX_D``, else one block per row), at most
-    ``BWD_PARTIALS``.  The shape alone decides it, so the order in which
-    dw is summed is fixed."""
-    per_block = 4 if d <= WARP_ROW_MAX_D else 1
-    return max(1, min(-(-rows // per_block), BWD_PARTIALS))
+class RowPlan(NamedTuple):
+    """The row kernel's launch (``row_plan``)."""
+    vec: int          # values of a group
+    row_threads: int  # R, a power of two
+    threads: int      # of a block
+    slots: int        # rows a block holds at once
+    blocks: int       # one fp32 partial row of dw each
+    stream: bool      # the row walked in chunks of R * BWD_GROUPS groups
 
 
-def _partial_rows(rows: int, d: int, device) -> torch.Tensor:
-    return torch.empty((partials(rows, d), d), dtype=torch.float32,
-                       device=device)
+class RopePlan(NamedTuple):
+    """qk_norm_rope_bwd's launch (``rope_plan``)."""
+    vec: int          # pairs of a group
+    head_lanes: int   # lanes of a head, a power of two up to 32
+    blocks: int       # one fp32 partial row of (dwq, dwk) each
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def row_plan(rows: int, d: int, itemsize: int) -> RowPlan:
+    """The row kernel's plan for ``rows`` rows of ``d`` values of
+    ``itemsize`` bytes (x's dtype)."""
+    kv = 16 // itemsize
+    vec = kv if d % kv == 0 else 1
+    per = -(-(d // vec) // BWD_GROUPS)
+    stream = per > BWD_MAX_ROW_THREADS
+    r = BWD_MAX_ROW_THREADS if stream else _pow2_at_least(per)
+    threads = max(r, BWD_BLOCK_THREADS)
+    slots = threads // r
+    return RowPlan(vec, r, threads, slots,
+                   max(1, min(-(-rows // slots), BWD_PARTIALS)), stream)
+
+
+def rope_plan(tokens: int, D: int, itemsize: int) -> RopePlan:
+    """qk_norm_rope_bwd's plan for ``tokens`` = B * S tokens of heads of
+    ``D`` values of ``itemsize`` bytes."""
+    kv = 16 // itemsize
+    half = D // 2
+    vec = kv if half % kv == 0 else 1
+    per_lane = ROPE_BWD_PAIRS // vec
+    lanes = _pow2_at_least(-(-(half // vec) // per_lane))
+    return RopePlan(vec, lanes, max(1, min(-(-tokens // ROPE_BWD_WARPS),
+                                           ROPE_BWD_PARTIALS)))
+
+
+def _partial_rows(rows: int, d: int, x: torch.Tensor) -> torch.Tensor:
+    return torch.empty((row_plan(rows, d, x.element_size()).blocks, d),
+                       dtype=torch.float32, device=x.device)
+
+
+def _heads_vectorized(q, k, w, *contiguous) -> bool:
+    """Whether qk_norm_rope_bwd may read 16 bytes per load: D / 2 a
+    multiple of the vector, q's and k's strides multiples of it, every
+    pointer 16-byte aligned and w aligned to the vector's share of it
+    (w None: RoPE alone)."""
+    es = q.element_size()
+    vec = 16 // es
+    return (q.shape[-1] // 2 % vec == 0
+            and all(s % vec == 0 for t in (q, k) for s in t.stride()[:3])
+            and all(t.data_ptr() % 16 == 0 for t in (q, k) + contiguous)
+            and (w is None or all(t.data_ptr() % (vec * t.element_size())
+                                  == 0 for t in w)))
 
 
 def rmsnorm_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, w: torch.Tensor, *,
@@ -454,8 +541,9 @@ def rmsnorm_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, w: torch.Tensor, *,
     rstd recomputed from x, everything summed in fp32.
 
     Two launches (the row kernel, then the fixed-order sum of dw's
-    partial rows), counted as one in ``rmsnorm_bwd.launches``; the same
-    stream and grad rules as ``rmsnorm_fwd``."""
+    partial rows; ``row_plan``), counted as one in
+    ``rmsnorm_bwd.launches``; the same stream and grad rules as
+    ``rmsnorm_fwd``."""
     refuse_grad("rmsnorm_bwd", dy2d, x2d, w)
     _check(x2d, w, dy=dy2d)
     rows, d = x2d.shape
@@ -463,12 +551,12 @@ def rmsnorm_bwd(dy2d: torch.Tensor, x2d: torch.Tensor, w: torch.Tensor, *,
     if rows == 0:
         return dx, torch.zeros((d,), dtype=w.dtype, device=w.device)
     dw = torch.empty((d,), dtype=w.dtype, device=w.device)
-    part = _partial_rows(rows, d, x2d.device)
+    part = _partial_rows(rows, d, x2d)
     _launch("rmsnorm_bwd", x2d.device,
             dy2d.data_ptr(), dy2d.stride(0), x2d.data_ptr(), x2d.stride(0),
             w.data_ptr(), dx.data_ptr(), dw.data_ptr(), part.data_ptr(),
-            part.shape[0], rows, d, float(eps), _DTYPE_CODES[x2d.dtype],
-            _DTYPE_CODES[w.dtype])
+            part.shape[0], int(vectorized(x2d, w, dx, dy2d)), rows, d,
+            float(eps), _DTYPE_CODES[x2d.dtype], _DTYPE_CODES[w.dtype])
     rmsnorm_bwd.launches += 1
     return dx, dw
 
@@ -491,14 +579,15 @@ def add_rmsnorm_bwd(dh2d: torch.Tensor, dr2d: Optional[torch.Tensor],
     if rows == 0:
         return g, torch.zeros((d,), dtype=w.dtype, device=w.device)
     dw = torch.empty((d,), dtype=w.dtype, device=w.device)
-    part = _partial_rows(rows, d, r2d.device)
+    part = _partial_rows(rows, d, r2d)
+    vec = vectorized(r2d, w, g, dh2d, *(() if dr2d is None else (dr2d,)))
     _launch("add_rmsnorm_bwd", r2d.device,
             dh2d.data_ptr(), dh2d.stride(0),
             None if dr2d is None else dr2d.data_ptr(),
             0 if dr2d is None else dr2d.stride(0),
             r2d.data_ptr(), r2d.stride(0), w.data_ptr(), g.data_ptr(),
-            dw.data_ptr(), part.data_ptr(), part.shape[0], rows, d,
-            float(eps), _DTYPE_CODES[r2d.dtype], _DTYPE_CODES[w.dtype])
+            dw.data_ptr(), part.data_ptr(), part.shape[0], int(vec), rows,
+            d, float(eps), _DTYPE_CODES[r2d.dtype], _DTYPE_CODES[w.dtype])
     add_rmsnorm_bwd.launches += 1
     return g, dw
 
@@ -524,12 +613,13 @@ def gated_rmsnorm_bwd(dout2d: torch.Tensor, y2d: torch.Tensor,
     if rows == 0:
         return dy, dz, torch.zeros((d,), dtype=w.dtype, device=w.device)
     dw = torch.empty((d,), dtype=w.dtype, device=w.device)
-    part = _partial_rows(rows, d, y2d.device)
+    part = _partial_rows(rows, d, y2d)
     _launch("gated_rmsnorm_bwd", y2d.device,
             dout2d.data_ptr(), dout2d.stride(0), y2d.data_ptr(),
             y2d.stride(0), z2d.data_ptr(), z2d.stride(0), w.data_ptr(),
             dy.data_ptr(), dz.data_ptr(), dw.data_ptr(), part.data_ptr(),
-            part.shape[0], rows, d, float(eps), _DTYPE_CODES[y2d.dtype],
+            part.shape[0], int(vectorized(y2d, w, dy, z2d, dout2d, dz)),
+            rows, d, float(eps), _DTYPE_CODES[y2d.dtype],
             _DTYPE_CODES[w.dtype])
     gated_rmsnorm_bwd.launches += 1
     return dy, dz, dw
@@ -589,12 +679,13 @@ def gated_rmsnorm_scale_bwd(dout2d: torch.Tensor, y2d: torch.Tensor,
     if rows == 0:
         return dy, dz, torch.zeros((d,), dtype=w.dtype, device=w.device)
     dw = torch.empty((d,), dtype=w.dtype, device=w.device)
-    part = _partial_rows(rows, d, y2d.device)
+    part = _partial_rows(rows, d, y2d)
     _launch("gated_rmsnorm_scale_bwd", y2d.device,
             dout2d.data_ptr(), dout2d.stride(0), y2d.data_ptr(),
             y2d.stride(0), z2d.data_ptr(), z2d.stride(0), w.data_ptr(),
             ss.data_ptr(), dot.data_ptr(), dy.data_ptr(), dz.data_ptr(),
-            dw.data_ptr(), part.data_ptr(), part.shape[0], rows, d,
+            dw.data_ptr(), part.data_ptr(), part.shape[0],
+            int(vectorized(y2d, w, dy, z2d, dout2d, dz)), rows, d,
             int(d_total), float(eps), _DTYPE_CODES[y2d.dtype],
             _DTYPE_CODES[w.dtype])
     gated_rmsnorm_scale_bwd.launches += 1
@@ -613,8 +704,9 @@ def qk_norm_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, q: torch.Tensor,
     to the weights' dtype; without weights the rotation alone and dwq,
     dwk None.
 
-    One row kernel (a warp per head) and, with weights, the sum of the
-    dw partial rows, counted as one in ``qk_norm_rope_bwd.launches``."""
+    One row kernel (a warp per token, ``rope_plan``) and, with weights,
+    the sum of the dw partial rows, counted as one in
+    ``qk_norm_rope_bwd.launches``."""
     refuse_grad("qk_norm_rope_bwd", dq, dk, q, k, wq, wk, inv_freq)
     _check_heads(q, k)
     B, S, Hq, D = q.shape
@@ -645,9 +737,11 @@ def qk_norm_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, q: torch.Tensor,
     if rows == 0:
         return dq_in, dk_in, *((None, None) if dw is None
                                else dw.zero_().unbind())
-    nb = partials(rows, D)
+    nb = rope_plan(B * S, D, q.element_size()).blocks
     part = (None if wq is None else
             torch.empty((nb, 2, D), dtype=torch.float32, device=q.device))
+    vec = _heads_vectorized(q, k, None if wq is None else (wq, wk), dq, dk,
+                            dq_in, dk_in)
     _launch("qk_norm_rope_bwd", q.device,
             dq.data_ptr(), dk.data_ptr(), q.data_ptr(), *q.stride()[:3],
             k.data_ptr(), *k.stride()[:3],
@@ -656,8 +750,8 @@ def qk_norm_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, q: torch.Tensor,
             pos.data_ptr(), *pos.stride(), int(pos.dtype == torch.int64),
             inv_freq.data_ptr(), dq_in.data_ptr(), dk_in.data_ptr(),
             None if part is None else part.data_ptr(),
-            None if dw is None else dw.data_ptr(), nb, B, S, Hq, Hkv, D,
-            float(eps), _DTYPE_CODES[q.dtype],
+            None if dw is None else dw.data_ptr(), nb, int(vec), B, S, Hq,
+            Hkv, D, float(eps), _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[wq.dtype] if wq is not None else 0)
     qk_norm_rope_bwd.launches += 1
     return dq_in, dk_in, *((None, None) if dw is None else dw.unbind())

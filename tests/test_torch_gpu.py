@@ -31,8 +31,9 @@ from repro_torch.kernels.paged_attention.ref import \
 from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm.cases import (
-    BWD_ENTRIES, QK_ROPE_CASES, QK_ROPE_THETA, RMSNORM_CASES, RMSNORM_DTYPES,
-    SPLIT_CASES, SPLIT_ENTRIES, add_rmsnorm_unfused, bwd_case, bwd_max_err,
+    BWD_ENTRIES, QK_ROPE_BWD_CASES, QK_ROPE_CASES, QK_ROPE_THETA,
+    RMSNORM_BWD_CASES, RMSNORM_CASES, RMSNORM_DTYPES, SPLIT_CASES,
+    SPLIT_ENTRIES, add_rmsnorm_unfused, bwd_case, bwd_max_err,
     gated_rmsnorm_unfused, pair_case_on, qk_norm_rope_unfused,
     qk_rope_case_on, rmsnorm_case_on, split_case_on, split_check)
 from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
@@ -688,11 +689,11 @@ def test_split_gated_norm_entries_refuse_a_short_width_and_take_no_rows():
 
 # --- the backward kernels (the training slice) ------------------------------
 
-#: (backward, case): the row kernels on every RMSNORM_CASES entry, the
-#: qk-norm-RoPE backward on every QK_ROPE_CASES entry
+#: (backward, case): the row kernels on every RMSNORM_BWD_CASES entry,
+#: the qk-norm-RoPE backward on every QK_ROPE_BWD_CASES entry
 BWD_CASES = [(e, c) for e in BWD_ENTRIES
-             for c in (QK_ROPE_CASES if e == "qk_norm_rope_bwd"
-                       else RMSNORM_CASES)]
+             for c in (QK_ROPE_BWD_CASES if e == "qk_norm_rope_bwd"
+                       else RMSNORM_BWD_CASES)]
 
 
 @pytest.mark.gpu
