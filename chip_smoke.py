@@ -76,10 +76,13 @@ and any failure exits non-zero:
     ``gated_rmsnorm_fwd``: Mamba2's ``y * silu(z)`` and its norm) on every
     case of ``kernels/rmsnorm/cases.py`` (widths 16 to 5120, d not a
     multiple of the 16-byte vector, 1 to 1024 rows, one to three leading
-    axes, strided row views), the fused ``qk_norm_rope_fwd`` (qk-norm and
-    RoPE of q and k) on every case of its list (every path's heads and
-    positions, D 128 and 80, strided heads, no rows), in four (x, w) dtype
-    pairs (tolerance by x's dtype: f32 2e-5, bf16 2e-2); each fused
+    axes, strided row views; the gated kernel also at mamba2's train
+    launch and on rows that walk its plan's loops), the fused
+    ``qk_norm_rope_fwd`` (qk-norm and RoPE of q and k) on every case of
+    its list (every path's heads and positions, D 128, 80 and 64, strided
+    heads, no rows, qwen3-0.6b's train launch, heads spread over warps),
+    in four (x, w) dtype pairs (tolerance by x's dtype: f32 2e-5, bf16
+    2e-2); each fused
     kernel must also equal the unfused card sequence it replaces (the
     RMSNorm kernel beside torch's eager ops) in every element.  Then each
     is timed at the paths' shapes beside its bound, the plain version, the
@@ -299,6 +302,19 @@ builds the kernels and runs phases 31 and 32 alone.
 
 builds the kernels and runs the split gated norm's part of phase 12,
 phase 8 and phase 33 alone.
+
+    python3 chip_smoke.py --norm-fwd
+
+builds the kernels and runs phase 12 alone (the forward RMSNorm kernels
+on every case, the card-only cases among them, and their times at the
+paths' launches, the train launches among them; the split gated norm's
+entries).
+
+    python3 chip_smoke.py --norm-times [SRC]
+
+runs phase 12's timing alone with the package of SRC as
+``--kernel-times`` takes it (parent, change, change, parent in one call
+gives both sides' spread).
 
     python3 chip_smoke.py --norm-bwd
 
@@ -1838,9 +1854,11 @@ def _differ(got, want) -> int:
 
 def phase_rmsnorm_kernel_vs_plain() -> dict:
     """The RMSNorm kernels against their plain versions on the card, in
-    four (x, w) dtype pairs: ``rmsnorm_fwd``, ``add_rmsnorm_fwd`` and
-    ``gated_rmsnorm_fwd`` on every case of ``RMSNORM_CASES``,
-    ``qk_norm_rope_fwd`` on every case of ``QK_ROPE_CASES``; each fused
+    four (x, w) dtype pairs: ``rmsnorm_fwd`` and ``add_rmsnorm_fwd`` on
+    every case of ``RMSNORM_CASES``, ``gated_rmsnorm_fwd`` on every case
+    of ``GATED_FWD_CASES`` (those and the train launch and the plan's
+    loops), ``qk_norm_rope_fwd`` on every case of ``QK_ROPE_FWD_CASES``
+    (``QK_ROPE_CASES``, the train launch and the plan's loops); each fused
     kernel must also equal the unfused card sequence in every element.
     Then timed (``time_norm_kernels``).  Returns the JSON numbers of each
     kernel, by name."""
@@ -1882,9 +1900,21 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
                   gated_rmsnorm_ref(a, b, w, 1e-6))
             differ["gated_rmsnorm_fwd"] += _differ(
                 got, C.gated_rmsnorm_unfused(a, b, w, 1e-6))
+    # the gated kernel's card-only cases, after the shared ones
+    for seed, (case, shape, layout) in enumerate(C.GATED_FWD_CASES):
+        if seed < len(C.RMSNORM_CASES):
+            continue
+        for xdt, wdt in C.RMSNORM_DTYPES:
+            label = f"{case}/w{str(wdt)[6:]}"
+            a, b, w = C.pair_case_on(DEVICE, xdt, wdt, shape, layout, seed)
+            got = rms_ops.gated_rmsnorm(a, b, w, 1e-6)
+            check("gated_rmsnorm_fwd", label, xdt, got,
+                  gated_rmsnorm_ref(a, b, w, 1e-6))
+            differ["gated_rmsnorm_fwd"] += _differ(
+                got, C.gated_rmsnorm_unfused(a, b, w, 1e-6))
     theta = C.QK_ROPE_THETA
     for seed, (case, dims, positions, norm, layout) in \
-            enumerate(C.QK_ROPE_CASES):
+            enumerate(C.QK_ROPE_FWD_CASES):
         for xdt, wdt in C.RMSNORM_DTYPES:
             args = C.qk_rope_case_on(DEVICE, xdt, wdt, dims, positions, norm,
                                      layout, seed)
@@ -4967,6 +4997,35 @@ def train_profile(src: str) -> None:
     print(card)
 
 
+def norm_times(src: str) -> None:
+    """``--norm-times [SRC]``: phase 12's timing alone (the forward RMSNorm
+    kernels and the unfused sequences at the paths' launches, the split
+    gated norm's entries), with the ``repro_torch`` package of the ``src``
+    directory SRC of another checkout (default: this one) as
+    ``--kernel-times`` takes it; builds only the RMSNorm library; prints
+    no JSON."""
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    import repro_torch
+    print(f"norm times of {Path(repro_torch.__file__).parent}")
+    time_norm_kernels("norm times", norm_cases())
+    time_split_norm("norm times", norm_cases())
+    print(card_line())
+
+
+def norm_fwd_phases() -> None:
+    """``--norm-fwd``: build the kernels and run phase 12 alone (every
+    forward RMSNorm kernel on every case, bit for bit against the unfused
+    card sequences, and timed at the paths' launches, the train launches
+    among them; the split gated norm's entries); prints no JSON."""
+    phase_device_and_build()
+    t0 = time.perf_counter()
+    phase_rmsnorm_kernel_vs_plain()
+    phase_split_norm_vs_plain()
+    print(f"phase 12 seconds: {time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 def norm_bwd_phases() -> None:
     """``--norm-bwd``: build the kernels and run phase 16 and the split
     gated norm's part of phase 12 alone (every backward kernel); prints
@@ -4998,6 +5057,10 @@ if __name__ == "__main__":
         mamba_tp_phases()
     elif sys.argv[1:2] == ["--norm-bwd"]:
         norm_bwd_phases()
+    elif sys.argv[1:2] == ["--norm-fwd"]:
+        norm_fwd_phases()
+    elif sys.argv[1:2] == ["--norm-times"]:
+        norm_times(sys.argv[2] if len(sys.argv) > 2 else "")
     elif sys.argv[1:2] == ["--train-profile"]:
         train_profile(sys.argv[2] if len(sys.argv) > 2 else "")
     elif sys.argv[1:2] == ["--seq-split"]:

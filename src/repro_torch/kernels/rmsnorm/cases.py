@@ -154,13 +154,15 @@ def qk_rope_case_on(device, x_dtype, w_dtype, dims, positions, norm,
                     layout="dense", seed=0):
     """``qk_rope_case`` as tensors on ``device``: q and k in ``x_dtype``
     (for "fused-qkv", head views of one [B, S, (Hq + 2 Hkv) * D]
-    projection), the weights in ``w_dtype``."""
+    projection; "fused-qkv+1" one element wider, so that a token's stride
+    breaks the 16-byte vector), the weights in ``w_dtype``."""
     B, S, Hq, Hkv, D = dims
     q, k, wq, wk, pos = _qk_rope_draws(tuple(dims), positions, norm, seed)
     qt = torch.from_numpy(q).to(device, x_dtype, copy=True)
     kt = torch.from_numpy(k).to(device, x_dtype, copy=True)
-    if layout == "fused-qkv":
-        qkv = torch.zeros((B, S, (Hq + 2 * Hkv) * D), dtype=x_dtype,
+    if layout in ("fused-qkv", "fused-qkv+1"):
+        pad = int(layout == "fused-qkv+1")
+        qkv = torch.zeros((B, S, (Hq + 2 * Hkv) * D + pad), dtype=x_dtype,
                           device=device)
         qkv[..., :Hq * D] = qt.flatten(2)
         qkv[..., Hq * D:(Hq + Hkv) * D] = kt.flatten(2)
@@ -171,6 +173,34 @@ def qk_rope_case_on(device, x_dtype, w_dtype, dims, positions, norm,
           for a in (wq, wk)]
     return qt, kt, ws[0], ws[1], torch.from_numpy(pos).to(device, copy=True)
 
+
+#: the forward kernels' cases on the card only (``chip_smoke.py`` phase 12
+#: and the card tests; the CPU tests hold the plain versions on the lists
+#: above): the train launches, and shapes that walk the forward plans'
+#: loops (``kernel.py::rope_fwd_plan``, ``gated_plan``).  qk_norm_rope_fwd
+#: (the token layout: more than 4,224 (token, head) rows): qwen3-0.6b's
+#: train launch (8,192 tokens, a token a warp, 12 chunks of 2 heads in
+#: bf16), 500 tokens of qwen3-moe's 36 heads (the heads spread over
+#: several warps a token, their chunk counts one apart), 7 heads of 64
+#: (a chunk part empty), D 80 with the norm over 1,200 tokens, and 200
+#: tokens whose stride breaks the 16-byte vector (a chunk a warp).  gated_rmsnorm_fwd: mamba2's train
+#: launch [2048, 3072] (rows walked by the persistent grid, the ring),
+#: 1,000 rows of 1,536 (192 threads) through a stride that breaks the
+#: vector, 2,000 rows of 96 (warp mode, four rows a block) and 600 rows
+#: of 1,030 (no vector: the row in chunks)
+QK_ROPE_FWD_CASES = QK_ROPE_CASES + [
+    ("qwen3-train", (8, 1024, 16, 8, 128), "seq", True, "dense"),
+    ("qwen3-moe-heads-split", (4, 125, 32, 4, 128), "rows", True, "dense"),
+    ("d64-seven-heads", (3, 250, 5, 2, 64), "seq", True, "fused-qkv"),
+    ("d80-qk-norm-tokens", (2, 600, 4, 2, 80), "rows", True, "dense"),
+    ("d128-fused-qkv+1", (2, 100, 16, 8, 128), "rows", True, "fused-qkv+1"),
+]
+GATED_FWD_CASES = RMSNORM_CASES + [
+    ("d3072-rows2048-train", (4, 512, 3072), "dense"),
+    ("d1536-rows1000-stride+3", (1000, 1536), "row-stride+3"),
+    ("d96-rows2000-warp", (2000, 96), "dense"),
+    ("d1030-rows600-chunked", (600, 1030), "dense"),
+]
 
 #: the fused kernels at the paths' launches that ``chip_smoke.py`` times, by
 #: entry point: (name, arch, B, S) and, for qk_norm_rope, the positions'
@@ -185,6 +215,7 @@ FUSED_TIMED = {
         ("zamba2 decode", "zamba2-2.7b", 8, 1),
         ("qwen3-0.6b prefill", "qwen3-0.6b", 8, 128),
         ("mamba2 prefill", "mamba2-780m", 8, 384),
+        ("qwen3-0.6b train", "qwen3-0.6b", 8, 1024),
     ],
     "qk_norm_rope_fwd": [
         ("qwen3-0.6b paged decode", "qwen3-0.6b", 8, 1, "rows"),
@@ -192,12 +223,14 @@ FUSED_TIMED = {
         ("qwen3-moe paged decode", "qwen3-moe-30b-a3b", 8, 1, "rows"),
         ("zamba2 decode", "zamba2-2.7b", 8, 1, "one"),
         ("qwen3-0.6b prefill", "qwen3-0.6b", 8, 128, "seq"),
+        ("qwen3-0.6b train", "qwen3-0.6b", 8, 1024, "seq"),
     ],
     "gated_rmsnorm_fwd": [
         ("mamba2 decode", "mamba2-780m", 8, 1),
         ("zamba2 decode", "zamba2-2.7b", 8, 1),
         ("zamba2 prefill", "zamba2-2.7b", 8, 128),
         ("mamba2 prefill", "mamba2-780m", 8, 384),
+        ("mamba2 train", "mamba2-780m", 4, 512),
     ],
 }
 

@@ -40,27 +40,65 @@
 // takes less than about 1.5 us; so the design takes over the neighbours'
 // launches instead of shaving the norm's own time.
 //
-// Design.  Every entry point runs the same sum of squares (inv_rms) in the
-// same order: a row's d values in groups of kVec (16 bytes of T when d is a
-// multiple of it, else 1), thread t of the row's threads summing groups t,
-// t + kRowThreads, ... with explicit fmas, then warp shuffles, then shared
-// memory across the warps of a block.  The grouping depends on d and T
-// only; whether a group is one 16-byte load or kVec loads of one element
-// (a row stride or pointer that breaks the vector) does not change the
-// values or their order.  So a fused variant's norm is bit-identical to
-// rmsnorm_fwd of the tensor the unfused path would have materialised (r,
-// the gated product, or the qk-norm's input).  A row of d <= 512 (a head
-// of q or k) is one warp's work (four rows per block of 128 threads), a
-// longer row one block of 256 threads: a decode step's norms are 8 rows,
-// and a warp would walk a 1,024-wide row in four dependent steps where a
-// block takes one (1.8 against 3.1 us at [8, 1024] on an H100,
-// chip_smoke.py phase 12).  The split follows d
-// alone, so the fused variants and rmsnorm_fwd always agree on it.  The
-// row's values come from a policy (PlainRow, AddRow,
-// GatedRow) that the reduction and the write-out both call: the second
-// pass recomputes them from the inputs (from L1/L2: a row is a few KB)
-// rather than reading back what the first pass wrote.
+// Design.  Every entry point runs the same sum of squares in the same
+// order, rmsnorm_fwd's tree: a row's d values in groups of kVec (16 bytes
+// of T when d is a multiple of it, else 1), thread t of the row's threads
+// summing groups t, t + kRowThreads, ... with explicit fmas from 0, then
+// the warp's xor butterfly (16, 8, 4, 2, 1), then, in a block, the warps'
+// sums in the same butterfly over lanes 0 .. warps - 1.  The grouping
+// depends on d and T only; whether a group is one 16-byte load or kVec
+// loads of one element (a row stride or pointer that breaks the vector)
+// does not change the values or their order.  So a fused variant's norm
+// is bit-identical to rmsnorm_fwd of the tensor the unfused path would
+// have materialised (r, the gated product, or the qk-norm's input).  A
+// row of d <= 512 (a head of q or k) is one warp's work (four rows per
+// block of 128 threads), a longer row one block of 256 threads: a decode
+// step's norms are 8 rows, and a warp would walk a 1,024-wide row in four
+// dependent steps where a block takes one (1.8 against 3.1 us at [8,
+// 1024] on an H100, chip_smoke.py phase 12).  The split follows d alone,
+// so the fused variants and rmsnorm_fwd always agree on it.
 //
+// The forward's design.  rmsnorm_fwd and add_rmsnorm_fwd (norm_kernel)
+// take their row's values from a policy (PlainRow, AddRow) that the
+// reduction and the write-out both call: the second pass reads the row
+// again (from L1/L2: a row is a few KB).  The other two hold their values
+// in registers instead, in layouts that keep rmsnorm_fwd's tree; a
+// thread or lane that rmsnorm_fwd would give no group adds an exact zero
+// (a sum of squares is never -0), so leaving it out changes no bit:
+// * gated_norm_kernel (gated_rmsnorm_fwd, gated_rmsnorm_sumsq,
+//   gated_rmsnorm_scale; plan gated_plan): thread t holds the gated
+//   values T(y * T(silu(z))) of its groups t, t + V, ... (V = 32 or 256,
+//   rmsnorm_fwd's threads of the row), so the gate (expf and an IEEE
+//   divide) is computed once per element; the row's threads stop at the
+//   last warp that holds a group (192 at d 1,536 in bf16).  The grid is
+//   persistent over rows (no more blocks than the card holds at once, at
+//   most 64 registers a thread).  Where a block walks kGatedRingRows
+//   rows or more, the next row's y and z come through a two-stage
+//   cp.async ring and w is loaded once per block into shared memory as
+//   fp32 (each thread its own groups: no barrier); elsewhere the ring's
+//   shared memory would cost blocks and buy nothing (d 5,120 at 1,024
+//   rows, d 1,536 at 2,048), and each write-out reads w through L1.  A
+//   row of more than V * kGatedGroups groups is walked in chunks, the
+//   gate computed again for the write-out.
+// * qk_norm_rope_kernel (plan rope_fwd_plan): a head of n <= 32 groups
+//   takes P = 2^ceil(log2 n) lanes, lane t its group t, one 16-byte load:
+//   the head's sum is the fma chain of group t, then the butterfly over
+//   its P lanes, which is rmsnorm_fwd's warp tree with the exact zeros of
+//   lanes n .. 31 left out.  RoPE pairs element i with i + D / 2, group
+//   t with group t +- n / 2 (no group straddles the halves where D / 2 is
+//   a multiple of kVec), whose lane hands its normed values over by
+//   shuffle.  A warp takes a token's (cos, sin) once into shared memory,
+//   holds wq and wk at its lanes' groups, and walks the token's heads,
+//   32 / P at a time, one a lane (two a lane, or the next chunk's loads
+//   issued ahead, were slower on an H100); where tokens are few a
+//   token's heads are spread over `split` warps so that about
+//   kRopeFwdFill warps run.  A launch of at most kRopeFwdFill (token,
+//   head) rows (a decode step's), a head of more than 32 groups, or one
+//   whose groups straddle the halves keeps a warp per (token, head)
+//   (qk_norm_rope_kernel_per_head), rmsnorm_fwd's own layout: at decode
+//   the token layout's longer chain of work a warp (cos and sin, then
+//   its heads) took 3.7 us on an H100 where a warp a row takes 2.5.
+
 // Bit-exact against the eager PyTorch sequence each fusion replaces:
 // every operation torch runs in its own launch is done here with the
 // rounding intrinsics (__fadd_rn, __fmul_rn, __fsub_rn, __fdiv_rn), so
@@ -127,6 +165,61 @@ __device__ __forceinline__ void store_group(T* p, const float (&v)[kVec]) {
   }
 }
 
+// kVec values of T at p as they lie in memory: one 16-byte load when
+// kVecLoad, else kVec loads of one element
+template <int kVec, bool kVecLoad, typename T>
+__device__ __forceinline__ void load_raw(const T* p, Vec<T, kVec>& v) {
+  if constexpr (kVecLoad) {
+    v = *reinterpret_cast<const Vec<T, kVec>*>(p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v.v[k] = p[k];
+  }
+}
+
+// kVec values of w at element e as floats; w is float or, with w_bf16,
+// bfloat16 (a runtime choice: one instantiation serves both)
+template <int kVec, bool kVecLoad>
+__device__ __forceinline__ void load_w(const void* w, bool w_bf16, int e,
+                                       float (&v)[kVec]) {
+  if (w_bf16) {
+    Vec<__nv_bfloat16, kVec> r;
+    load_raw<kVec, kVecLoad>(static_cast<const __nv_bfloat16*>(w) + e, r);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = attn::to_f32(r.v[k]);
+  } else {
+    Vec<float, kVec> r;
+    load_raw<kVec, kVecLoad>(static_cast<const float*>(w) + e, r);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) v[k] = r.v[k];
+  }
+}
+
+// Mamba2's gate at one element: (T(silu(z)), 1 + exp(-z)), torch's F.silu
+// (z / (1 + exp(-z)) in fp32, rounded to T)
+template <typename T>
+__device__ __forceinline__ float2 gate(float z) {
+  const float e = __fadd_rn(1.f, expf(-z));
+  return make_float2(round_to<T>(__fdiv_rn(z, e)), e);
+}
+
+// T(y * T(silu(z))): the gated norm's input, torch's mul of y and F.silu
+template <typename T>
+__device__ __forceinline__ float gated_value(float y, float z) {
+  return round_to<T>(__fmul_rn(y, gate<T>(z).x));
+}
+
+// the least l with 2^l >= n
+inline int log2_ceil(long long n) {
+  int l = 0;
+  while ((1LL << l) < n) ++l;
+  return l;
+}
+
+inline int clamp_blocks(long long need, int cap) {
+  return (int)(need < 1 ? 1 : need < cap ? need : cap);
+}
+
 // --- the row's values: first() in the reduction pass, again() in the
 // write-out pass; both give the same values --------------------------------
 
@@ -157,28 +250,6 @@ struct AddRow {
   __device__ __forceinline__ void first(int g, float (&v)[kVec]) const {
     again(g, v);
     store_group<kVec, kVecLoad>(r + g * kVec, v);
-  }
-};
-
-// T(y * T(silu(z))): torch's F.silu (z / (1 + exp(-z)) in fp32, rounded
-// to T), then its mul (rounded to T), then the norm of the product
-template <typename T, int kVec, bool kVecLoad>
-struct GatedRow {
-  const T* y;
-  const T* z;
-  __device__ __forceinline__ void again(int g, float (&v)[kVec]) const {
-    float a[kVec], b[kVec];
-    load_group<kVec, kVecLoad>(y + g * kVec, a);
-    load_group<kVec, kVecLoad>(z + g * kVec, b);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) {
-      const float e = __fadd_rn(1.f, expf(-b[k]));
-      const float s = round_to<T>(__fdiv_rn(b[k], e));
-      v[k] = round_to<T>(__fmul_rn(a[k], s));
-    }
-  }
-  __device__ __forceinline__ void first(int g, float (&v)[kVec]) const {
-    again(g, v);
   }
 };
 
@@ -222,18 +293,17 @@ __device__ __forceinline__ float inv_rms(const Row& row, int d, float eps) {
   return rsqrtf(row_sumsq<kVec, kRowThreads>(row, d) / (float)d + eps);
 }
 
-// --- rmsnorm_fwd, add_rmsnorm_fwd, gated_rmsnorm_fwd, and the split gated
-// norm's gated_rmsnorm_sumsq and gated_rmsnorm_scale -------------------------
+// --- rmsnorm_fwd and add_rmsnorm_fwd --------------------------------------
 
-// kGatedSumSq writes the row's sum of squares of GatedRow's values (the
+// kGatedSumSq writes the row's sum of squares of the gated values (the
 // reduction every entry point runs, stopped before its rsqrt); kGatedScale
 // writes the gated norm at a given sum over the whole row (S, D)
 enum class Op { kNorm, kAdd, kGated, kGatedSumSq, kGatedScale };
 
 struct RowArgs {
-  const void* a;  // x (kNorm, kAdd) or y (kGated)
+  const void* a;  // x (kNorm, kAdd) or y (the gated ops)
   long long a_stride;
-  const void* b;  // delta (kAdd) or z (kGated); unused by kNorm
+  const void* b;  // delta (kAdd) or z (the gated ops); unused by kNorm
   long long b_stride;
   const void* w;
   void* out;
@@ -243,6 +313,7 @@ struct RowArgs {
   float* ss_out = nullptr;      // kGatedSumSq: [rows]
   const float* ss = nullptr;    // kGatedScale: [rows], the whole rows' sums
   int d_total = 0;              // kGatedScale: the whole rows' width
+  int w_bf16 = 0;               // the gated row kernel: w is bfloat16
 };
 
 template <Op kOp, typename T, typename W, int kVec, bool kVecLoad,
@@ -257,17 +328,11 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const RowArgs args) {
   if (row >= args.rows) return;
   const int d = args.d;
   const T* a = static_cast<const T*>(args.a) + row * args.a_stride;
-  const T* b = static_cast<const T*>(args.b) + row * args.b_stride;
-  if constexpr (kOp == Op::kGatedSumSq) {  // no w and no out
-    const float ss =
-        row_sumsq<kVec, kRowThreads>(GatedRow<T, kVec, kVecLoad>{a, b}, d);
-    if (t == 0) args.ss_out[row] = ss;
-    return;
-  }
   const W* w = static_cast<const W*>(args.w);
   T* outr = static_cast<T*>(args.out) + row * (long long)d;
 
-  auto write = [&](const auto& values, float inv) {
+  auto run = [&](const auto& values) {
+    const float inv = inv_rms<kVec, kRowThreads>(values, d, args.eps);
     for (int g = t; g < d / kVec; g += kRowThreads) {
       float v[kVec], wv[kVec];
       values.again(g, v);
@@ -278,19 +343,12 @@ __global__ void __launch_bounds__(kThreads) norm_kernel(const RowArgs args) {
       store_group<kVec, kVecLoad>(outr + g * kVec, v);
     }
   };
-  auto run = [&](const auto& values) {
-    write(values, inv_rms<kVec, kRowThreads>(values, d, args.eps));
-  };
-  if constexpr (kOp == Op::kGatedScale) {
-    write(GatedRow<T, kVec, kVecLoad>{a, b},
-          rsqrtf(args.ss[row] / (float)args.d_total + args.eps));
-  } else if constexpr (kOp == Op::kNorm) {
+  if constexpr (kOp == Op::kNorm) {
     run(PlainRow<T, kVec, kVecLoad>{a});
-  } else if constexpr (kOp == Op::kAdd) {
+  } else {
+    const T* b = static_cast<const T*>(args.b) + row * args.b_stride;
     T* r = static_cast<T*>(args.r) + row * (long long)d;
     run(AddRow<T, kVec, kVecLoad>{a, b, r});
-  } else {
-    run(GatedRow<T, kVec, kVecLoad>{a, b});
   }
 }
 
@@ -334,7 +392,315 @@ int launch_rows(const RowArgs& a, int x_dtype, int w_dtype, int vec,
   return cudaErrorInvalidValue;
 }
 
-// --- qk_norm_rope_fwd ------------------------------------------------------
+// --- gated_rmsnorm_fwd, and the split gated norm's gated_rmsnorm_sumsq and
+// gated_rmsnorm_scale: the gated row kernel (plan gated_plan, kernel.py
+// ``gated_plan``; see "the forward's design" above) ----------------------
+
+constexpr int kGatedGroups = 4;         // kernel.py GATED_GROUPS
+constexpr int kGatedMaxBlocks = 1056;  // kernel.py GATED_MAX_BLOCKS
+constexpr int kGatedBlocksPerSm = 4;   // the register cap: 64 a thread
+constexpr int kGatedRingRows = 3;      // kernel.py GATED_RING_ROWS
+
+struct GatedPlan {
+  int vec;          // values of a group (rmsnorm_fwd's grouping)
+  int log_v;        // rmsnorm_fwd's threads of a row: V = 1 << log_v
+  int row_threads;  // the threads that hold a row's groups, at most V
+  int slots;        // rows a block holds at once
+  int threads;      // of a block
+  int groups;       // of a thread: groups t, t + V, ...
+  bool stream;      // groups > kGatedGroups: chunks, the gate computed twice
+  int blocks;
+};
+
+// kernel.py gated_plan mirrors it
+inline GatedPlan gated_plan(int rows, int d, int itemsize) {
+  GatedPlan p;
+  const int kv = 16 / itemsize;
+  p.vec = d % kv == 0 ? kv : 1;
+  const int n = d / p.vec;
+  p.log_v = d <= kWarpRowMaxD ? 5 : log2_ceil(kBlockModeThreads);
+  const int v = 1 << p.log_v;
+  p.groups = (n + v - 1) / v;
+  p.stream = p.groups > kGatedGroups;
+  // in block mode a warp of rmsnorm_fwd's that would hold no group adds an
+  // exact zero to the row's sum: it is left out
+  p.row_threads = n < v ? (n + 31) / 32 * 32 : v;
+  p.slots = v == 32 ? kWarpModeThreads / 32 : 1;
+  p.threads = p.slots * p.row_threads;
+  p.blocks = clamp_blocks(((long long)rows + p.slots - 1) / p.slots,
+                          kGatedMaxBlocks);
+  return p;
+}
+
+// A row's values T(y * T(silu(z))) at thread t's groups t, t + V, ...
+// (rmsnorm_fwd's order), computed once and held in registers from the sum
+// to the write-out; rows walked by a persistent grid (block b's slot s:
+// rows (b + k * blocks) * slots + s); kRing (16-byte loads, a walk of
+// kGatedRingRows rows or more): the next row's y and z copied ahead
+// through a two-stage cp.async ring.
+// kStream: more than kGatedGroups groups a thread, walked in chunks of
+// V * kGatedGroups groups and the gate computed again for the write-out.
+// w lies in shared memory where the ring runs (a block walks its rows);
+// elsewhere each write-out reads it through L1, as a copy ahead of a
+// walk of one or two rows cost more than it saved (gated_rmsnorm_scale
+// at one of two ranks' mamba2 prefill, 10.2 against 9.6 us on an H100).
+template <Op kOp, bool kRing>
+constexpr bool kSharedW = kRing && kOp != Op::kGatedSumSq;
+
+template <Op kOp, typename T, int kVec, bool kVecLoad, int kJ, bool kStream,
+          bool kRing>
+__global__ void __launch_bounds__(kBlockModeThreads, kGatedBlocksPerSm)
+gated_norm_kernel(const RowArgs args, const int log_v, const int row_threads,
+                  const int groups) {
+  constexpr int G = kJ;  // register slots: the groups, or kGatedGroups
+  // the ring, [2][2][groups][threads] x 16 bytes: y and z of the next row
+  // in flight while this one computes (each thread copies and reads only
+  // its own groups, so no barrier guards it); then w [d] as fp32
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ float red[2][kBlockModeThreads / 32];
+  const int V = 1 << log_v;
+  const int slot = threadIdx.x / row_threads;
+  const int t = threadIdx.x - slot * row_threads;
+  const int slots = blockDim.x / row_threads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = args.d, n = d / kVec;
+  const int J = kStream ? G : groups;
+  const int chunks = kStream ? (n + G * V - 1) / (G * V) : 1;
+  const bool w_bf16 = args.w_bf16 != 0;
+
+  float* ws = reinterpret_cast<float*>(
+      ring + (kRing ? 2 * 2 * J * 16 * (int)blockDim.x : 0));
+  auto ring_at = [&](int stage, int arr, int j) {
+    return ring + ((((stage * 2 + arr) * J + j) * (int)blockDim.x +
+                    (int)threadIdx.x) << 4);
+  };
+  // start the copies of row r's groups into stage (none past the rows)
+  auto prefetch = [&](long long r, int stage) {
+    if (r < args.rows) {
+      const T* y = static_cast<const T*>(args.a) + r * args.a_stride;
+      const T* z = static_cast<const T*>(args.b) + r * args.b_stride;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = t + j * V;
+        if (j >= J || g >= n) continue;
+        wg::cp_async16(wg::smem_addr(ring_at(stage, 0, j)), y + g * kVec,
+                       true);
+        wg::cp_async16(wg::smem_addr(ring_at(stage, 1, j)), z + g * kVec,
+                       true);
+      }
+    }
+    wg::cp_async_commit();
+  };
+  const long long step = (long long)gridDim.x * slots;
+  if constexpr (kRing) prefetch((long long)blockIdx.x * slots + slot, 0);
+  // w at this thread's groups into shared memory, once: each thread reads
+  // back only what it wrote (without the ring, each write-out reads w)
+  if constexpr (kSharedW<kOp, kRing>) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int g = t + j * V;
+      if (j >= J || g >= n) continue;
+      float wv[kVec];
+      load_w<kVec, kVecLoad>(args.w, w_bf16, g * kVec, wv);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) ws[g * kVec + k] = wv[k];
+    }
+  }
+
+  int it = 0;
+  for (long long base = (long long)blockIdx.x * slots; base < args.rows;
+       base += step, ++it) {
+    const long long row = base + slot;
+    const bool live = row < args.rows;
+    if constexpr (kRing) {
+      prefetch(row + step, (it + 1) & 1);
+      wg::cp_async_wait_1();  // this row's copies have landed
+    }
+    const T* y = static_cast<const T*>(args.a) + row * args.a_stride;
+    const T* z = static_cast<const T*>(args.b) + row * args.b_stride;
+    // the gated values of chunk c, and the fp32 fmas of their squares
+    Vec<T, kVec> v[G];
+    auto gated = [&](int c, float& ss) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = c * G * V + t + j * V;
+        if (!live || j >= J || g >= n) continue;
+        Vec<T, kVec> yr, zr;
+        if constexpr (kRing) {
+          yr = *reinterpret_cast<const Vec<T, kVec>*>(ring_at(it & 1, 0, j));
+          zr = *reinterpret_cast<const Vec<T, kVec>*>(ring_at(it & 1, 1, j));
+        } else {
+          load_raw<kVec, kVecLoad>(y + g * kVec, yr);
+          load_raw<kVec, kVecLoad>(z + g * kVec, zr);
+        }
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const float gv =
+              gated_value<T>(attn::to_f32(yr.v[k]), attn::to_f32(zr.v[k]));
+          attn::store(&v[j].v[k], gv);  // exact: gv is in T
+          ss = __fmaf_rn(gv, gv, ss);
+        }
+      }
+    };
+
+    // kGatedScale: the whole row's sum, read before the row's values
+    const float s_row = kOp == Op::kGatedScale && live ? args.ss[row] : 0.f;
+    float ss = 0.f, inv = 0.f;
+    if constexpr (!(kOp == Op::kGatedScale && kStream))
+      for (int c = 0; c < chunks; ++c) gated(c, ss);
+    if constexpr (kOp == Op::kGatedScale) {
+      inv = rsqrtf(s_row / (float)args.d_total + args.eps);
+    } else {
+      // row_sumsq's tree: the warp's butterfly, then the row's warps in
+      // order (the block's, each warp adding them alike; a double buffer,
+      // one barrier a row)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      if (row_threads > 32) {
+        float* part = red[it & 1];
+        if (lane == 0) part[warp] = ss;
+        __syncthreads();
+        float s = lane < (row_threads >> 5) ? part[lane] : 0.f;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        ss = s;
+      }
+      if constexpr (kOp == Op::kGatedSumSq) {
+        if (live && t == 0) args.ss_out[row] = ss;
+        continue;
+      }
+      inv = rsqrtf(ss / (float)d + args.eps);
+    }
+
+    T* outr = static_cast<T*>(args.out) + row * (long long)d;
+    for (int c = 0; c < chunks; ++c) {
+      float unused = 0.f;
+      if constexpr (kStream) gated(c, unused);  // the chunk again
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = c * G * V + t + j * V;
+        if (!live || j >= J || g >= n) continue;
+        float wv[kVec], o[kVec];
+        if constexpr (kSharedW<kOp, kRing>) {
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) wv[k] = ws[g * kVec + k];
+        } else {
+          load_w<kVec, kVecLoad>(args.w, w_bf16, g * kVec, wv);
+        }
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)  // (x * inv) * w, as the reference
+          o[k] = __fmul_rn(__fmul_rn(attn::to_f32(v[j].v[k]), inv), wv[k]);
+        store_group<kVec, kVecLoad>(outr + g * kVec, o);
+      }
+    }
+  }
+}
+
+// the card's resident blocks of `kernel` at `threads` and `smem` bytes,
+// after the opt-in above 48 KB of shared memory
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, size_t smem, int* out) {
+  constexpr size_t kStatic = sizeof(float) * 2 * (kBlockModeThreads / 32);
+  cudaError_t err;
+  if (smem + kStatic > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)smem)) != cudaSuccess)
+    return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  *out = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <Op kOp, typename T, int kVec, bool kVecLoad, int kJ, bool kStream,
+          bool kRing>
+cudaError_t launch_gated_kernel(const RowArgs& a, const GatedPlan& p,
+                                cudaStream_t stream) {
+  auto kernel = gated_norm_kernel<kOp, T, kVec, kVecLoad, kJ, kStream, kRing>;
+  // the ring (2 stages of y and z, 16 bytes a group) and w as fp32
+  const size_t smem =
+      (kRing ? (size_t)2 * 2 * p.groups * 16 * p.threads : 0) +
+      (kSharedW<kOp, kRing> ? sizeof(float) * a.d : 0);
+  // persistent: no more blocks than the card holds at once (a block past
+  // them would start its rows only when a first one ends)
+  int resident = 0;
+  cudaError_t err = resident_blocks(kernel, p.threads, smem, &resident);
+  if (err != cudaSuccess) return err;
+  kernel<<<clamp_blocks(p.blocks, resident), p.threads, smem, stream>>>(
+      a, p.log_v, p.row_threads, p.groups);
+  return cudaGetLastError();
+}
+
+// the ring where a block walks at least kGatedRingRows rows (it costs
+// shared memory, so blocks, and pays only over a walk)
+template <Op kOp, typename T, int kVec, int kJ>
+cudaError_t launch_gated_vec(const RowArgs& a, const GatedPlan& p,
+                             cudaStream_t stream) {
+  int resident = 0;
+  const cudaError_t err = resident_blocks(
+      gated_norm_kernel<kOp, T, kVec, true, kJ, false, false>, p.threads,
+      0, &resident);
+  if (err != cudaSuccess) return err;
+  const long long walk = ((long long)a.rows + p.slots - 1) / p.slots;
+  if (walk >= (long long)kGatedRingRows * clamp_blocks(p.blocks, resident))
+    return launch_gated_kernel<kOp, T, kVec, true, kJ, false, true>(a, p,
+                                                                    stream);
+  return launch_gated_kernel<kOp, T, kVec, true, kJ, false, false>(a, p,
+                                                                   stream);
+}
+
+// with 16-byte loads a thread's register slots are the plan's groups
+// exactly (fewer registers, more rows in flight); else kGatedGroups
+template <Op kOp, typename T, int kVec, bool kVecLoad>
+cudaError_t launch_gated_plan(const RowArgs& a, const GatedPlan& p,
+                              cudaStream_t stream) {
+  constexpr int G = kGatedGroups;
+  if (p.stream)
+    return launch_gated_kernel<kOp, T, kVec, kVecLoad, G, true, false>(
+        a, p, stream);
+  if constexpr (kVecLoad) {
+    static_assert(kGatedGroups == 4, "one instantiation a group count");
+    switch (p.groups) {
+      case 1: return launch_gated_vec<kOp, T, kVec, 1>(a, p, stream);
+      case 2: return launch_gated_vec<kOp, T, kVec, 2>(a, p, stream);
+      case 3: return launch_gated_vec<kOp, T, kVec, 3>(a, p, stream);
+      default: return launch_gated_vec<kOp, T, kVec, 4>(a, p, stream);
+    }
+  }
+  return launch_gated_kernel<kOp, T, kVec, kVecLoad, G, false, false>(
+      a, p, stream);
+}
+
+// the grouping follows d alone; vec only picks the loads
+template <Op kOp, typename T>
+cudaError_t launch_gated_rows(const RowArgs& a, int vec, cudaStream_t stream) {
+  const GatedPlan p = gated_plan(a.rows, a.d, sizeof(T));
+  constexpr int kV = 16 / sizeof(T);
+  if (p.vec == 1) return launch_gated_plan<kOp, T, 1, false>(a, p, stream);
+  if (vec) return launch_gated_plan<kOp, T, kV, true>(a, p, stream);
+  return launch_gated_plan<kOp, T, kV, false>(a, p, stream);
+}
+
+template <Op kOp>
+int launch_gated(RowArgs a, int x_dtype, int w_dtype, int vec, void* stream) {
+  if (a.rows == 0) return cudaSuccess;
+  if (a.d < 1 || (w_dtype != 0 && w_dtype != 1)) return cudaErrorInvalidValue;
+  a.w_bf16 = w_dtype == 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) return launch_gated_rows<kOp, float>(a, vec, st);
+  if (x_dtype == 1) return launch_gated_rows<kOp, __nv_bfloat16>(a, vec, st);
+  return cudaErrorInvalidValue;
+}
+
+// --- qk_norm_rope_fwd (plan rope_fwd_plan, kernel.py ``rope_fwd_plan``) ---
 
 struct RopeArgs {
   const void* q;  // [B, S, Hq, D], element strides (sb, ss, sh), d contiguous
@@ -351,12 +717,159 @@ struct RopeArgs {
   void* k_out;
   int B, S, Hq, Hkv, D;
   float eps;
+  int w_bf16 = 0;  // the token layout: wq and wk are bfloat16, else float
 };
 
-// one warp per (token, head) row of q, then of k; D <= kWarpRowMaxD
+constexpr int kRopeFwdWarps = 4;    // kernel.py ROPE_FWD_WARPS
+constexpr int kRopeFwdFill = 4224;  // kernel.py ROPE_FWD_FILL
+
+struct RopeFwdPlan {
+  bool token;  // the token layout; else a warp per (token, head)
+  int vec;     // values of a group: rmsnorm_fwd's grouping at D
+  int log_p;   // lanes of a head: P = 1 << log_p
+  int split;   // warps a token's heads are spread over
+  long long blocks;
+};
+
+// kernel.py rope_fwd_plan mirrors it
+inline RopeFwdPlan rope_fwd_plan(long long tokens, int heads, int D,
+                                 int itemsize) {
+  RopeFwdPlan p;
+  const int kv = 16 / itemsize;
+  p.vec = D % kv == 0 ? kv : 1;
+  const int n = D / p.vec;  // groups of a head
+  // a group a lane, and no group across the two halves; a launch of
+  // fewer (token, head) rows than kRopeFwdFill keeps a warp a row
+  p.token = n <= 32 && (D / 2) % p.vec == 0 && tokens * heads > kRopeFwdFill;
+  if (!p.token) {
+    p.log_p = 5;
+    p.split = 1;
+    p.blocks = (tokens * heads + kRopeFwdWarps - 1) / kRopeFwdWarps;
+    return p;
+  }
+  p.log_p = log2_ceil(n);
+  const int per = 32 >> p.log_p;  // heads a warp takes at once
+  const int chunks = (heads + per - 1) / per;
+  const long long want = (kRopeFwdFill + tokens - 1) / tokens;
+  const int iters = want >= chunks ? 1 : (int)((chunks + want - 1) / want);
+  p.split = (chunks + iters - 1) / iters;
+  p.blocks = (tokens * p.split + kRopeFwdWarps - 1) / kRopeFwdWarps;
+  return p;
+}
+
+// v moved from lane src, 32 bits a shuffle
+template <typename V>
+__device__ __forceinline__ V shfl_vec(const V& v, int src) {
+  constexpr int kWords = (int)((sizeof(V) + 3) / 4);
+  unsigned int w[kWords] = {};
+  memcpy(w, &v, sizeof(V));
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) w[i] = __shfl_sync(0xffffffffu, w[i], src);
+  V r;
+  memcpy(&r, w, sizeof(V));
+  return r;
+}
+
+// The token layout: a warp per (token, part); part p of the token's
+// `split` warps takes its heads' chunks p, p + split, ... of 32 / P
+// heads.  Lane t of a head's P lanes holds the
+// head's group t (rmsnorm_fwd's group, in its order), lanes past the n
+// groups nothing; the group's partner across the halves (t +- n / 2)
+// comes by shuffle.  The token's (cos, sin) once into shared memory,
+// w at the lane's group once, each head read once.
+template <typename T, int kVec, bool kVecLoad>
+__global__ void __launch_bounds__(kRopeFwdWarps * 32)
+qk_norm_rope_kernel(const RopeArgs a, const int log_p, const int split) {
+  __shared__ float2 cs_all[kRopeFwdWarps][16 * kVec];  // half <= 16 groups
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long tokens = (long long)a.B * a.S;
+  const long long item = (long long)blockIdx.x * kRopeFwdWarps + warp;
+  if (item >= tokens * split) return;  // the whole warp
+  const long long tok = item / split;
+  const int part = (int)(item - tok * split);
+  const int s = (int)(tok % a.S), b = (int)(tok / a.S);
+  const int P = 1 << log_p, t = lane & (P - 1), sub = lane >> log_p;
+  const int D = a.D, half = D / 2, n = D / kVec, nh = n / 2;
+  const int Hq = a.Hq, H = a.Hq + a.Hkv, per = 32 >> log_p;
+  const bool norm = a.wq != nullptr, held = t < n, first = t < nh;
+  const int src = (lane & ~(P - 1)) | (first ? t + nh : t - nh);
+  const int i0 = (first ? t : t - nh) * kVec;  // the group's pairs
+
+  float wq[kVec] = {}, wk[kVec] = {};
+  if (norm && held) {
+    load_w<kVec, kVecLoad>(a.wq, a.w_bf16 != 0, t * kVec, wq);
+    load_w<kVec, kVecLoad>(a.wk, a.w_bf16 != 0, t * kVec, wk);
+  }
+  const long long pi = b * a.p_sb + s * a.p_ss;
+  const float p = a.pos64 ? (float)static_cast<const long long*>(a.pos)[pi]
+                          : (float)static_cast<const int*>(a.pos)[pi];
+  float2* cs = cs_all[warp];
+  for (int i = lane; i < half; i += 32) {
+    const float ang = __fmul_rn(p, a.inv_freq[i]);
+    cs[i] = make_float2(cosf(ang), sinf(ang));
+  }
+  __syncwarp();
+  float cv[kVec], sv[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    const float2 c = held ? cs[i0 + k] : make_float2(0.f, 0.f);
+    cv[k] = c.x;
+    sv[k] = c.y;
+  }
+
+  // chunks part, part + split, ... of the token's heads, `per` a chunk:
+  // head ch * per + sub on this lane's sub-warp
+  const int chunks = (H + per - 1) / per;
+  for (int ch = part; ch < chunks; ch += split) {
+    const int h = ch * per + sub;
+    const bool live = held && h < H, is_q = h < Hq;
+    const int hh = is_q ? h : h - Hq;
+    float v[kVec] = {};  // the head's group t (zeros where it holds none)
+    if (live) {
+      const T* x = static_cast<const T*>(is_q ? a.q : a.k) +
+                   (is_q ? b * a.q_sb + s * a.q_ss + hh * a.q_sh
+                         : b * a.k_sb + s * a.k_ss + hh * a.k_sh);
+      Vec<T, kVec> xr;
+      load_raw<kVec, kVecLoad>(x + t * kVec, xr);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) v[k] = attn::to_f32(xr.v[k]);
+    }
+    if (norm) {  // rmsnorm_fwd's output, in T
+      float ss = 0.f;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) ss = __fmaf_rn(v[k], v[k], ss);
+      for (int o = P >> 1; o > 0; o >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      const float inv = rsqrtf(ss / (float)D + a.eps);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        v[k] = round_to<T>(
+            __fmul_rn(__fmul_rn(v[k], inv), is_q ? wq[k] : wk[k]));
+    }
+    Vec<T, kVec> mine;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) attn::store(&mine.v[k], v[k]);  // exact
+    const Vec<T, kVec> other = shfl_vec(mine, src);
+    float o[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float y = attn::to_f32(other.v[k]);
+      o[k] = first ? __fsub_rn(__fmul_rn(v[k], cv[k]), __fmul_rn(y, sv[k]))
+                   : __fadd_rn(__fmul_rn(v[k], cv[k]), __fmul_rn(y, sv[k]));
+    }
+    if (live) {
+      const long long rr = tok * (is_q ? Hq : a.Hkv) + hh;
+      T* out = static_cast<T*>(is_q ? a.q_out : a.k_out) + rr * D;
+      store_group<kVec, kVecLoad>(out + t * kVec, o);
+    }
+  }
+}
+
+// the other layout, for a head whose groups do not fit it: one warp per
+// (token, head) row of q, then of k, as rmsnorm_fwd runs the row
 template <typename T, typename W, int kVec>
 __global__ void __launch_bounds__(kWarpModeThreads)
-qk_norm_rope_kernel(const RopeArgs a) {
+qk_norm_rope_kernel_per_head(const RopeArgs a) {
   constexpr int kRowsPerBlock = kWarpModeThreads / 32;
   const int lane = threadIdx.x & 31;
   const long long row =
@@ -398,15 +911,28 @@ qk_norm_rope_kernel(const RopeArgs a) {
 }
 
 template <typename T, typename W>
-cudaError_t launch_rope(const RopeArgs& a, cudaStream_t stream) {
-  constexpr int kRows = kWarpModeThreads / 32;
-  const long long rows = (long long)a.B * a.S * (a.Hq + a.Hkv);
-  const unsigned grid = (unsigned)((rows + kRows - 1) / kRows);
-  constexpr int kV = 16 / sizeof(T);
-  if (a.D % kV == 0)
-    qk_norm_rope_kernel<T, W, kV><<<grid, kWarpModeThreads, 0, stream>>>(a);
+cudaError_t launch_rope(RopeArgs a, int vec, cudaStream_t stream) {
+  const RopeFwdPlan p =
+      rope_fwd_plan((long long)a.B * a.S, a.Hq + a.Hkv, a.D, sizeof(T));
+  const unsigned grid = (unsigned)p.blocks;
+  constexpr int kThreads = kRopeFwdWarps * 32, kV = 16 / sizeof(T);
+  if (!p.token) {
+    if (p.vec == 1)
+      qk_norm_rope_kernel_per_head<T, W, 1><<<grid, kThreads, 0, stream>>>(a);
+    else
+      qk_norm_rope_kernel_per_head<T, W, kV><<<grid, kThreads, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  a.w_bf16 = sizeof(W) == 2;
+  if (p.vec == 1)
+    qk_norm_rope_kernel<T, 1, false>
+        <<<grid, kThreads, 0, stream>>>(a, p.log_p, p.split);
+  else if (vec)
+    qk_norm_rope_kernel<T, kV, true>
+        <<<grid, kThreads, 0, stream>>>(a, p.log_p, p.split);
   else
-    qk_norm_rope_kernel<T, W, 1><<<grid, kWarpModeThreads, 0, stream>>>(a);
+    qk_norm_rope_kernel<T, kV, false>
+        <<<grid, kThreads, 0, stream>>>(a, p.log_p, p.split);
   return cudaGetLastError();
 }
 
@@ -414,7 +940,7 @@ cudaError_t launch_rope(const RopeArgs& a, cudaStream_t stream) {
 //
 // One backward per entry point.  Each recomputes its row's rstd =
 // rsqrt(mean(v^2) + eps) in fp32 from the forward's normed input v (x, r,
-// or the gated product, rebuilt from y and z as GatedRow builds it) and,
+// or the gated product, rebuilt from y and z as the forward builds it) and,
 // with g = dy * w and c = rstd^2 * sum(g * v) / d,
 //
 //   dv = rstd * (g - v * c)   (= rstd * (g - xhat * mean(g * xhat)))
@@ -505,17 +1031,6 @@ constexpr int kRopeBwdWarps = 4;        // kernel.py ROPE_BWD_WARPS
 constexpr int kRopeBwdPartials = 396;   // kernel.py ROPE_BWD_PARTIALS
 constexpr int kSumWarps = 32;           // sum_partials_kernel's row split
 
-// the least l with 2^l >= n
-inline int log2_ceil(long long n) {
-  int l = 0;
-  while ((1LL << l) < n) ++l;
-  return l;
-}
-
-inline int clamp_blocks(long long need, int cap) {
-  return (int)(need < 1 ? 1 : need < cap ? need : cap);
-}
-
 struct RowPlan {
   int vec;     // values of a group
   int log_r;   // threads of a row: R = 1 << log_r
@@ -555,36 +1070,6 @@ inline RopePlan rope_plan(long long tokens, int D, int itemsize) {
   p.blocks = clamp_blocks((tokens + kRopeBwdWarps - 1) / kRopeBwdWarps,
                           kRopeBwdPartials);
   return p;
-}
-
-// kVec values of T at p as they lie in memory: one 16-byte load when
-// kVecLoad, else kVec loads of one element
-template <int kVec, bool kVecLoad, typename T>
-__device__ __forceinline__ void load_raw(const T* p, Vec<T, kVec>& v) {
-  if constexpr (kVecLoad) {
-    v = *reinterpret_cast<const Vec<T, kVec>*>(p);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) v.v[k] = p[k];
-  }
-}
-
-// kVec values of w at element e as floats; w is float or, with w_bf16,
-// bfloat16 (a runtime choice: one instantiation serves both)
-template <int kVec, bool kVecLoad>
-__device__ __forceinline__ void load_w(const void* w, bool w_bf16, int e,
-                                       float (&v)[kVec]) {
-  if (w_bf16) {
-    Vec<__nv_bfloat16, kVec> r;
-    load_raw<kVec, kVecLoad>(static_cast<const __nv_bfloat16*>(w) + e, r);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) v[k] = attn::to_f32(r.v[k]);
-  } else {
-    Vec<float, kVec> r;
-    load_raw<kVec, kVecLoad>(static_cast<const float*>(w) + e, r);
-#pragma unroll
-    for (int k = 0; k < kVec; ++k) v[k] = r.v[k];
-  }
 }
 
 // the sums of a and of b over the row's kRowThreads threads (a warp, or
@@ -638,14 +1123,6 @@ __device__ __forceinline__ float2 row_sums(float a, float b, int R,
     s.y += buf[first + k].y;
   }
   return s;
-}
-
-// Mamba2's gate at one element as GatedRow computes it: (T(silu(z)),
-// 1 + exp(-z))
-template <typename T>
-__device__ __forceinline__ float2 gate(float z) {
-  const float e = __fadd_rn(1.f, expf(-z));
-  return make_float2(round_to<T>(__fdiv_rn(z, e)), e);
 }
 
 struct RowBwdArgs {
@@ -1286,7 +1763,7 @@ extern "C" int gated_rmsnorm_fwd(const void* y, long long y_stride,
                                  float eps, int x_dtype, int w_dtype, int vec,
                                  void* stream) {
   const RowArgs a{y, y_stride, z, z_stride, w, out, nullptr, rows, d, eps};
-  return launch_rows<Op::kGated>(a, x_dtype, w_dtype, vec, stream);
+  return launch_gated<Op::kGated>(a, x_dtype, w_dtype, vec, stream);
 }
 
 // the split gated norm's forward: the row's partial sum of squares into
@@ -1298,8 +1775,8 @@ extern "C" int gated_rmsnorm_sumsq(const void* y, long long y_stride,
   RowArgs a{y, y_stride, z, z_stride, nullptr, nullptr, nullptr, rows, d,
             0.f};
   a.ss_out = ss;
-  // w is not read: its dtype only picks the instantiation
-  return launch_rows<Op::kGatedSumSq>(a, x_dtype, x_dtype, vec, stream);
+  // w is not read
+  return launch_gated<Op::kGatedSumSq>(a, x_dtype, 0, vec, stream);
 }
 
 extern "C" int gated_rmsnorm_scale(const void* y, long long y_stride,
@@ -1312,7 +1789,7 @@ extern "C" int gated_rmsnorm_scale(const void* y, long long y_stride,
   RowArgs a{y, y_stride, z, z_stride, w, out, nullptr, rows, d, eps};
   a.ss = ss;
   a.d_total = d_total;
-  return launch_rows<Op::kGatedScale>(a, x_dtype, w_dtype, vec, stream);
+  return launch_gated<Op::kGatedScale>(a, x_dtype, w_dtype, vec, stream);
 }
 
 extern "C" int qk_norm_rope_fwd(
@@ -1321,7 +1798,7 @@ extern "C" int qk_norm_rope_fwd(
     const void* wq, const void* wk, const void* pos, long long p_sb,
     long long p_ss, int pos64, const float* inv_freq, void* q_out,
     void* k_out, int B, int S, int Hq, int Hkv, int D, float eps,
-    int x_dtype, int w_dtype, void* stream) {
+    int x_dtype, int w_dtype, int vec, void* stream) {
   if ((long long)B * S * (Hq + Hkv) == 0) return cudaSuccess;
   if (D < 2 || D % 2 != 0 || D > kWarpRowMaxD) return cudaErrorInvalidValue;
   const RopeArgs a{q,     q_sb,  q_ss,     q_sh,  k,     k_sb,
@@ -1329,13 +1806,14 @@ extern "C" int qk_norm_rope_fwd(
                    p_ss,  pos64, inv_freq, q_out, k_out, B,
                    S,     Hq,    Hkv,      D,     eps};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && w_dtype == 0) return launch_rope<float, float>(a, st);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch_rope<float, float>(a, vec, st);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch_rope<float, __nv_bfloat16>(a, st);
+    return launch_rope<float, __nv_bfloat16>(a, vec, st);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch_rope<__nv_bfloat16, float>(a, st);
+    return launch_rope<__nv_bfloat16, float>(a, vec, st);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch_rope<__nv_bfloat16, __nv_bfloat16>(a, st);
+    return launch_rope<__nv_bfloat16, __nv_bfloat16>(a, vec, st);
   return cudaErrorInvalidValue;
 }
 

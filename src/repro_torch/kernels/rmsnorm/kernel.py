@@ -13,8 +13,12 @@ order, and take over the launch on either side of it:
 The kernels are memory-bound: each must read its inputs and w once and
 write its outputs once.  A row of d <= ``WARP_ROW_MAX_D`` is one warp's
 work, a longer row one block's; rows are read through their stride and
-never padded (see the source for the design).  Each launcher adds one to
-its own ``.launches`` per launch (none for zero rows).
+never padded (see the source for the design).  The gated entry points
+and ``qk_norm_rope_fwd`` hold a row's or a head's values in registers
+from the sum to the write-out, in layouts that keep ``rmsnorm_fwd``'s
+reduction tree (``gated_plan``, ``rope_fwd_plan``, mirrored from the
+source).  Each launcher adds one to its own ``.launches`` per launch
+(none for zero rows).
 
 Mamba2's gated norm under tensor parallelism normalises rows whose
 columns lie on several ranks.  It runs in two launches per direction,
@@ -77,7 +81,7 @@ def _library() -> ctypes.CDLL:
                                       f32, i32, i32, i32, vp]
     lib.qk_norm_rope_fwd.argtypes = ([vp, i64, i64, i64] * 2
                                      + [vp, vp, vp, i64, i64, i32, vp, vp, vp]
-                                     + [i32] * 5 + [f32, i32, i32, vp])
+                                     + [i32] * 5 + [f32, i32, i32, i32, vp])
     lib.rmsnorm_bwd.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp] + [i32] * 4 \
         + [f32, i32, i32, vp]
     lib.add_rmsnorm_bwd.argtypes = ([vp, i64] * 3 + [vp, vp, vp, vp]
@@ -415,6 +419,8 @@ def qk_norm_rope_fwd(q: torch.Tensor, k: torch.Tensor,
     k_out = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
     if B * S * (Hq + Hkv) == 0:
         return q_out, k_out
+    vec = _heads_vectorized(q, k, None if wq is None else (wq, wk), q_out,
+                            k_out)
     _launch("qk_norm_rope_fwd", q.device,
             q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
             None if wq is None else wq.data_ptr(),
@@ -422,7 +428,7 @@ def qk_norm_rope_fwd(q: torch.Tensor, k: torch.Tensor,
             pos.data_ptr(), *pos.stride(), int(pos.dtype == torch.int64),
             inv_freq.data_ptr(), q_out.data_ptr(), k_out.data_ptr(),
             B, S, Hq, Hkv, D, float(eps), _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[wq.dtype] if wq is not None else 0)
+            _DTYPE_CODES[wq.dtype] if wq is not None else 0, int(vec))
     qk_norm_rope_fwd.launches += 1
     return q_out, k_out
 
@@ -512,6 +518,106 @@ def rope_plan(tokens: int, D: int, itemsize: int) -> RopePlan:
     lanes = _pow2_at_least(-(-(half // vec) // per_lane))
     return RopePlan(vec, lanes, max(1, min(-(-tokens // ROPE_BWD_WARPS),
                                            ROPE_BWD_PARTIALS)))
+
+
+# The forward kernels' launch plans (``rmsnorm.cu``'s ``gated_plan`` and
+# ``rope_fwd_plan``, which these two mirror, constant for constant).  Both
+# keep ``rmsnorm_fwd``'s grouping (``vec``: 16 bytes of x's dtype where d
+# is a multiple of it, else 1) and its reduction tree; the forward sums
+# nothing across blocks, so the block counts set no bit.
+#
+# The gated row kernel (``gated_rmsnorm_fwd``, ``_sumsq``, ``_scale``):
+# ``rmsnorm_fwd``'s V threads of a row (a warp up to WARP_ROW_MAX_D, else
+# BLOCK_MODE_THREADS), thread t holding groups t, t + V, ..., at most
+# GATED_GROUPS of them in registers (more: the row walked in chunks of V *
+# GATED_GROUPS groups, ``stream``); ``row_threads`` stops at the last warp
+# that holds a group; WARP_MODE_THREADS // 32 rows a block in warp mode,
+# one in block mode; at most GATED_MAX_BLOCKS blocks (and, at launch, no
+# more than the card holds at once: the grid is persistent), block b's
+# slot s taking rows (b + k * blocks) * slots + s; the next row's y and z
+# copied ahead (cp.async) where a block walks GATED_RING_ROWS rows or
+# more.
+#
+# qk_norm_rope_fwd: the token layout where a head has n <= 32 groups, none
+# straddles the halves and the launch has more than ROPE_FWD_FILL (token,
+# head) rows: P = 2^ceil(log2 n) lanes a head, lane t its group t; a warp
+# takes a token's heads 32 / P at a time, a token's heads spread over
+# ``split`` warps so that about ROPE_FWD_FILL warps run; ROPE_FWD_WARPS
+# warps a block.  Else a warp per (token, head), four a block (``token``
+# False): a decode step's few rows, one warp each.
+
+#: the threads of a block of rows of d <= WARP_ROW_MAX_D (a warp a row)
+WARP_MODE_THREADS = 128
+#: rmsnorm_fwd's threads of a row wider than WARP_ROW_MAX_D
+BLOCK_MODE_THREADS = 256
+#: groups a thread of the gated row kernel holds of a row
+GATED_GROUPS = 4
+#: the most blocks of the gated row kernel (eight an SM of the H100; the
+#: launcher also stops at the blocks the card holds at once)
+GATED_MAX_BLOCKS = 1056
+#: the launcher's choice of the cp.async ring: where a block walks at
+#: least this many rows (with 16-byte loads)
+GATED_RING_ROWS = 3
+#: warps of a qk_norm_rope_fwd block
+ROPE_FWD_WARPS = 4
+#: the warps qk_norm_rope_fwd spreads a few tokens' heads over
+ROPE_FWD_FILL = 4224
+
+
+class GatedPlan(NamedTuple):
+    """The gated row kernel's launch (``gated_plan``)."""
+    vec: int          # values of a group
+    rms_threads: int  # V: rmsnorm_fwd's threads of the row, 32 or 256
+    row_threads: int  # the threads that hold the row's groups, <= V
+    slots: int        # rows a block holds at once
+    threads: int      # of a block
+    groups: int       # a thread holds: t, t + V, ...
+    stream: bool      # groups > GATED_GROUPS: chunks, the gate twice
+    blocks: int
+
+
+class RopeFwdPlan(NamedTuple):
+    """qk_norm_rope_fwd's launch (``rope_fwd_plan``)."""
+    token: bool       # the token layout; else a warp per (token, head)
+    vec: int          # values of a group
+    head_lanes: int   # P: lanes of a head (token layout), else 32
+    split: int        # warps a token's heads are spread over
+    blocks: int
+
+
+def gated_plan(rows: int, d: int, itemsize: int) -> GatedPlan:
+    """The gated row kernel's plan for ``rows`` rows of ``d`` values of
+    ``itemsize`` bytes (y's dtype)."""
+    kv = 16 // itemsize
+    vec = kv if d % kv == 0 else 1
+    n = d // vec
+    v = 32 if d <= WARP_ROW_MAX_D else BLOCK_MODE_THREADS
+    groups = -(-n // v)
+    row_threads = -(-n // 32) * 32 if n < v else v
+    slots = WARP_MODE_THREADS // 32 if v == 32 else 1
+    return GatedPlan(vec, v, row_threads, slots, slots * row_threads, groups,
+                     groups > GATED_GROUPS,
+                     max(1, min(-(-rows // slots), GATED_MAX_BLOCKS)))
+
+
+def rope_fwd_plan(tokens: int, heads: int, D: int,
+                  itemsize: int) -> RopeFwdPlan:
+    """qk_norm_rope_fwd's plan for ``tokens`` = B * S tokens of ``heads``
+    = Hq + Hkv heads of ``D`` values of ``itemsize`` bytes."""
+    kv = 16 // itemsize
+    vec = kv if D % kv == 0 else 1
+    n = D // vec
+    if n > 32 or (D // 2) % vec or tokens * heads <= ROPE_FWD_FILL:
+        return RopeFwdPlan(False, vec, 32, 1,
+                           -(-tokens * heads // ROPE_FWD_WARPS))
+    lanes = _pow2_at_least(n)
+    per = 32 // lanes
+    chunks = -(-heads // per)
+    want = -(-ROPE_FWD_FILL // tokens)
+    iters = 1 if want >= chunks else -(-chunks // want)
+    split = -(-chunks // iters)
+    return RopeFwdPlan(True, vec, lanes, split,
+                       -(-tokens * split // ROPE_FWD_WARPS))
 
 
 def _partial_rows(rows: int, d: int, x: torch.Tensor) -> torch.Tensor:

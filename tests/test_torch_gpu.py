@@ -31,8 +31,9 @@ from repro_torch.kernels.paged_attention.ref import \
 from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm.cases import (
-    BWD_ENTRIES, QK_ROPE_BWD_CASES, QK_ROPE_CASES, QK_ROPE_THETA,
-    RMSNORM_BWD_CASES, RMSNORM_CASES, RMSNORM_DTYPES, SPLIT_CASES,
+    BWD_ENTRIES, GATED_FWD_CASES, QK_ROPE_BWD_CASES, QK_ROPE_FWD_CASES,
+    QK_ROPE_THETA, RMSNORM_BWD_CASES, RMSNORM_CASES, RMSNORM_DTYPES,
+    SPLIT_CASES,
     SPLIT_ENTRIES, add_rmsnorm_unfused, bwd_case, bwd_max_err,
     gated_rmsnorm_unfused, pair_case_on, qk_norm_rope_unfused,
     qk_rope_case_on, rmsnorm_case_on, split_case_on, split_check)
@@ -554,8 +555,8 @@ def test_add_rmsnorm_kernel_on_card(case, dtypes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", RMSNORM_CASES,
-                         ids=[c[0] for c in RMSNORM_CASES])
+@pytest.mark.parametrize("case", GATED_FWD_CASES,
+                         ids=[c[0] for c in GATED_FWD_CASES])
 @pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
 def test_gated_rmsnorm_kernel_on_card(case, dtypes):
     """Within tolerance of the plain version, and bit-equal to F.silu +
@@ -574,8 +575,8 @@ def test_gated_rmsnorm_kernel_on_card(case, dtypes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", QK_ROPE_CASES,
-                         ids=[c[0] for c in QK_ROPE_CASES])
+@pytest.mark.parametrize("case", QK_ROPE_FWD_CASES,
+                         ids=[c[0] for c in QK_ROPE_FWD_CASES])
 @pytest.mark.parametrize("dtypes", RMSNORM_DTYPES, ids=_DTYPE_IDS)
 def test_qk_norm_rope_kernel_on_card(case, dtypes):
     """Within tolerance of the plain version, and bit-equal to two
