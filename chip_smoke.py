@@ -258,15 +258,31 @@ and any failure exits non-zero:
     run without a mesh, every leaf's gradient within ``TRAIN_GRAD_RTOL``
     of one rank's, each norm kernel its count (the gated norm split),
     only ``in_proj``, ``conv_w`` and ``conv_b`` gathered; each rank's
-    times and peaks beside the card's name and power limit.
+    times and peaks beside the card's name and power limit;
+34. the tools (``repro_torch.tools``, each through its entry point on
+    the card): ``shakeout_models`` over every arch and
+    ``shakeout_decode`` over its six, every line ``OK``, the flash,
+    dense decode, SSD-scan and forward RMSNorm kernels each launched;
+    ``quickstart`` (the ~100M dense config, f32) for 20 steps of 8 x 256
+    with a checkpoint every 10: the loss falls, and a run resumed from
+    its step-10 checkpoint ends with the same last 10 losses, parameters
+    and moments bit for bit; ``serving_demo`` serves 12 of 12 requests;
+    ``roofline`` and ``colocation`` over phase 32's records: every
+    cell's fraction finite, both binding-axis assertions hold.
+
+The timing helpers, timers, bounds and the attention kernels' cases of
+phases 2, 5, 8, 12 and 16 are ``repro_torch.tools.kernel_bench``'s
+(``python -m repro_torch.tools.kernel_bench`` times the same rows on
+its own), loaded from this checkout's file.
 
 Every path (phases 3, 6, 9, 10, 13, 14, 17, 19 to 22, 24, 27, 28's
-real steps, 29 (b), 30, 31 (b) and 33) runs an
+real steps, 29 (b), 30, 31 (b), 33 and 34) runs an
 RMSNorm kernel for every norm (the fused ones wherever a neighbour is
 absorbed), and each runs with every kernel's launch count set to 0 just
 before it and read
 just after: each kernel of the path must have been launched exactly its
-per-call count times the path's calls, and no other kernel at all.  Each
+per-call count times the path's calls, and no other kernel at all (in
+phase 34, each kernel of the shakeouts' calls at least once).  Each
 path's decode-step profile must show no ``cos`` or ``sin`` kernel, and
 the paths without Mamba2 layers no ``cat`` kernel (RoPE's eager ops).
 The attention cases of phases 2 and 5 include qwen3-moe's heads (G = 8)
@@ -280,15 +296,22 @@ JSON status line.
     python3 chip_smoke.py --kernel-times [SRC]
 
 builds the kernels and runs the timing of phases 2, 5, 8, 12 and 16
-alone (the paged kernel at G = 2 and 8, flash and dense decode at every
-served shape, the SSD scan at both SSM launches and one model rank's of
-each, the RMSNorm kernels and the unfused sequences at the paths'
-shapes, the split gated norm's entries, the backward kernels at the
-train step's launches, row kernel and dw sum apart), with the
-``repro_torch``
-package of the checkout whose ``src`` directory is SRC (another commit
-unpacked with ``git archive``, say), so that two versions of the kernels
-are timed on one card in one call.
+alone (``kernel_bench.time_all``: the paged kernel at G = 2 and 8,
+flash and dense decode at every served shape, the SSD scan at both SSM
+launches and one model rank's of each, the RMSNorm kernels and the
+unfused sequences at the paths' shapes, the split gated norm's entries,
+the backward kernels at the train step's launches, row kernel and dw
+sum apart), with the ``repro_torch`` package of the checkout whose
+``src`` directory is SRC (another commit unpacked with ``git archive``,
+say), so that two versions of the kernels are timed on one card in one
+call.  The timing code is this tree's
+(``kernel_bench.py`` is loaded from its file and imports the kernels
+inside its timers), so SRC needs no ``repro_torch.tools``.
+
+    python3 chip_smoke.py --tools
+
+builds the kernels and runs phases 32 (whose records phase 34 reads)
+and 34 alone.
 
     python3 chip_smoke.py --tp
 
@@ -351,10 +374,34 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM: device memory rate, and peak rates without sparsity (bf16 on
-#: the tensor cores; f32 outside them, since TF32 is off)
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+def _kernel_bench():
+    """This checkout's ``src/repro_torch/tools/kernel_bench.py``, loaded
+    from its file: the timing helpers, timers, bounds and the attention
+    kernels' cases.  It imports the package only inside its functions, so
+    ``--kernel-times SRC`` (SRC's ``src`` first on ``sys.path``) times
+    SRC's kernels with this tree's timing code, also where SRC has no
+    ``repro_torch.tools``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_kernel_bench",
+        ROOT / "src" / "repro_torch" / "tools" / "kernel_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+kb = _kernel_bench()
+card_line, timed, bound, _us, _rand = (kb.card_line, kb.timed, kb.bound,
+                                       kb.us, kb.rand)
+
+
+def _json(row: dict) -> dict:
+    """A timed row's numbers for the kernels line."""
+    return {k: row[k] for k in kb.JSON_KEYS}
+
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: phases 4 and 7: f32 logits on the card vs the CPU.  Both sides
 #: compute in f32, but in another order (cuBLAS vs the CPU BLAS, the
@@ -438,13 +485,6 @@ def norms_line(counts: dict, arch: str, pre: int, dec: int) -> str:
         for k, n in NORMS_PER_CALL[arch].items())
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def phase_device_and_build() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card: "
@@ -469,235 +509,18 @@ def phase_device_and_build() -> str:
 
 # --- phase 2 -----------------------------------------------------------------
 
-def paged_case(B, P, page, Hq, Hkv, D, lens, seed, L=1):
-    """q, pools ``[L, P, page, Hkv, D]`` and a page table whose live
-    slots are distinct, shuffled pages (physical order != logical
-    order) and whose parked slots point at scratch page 0."""
-    r = np.random.default_rng(seed)
-    q = r.normal(0, 1, (B, 1, Hq, D)).astype(np.float32)
-    kp = r.normal(0, 1, (L, P, page, Hkv, D)).astype(np.float32)
-    vp = r.normal(0, 1, (L, P, page, Hkv, D)).astype(np.float32)
-    maxp = P - 1
-    perm = list(r.permutation(np.arange(1, P)))
-    table = np.zeros((B, maxp), np.int32)
-    for b, ln in enumerate(lens):
-        for i in range(-(-ln // page)):
-            table[b, i] = perm.pop()
-    return q, kp, vp, table, np.asarray(lens, np.int32)
-
-
-#: (name, (B, P, page, Hq, Hkv, D, lens), window, softcap)
-CASES = [
-    ("main", (8, 177, 16, 16, 8, 128,
-              [161, 160, 151, 140, 129, 97, 64, 17]), 0, 0.0),
-    ("partial-gqa", (2, 16, 8, 4, 2, 16, [5, 23]), 0, 0.0),
-    ("mqa", (1, 8, 16, 2, 1, 32, [48]), 0, 0.0),
-    ("mha", (3, 32, 4, 8, 8, 64, [1, 9, 17]), 0, 0.0),
-    ("d48-odd-heads", (2, 16, 8, 6, 3, 48, [12, 31]), 0, 0.0),
-    ("window8", (2, 16, 8, 4, 2, 32, [21, 37]), 8, 0.0),
-    ("window8-softcap50", (2, 16, 8, 4, 2, 32, [21, 37]), 8, 50.0),
-    ("softcap50-main", (8, 177, 16, 16, 8, 128,
-                        [161, 160, 151, 140, 129, 97, 64, 17]), 0, 50.0),
-    ("zero-len-row", (3, 16, 16, 16, 8, 128, [0, 7, 40]), 0, 0.0),
-    ("qwen3-moe-g8", (8, 177, 16, 32, 4, 128,
-                      [161, 160, 151, 140, 129, 97, 64, 17]), 0, 0.0),
-    ("full-table", (1, 20, 16, 16, 8, 128, [304]), 0, 0.0),
-    ("window64-g8", (2, 177, 16, 32, 4, 128, [161, 100]), 64, 0.0),
-    ("len1-main", (8, 177, 16, 16, 8, 128, [1] * 8), 0, 0.0),
-    ("table-past-256", (1, 280, 4, 4, 2, 32, [1100]), 0, 0.0),
-    ("g8-rows128", (8, 177, 16, 32, 4, 128, [128] * 8), 0, 0.0),
-    ("g8-rows129", (8, 177, 16, 32, 4, 128, [129] * 8), 0, 0.0),
-]
-#: the launches phase 2 times: (path, case name, layers).  The first is
-#: the main path's, whose numbers go into the JSON line; the last two are
-#: the qwen3-moe decode-step profile's rows (context 128, then 129 after
-#: a step), on either side of the split's pass boundary: 8 blocks of 16
-#: tokens a pass hold 128 tokens, so a row of 129 takes a second pass
-PAGED_TIMED = [("qwen3", "main", 28), ("qwen3-moe", "qwen3-moe-g8", 48),
-               ("qwen3-moe rows 128", "g8-rows128", 48),
-               ("qwen3-moe rows 129", "g8-rows129", 48)]
-
-
-def _to(arrs, dtype):
-    q, kp, vp, table, lens = arrs
-    f = [torch.from_numpy(a).to(DEVICE, dtype) for a in (q, kp, vp)]
-    return f + [torch.from_numpy(a).to(DEVICE) for a in (table, lens)]
-
-
-def _cuda_ms(fn, iters: int) -> float:
-    """Time per call between CUDA events around ``iters`` calls: the
-    device's time, or the host's time to issue each call where that is
-    longer (a small kernel behind a Python wrapper)."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for i in range(iters):
-        fn(i)
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def _queued_ms(fn, iters: int) -> float:
-    """Device time per call between CUDA events around ``iters`` calls
-    that the host issues while a sleep kernel holds the stream, so that
-    the calls run back to back on the device and the host's time to issue
-    them stays out (a window in which the first event had already passed
-    when the host was done is timed again behind a longer sleep)."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        fn(i)
-    torch.cuda.synchronize()
-    # clock cycles: four times the synchronised loop's wall time at 2 GHz
-    cycles = int(8e9 * (time.perf_counter() - t0)) + 10**6
-    for _ in range(4):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        e0.record()
-        for i in range(iters):
-            fn(i)
-        e1.record()
-        held = not e0.query()
-        e1.synchronize()
-        if held:
-            return e0.elapsed_time(e1) / iters
-        cycles *= 4
-    raise AssertionError(f"the host issued {iters} calls slower than a "
-                         f"sleep of {cycles // 4} cycles held the stream")
-
-
-def _device_ms(fn, iters: int, kernel: str = "", per_call: int = 0
-               ) -> float:
-    """Device time per call: the summed times of the kernels that
-    ``iters`` calls of ``fn`` launch (``torch.profiler``; one stream, so
-    they do not overlap), over ``iters``.  With ``kernel``, the mean time
-    of the kernels whose name holds it (one per call); with ``per_call``,
-    the calls' kernels counted (that many a call).  The profiler may drop
-    events, so with either at least nine tenths of the kernels must be
-    seen, and a window that drops more is profiled again, up to three
-    times; after a third such window the calls are timed by
-    ``_queued_ms`` instead, which also counts any other kernel of a call
-    and the device's gaps between launches.  Unlike ``_cuda_ms`` it
-    leaves out the gaps while the host issues the next call."""
-    from torch.profiler import ProfilerActivity, profile
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and kernel in e.name]
-        want = iters * (per_call or 1) if kernel or per_call else 0
-        if kernels and (not want or 0.9 * want <= len(kernels) <= want):
-            total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-            return total / (len(kernels) / (per_call or 1) if want
-                            else iters)
-        print(f"the profiler saw {len(kernels)} device events named "
-              f"{kernel!r} for {iters} calls")
-    ms = _queued_ms(fn, iters)
-    print(f"the profiler dropped device events named {kernel!r} in three "
-          f"windows of {iters} calls: timed on CUDA events behind a sleep "
-          f"kernel instead, {ms * 1e3:.2f} us per call")
-    return ms
-
-
-def _ms_by_kernel(fn, iters: int) -> dict:
-    """(summed device ms, launches seen) of each kernel that ``iters``
-    calls of ``fn`` launch, by the kernel's name (``torch.profiler``, one
-    window; it may drop events)."""
-    from torch.profiler import ProfilerActivity, profile
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = out.get(e.name, (0.0, 0))
-            out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    return out
-
-
-def bwd_launches(fn, iters: int) -> str:
-    """A backward's two launches apart: the row kernel's and dw's
-    fixed-order sum's (``sum_partials_kernel``) device times per call,
-    each the mean over the launches the profiler saw (their count
-    printed)."""
-    by_name = _ms_by_kernel(fn, iters)
-    if not by_name:
-        return "the profiler saw no device time"
-    sums = {True: [0.0, 0], False: [0.0, 0]}
-    for name, (ms, n) in by_name.items():
-        sums["sum_partials" in name][0] += ms
-        sums["sum_partials" in name][1] += n
-    (dw, n_dw), (row, n_row) = sums[True], sums[False]
-    row, dw = row / max(n_row, 1), dw / max(n_dw, 1)
-    return (f"row kernel {row * 1e3:.2f} us + dw sum {dw * 1e3:.2f} us "
-            f"({dw / (row + dw):.3f} of the two; {n_row} and {n_dw} "
-            f"launches seen of {iters})")
-
-
-def timed(fn, iters: int, kernel: str = "", per_call: int = 0) -> dict:
-    """{"ms": device time per call (of ``kernel`` alone, if named;
-    ``per_call``: the kernels a call launches, checked),
-    "call_ms": event time per call}."""
-    return {"ms": _device_ms(fn, iters, kernel, per_call),
-            "call_ms": _cuda_ms(fn, iters)}
-
-
-def _us(t: dict) -> str:
-    return f"{t['ms'] * 1e3:.2f} us ({t['call_ms'] * 1e3:.2f} per call)"
-
-
-def bound(nbytes: float, ops: float, dtype):
-    """(least ms, "bytes" or "operations"): the larger of the bytes over
-    the memory rate and the operations over the peak rate for ``dtype``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def paged_bound_ms(q, page, Hkv, lens, dtype):
-    """Least time for the card: each live K/V page, q, the output, the
-    live table slots and lens moved once; 4 * Hq * D operations per live
-    token (q.k and p.v, multiply and add)."""
-    B, _, Hq, D = q.shape
-    es = torch.empty((), dtype=dtype).element_size()
-    pages = sum(-(-int(n) // page) for n in lens)
-    nbytes = (pages * page * Hkv * D * 2 * es + 2 * B * Hq * D * es
-              + pages * 4 + B * 4)
-    ops = 4 * Hq * D * int(sum(int(n) for n in lens))
-    return bound(nbytes, ops, dtype)
-
-
 def phase_kernel_vs_plain() -> dict:
     """The paged kernel against its plain version on every case (f32 and
     bf16; a len == 0 row must be exactly zero), then timed at every
-    launch of PAGED_TIMED."""
+    launch of ``kernel_bench.PAGED_TIMED``."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     errs, worst = [], 0.0
     for seed, (name, (B, P, page, Hq, Hkv, D, lens), window, cap) in \
-            enumerate(CASES):
-        arrs = paged_case(B, P, page, Hq, Hkv, D, lens, seed=seed)
+            enumerate(kb.CASES):
+        arrs = kb.paged_case(B, P, page, Hq, Hkv, D, lens, seed=seed)
         for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, table, ln = _to(arrs, dtype)
+            q, kp, vp, table, ln = kb.paged_on(arrs, dtype)
             kp, vp = kp[0], vp[0]
             out = pa_ops.paged_attention(q, kp, vp, table, ln, window=window,
                                          attn_softcap=cap)
@@ -719,76 +542,8 @@ def phase_kernel_vs_plain() -> dict:
 
     print(f"phase 2 kernel vs plain: {len(errs)} cases ok, max abs err "
           f"{worst:.3g} [{' '.join(errs)}]")
-    t = time_paged_launches("phase 2")
-    return {"max_abs_err": worst, "ms": t["ker"]["ms"],
-            "plain_ms": t["plain"]["ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["lib"]["ms"]}
-
-
-def time_paged_launches(label: str) -> dict:
-    """The paged kernel timed at every launch of PAGED_TIMED, one line
-    each; returns the main path's timing."""
-    timings = []
-    for path, name, layers in PAGED_TIMED:
-        timings.append(time_paged(name, layers, 20 * layers))
-        print(f"{label} paged {path} {_paged_line(timings[-1])}")
-    return timings[0]
-
-
-def time_paged(name: str, L: int, iters: int) -> dict:
-    """The paged kernel at one served launch (bf16, the case ``name`` of
-    CASES, L layers' pools cycled so each launch reads its pages from
-    device memory as a decode step does) beside its bound, the plain
-    version and ``scaled_dot_product_attention`` on K/V already gathered
-    (the live pages only) and repeated to the query heads."""
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import (gather_pages,
-                                                         paged_attention_ref)
-    cases = {n: shape for n, shape, *_ in CASES}
-    B, P, page, Hq, Hkv, D, lens = cases[name]
-    dtype = torch.bfloat16
-    q, kp, vp, table, ln = _to(paged_case(B, P, page, Hq, Hkv, D, lens,
-                                          seed=99, L=L), dtype)
-    scale = D ** -0.5
-    # "paged_decode" names the kernel of this tree and of earlier ones
-    ker = timed(lambda i: pa_ops.paged_attention(
-        q, kp[i % L], vp[i % L], table, ln), iters, "paged_decode")
-    plain = timed(lambda i: paged_attention_ref(
-        q.transpose(1, 2), kp[i % L], vp[i % L], table, ln, scale=scale),
-        2 * L)
-    npg = -(-max(lens) // page)
-    S = npg * page
-    kd = [gather_pages(kp[i], table[:, :npg]).movedim(2, 1)
-          .repeat_interleave(Hq // Hkv, dim=1).contiguous() for i in range(L)]
-    vd = [gather_pages(vp[i], table[:, :npg]).movedim(2, 1)
-          .repeat_interleave(Hq // Hkv, dim=1).contiguous() for i in range(L)]
-    mask = (torch.arange(S, device=DEVICE)[None, :] < ln[:, None])
-    mask = mask[:, None, None, :]
-    qs = q.transpose(1, 2)                           # [B, Hq, 1, D]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = timed(lambda i: sdpa(qs, kd[i % L], vd[i % L], attn_mask=mask,
-                               scale=scale), iters)
-    lib_err = (sdpa(qs, kd[0], vd[0], attn_mask=mask, scale=scale)
-               .transpose(1, 2).float()
-               - pa_ops.paged_attention(q, kp[0], vp[0], table, ln).float()
-               ).abs().max().item()
-    bound_ms, bound_by = paged_bound_ms(q, page, Hkv, lens, dtype)
-    del kd, vd, kp, vp
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
-                bound_ms=bound_ms, bound_by=bound_by,
-                shape=(B, Hq, Hkv, D, page, P - 1, max(lens)))
-
-
-def _paged_line(t: dict) -> str:
-    B, Hq, Hkv, D, page, maxp, top = t["shape"]
-    return (f"bf16 (B={B}, Hq={Hq}, Hkv={Hkv}, D={D}, page={page}, "
-            f"maxp={maxp}, lens<={top}), device time: kernel {_us(t['ker'])}, "
-            f"plain {_us(t['plain'])}, sdpa {_us(t['lib'])} (|sdpa - kernel| "
-            f"{t['lib_err']:.2g}), bound {t['bound_ms'] * 1e3:.3f} us "
-            f"({t['bound_by']}), {t['bound_ms'] / t['ker']['ms']:.3f} of it "
-            f"reached")
+    row = kb.time_paged_launches("phase 2")[0]
+    return dict(max_abs_err=worst, **_json(row))
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -1060,110 +815,6 @@ def phase_parity(cfg, p_cpu) -> None:
 
 # --- phase 5 -----------------------------------------------------------------
 
-#: gemma2-27b's attention scale: 144^-0.5 (d_model / num_heads), where
-#: D is 128
-GEMMA2_SCALE = 144 ** -0.5
-
-#: (name, (B, S, Hq, Hkv, D), causal, window, softcap[, scale]): causal
-#: and not, window, softcap, S not a multiple of the tiles (64 x 64 in
-#: bf16, 64 x 32 in f32), G in {1, 2, 4, 8}, the D > 128 tiling, S over
-#: five K/V tiles (the bf16 ring wraps), a window that starts the kv loop
-#: past key 0, a D that is a multiple of 8 but not of 16, and the dense
-#: main paths' shapes (qwen3-0.6b, zamba2-2.7b's shared attention: D =
-#: 80, Hq = Hkv = 32, qwen3-moe-30b-a3b: Hq 32, Hkv 4, G = 8; gemma2-27b's
-#: local layers, window 4,096 and softcap 50 at scale 144^-0.5, and its
-#: long-context prefill of 4,160 tokens, where the window binds;
-#: whisper-large-v3's decoder, D 64 and G 1; pixtral-12b's 128 tokens and
-#: 4 patches, S 132; qwen3-0.6b's heads on one of two model ranks, and on
-#: one of 16 (phase 31's prefill: Hq 1, Hkv 1)).  The scale is D^-0.5
-#: unless given.
-FLASH_CASES = [
-    ("main", (8, 128, 16, 8, 128), True, 0, 0.0),
-    ("mha-ragged", (2, 80, 4, 4, 16), True, 0, 0.0),
-    ("gqa2-1.5tiles", (2, 96, 4, 2, 32), True, 0, 0.0),
-    ("gqa4", (1, 128, 8, 2, 64), True, 0, 0.0),
-    ("window16", (2, 64, 4, 2, 16), True, 16, 0.0),
-    ("softcap30", (2, 64, 4, 2, 16), True, 0, 30.0),
-    ("window32-softcap50-ragged", (2, 72, 4, 2, 16), True, 32, 50.0),
-    ("noncausal", (2, 64, 4, 2, 16), False, 0, 0.0),
-    ("noncausal-window24-gqa4", (1, 70, 4, 1, 32), False, 24, 0.0),
-    ("d256", (1, 40, 2, 1, 256), True, 0, 0.0),
-    ("main-window48-softcap50", (8, 100, 16, 8, 128), True, 48, 50.0),
-    ("s320-5tiles-causal", (1, 320, 4, 2, 64), True, 0, 0.0),
-    ("s320-5tiles-noncausal", (1, 320, 4, 2, 32), False, 0, 0.0),
-    ("s320-window100-softcap20", (1, 320, 2, 1, 32), True, 100, 20.0),
-    ("d40-zero-filled", (2, 100, 4, 2, 40), True, 0, 0.0),
-    ("zamba2-d80-mha32", (8, 128, 32, 32, 80), True, 0, 0.0),
-    ("qwen3-moe-g8", (8, 128, 32, 4, 128), True, 0, 0.0),
-    ("gemma2", (8, 128, 32, 16, 128), True, 4096, 50.0, GEMMA2_SCALE),
-    ("gemma2-long", (2, 4160, 32, 16, 128), True, 4096, 50.0,
-     GEMMA2_SCALE),
-    ("whisper", (8, 128, 20, 20, 64), True, 0, 0.0),
-    ("pixtral", (8, 132, 32, 8, 128), True, 0, 0.0),
-    ("qwen3-tp2", (8, 128, 8, 4, 128), True, 0, 0.0),
-    ("qwen3-seq16", (8, 44, 1, 1, 128), True, 0, 0.0),
-]
-
-#: (name, (B, S, Hq, Hkv, D, lens), window, softcap[, scale]): lens
-#: include 1 and S, S not a multiple of the split, G in {1, 2, 4, 8}, a
-#: len-0 row, 8 splits of several passes each, a row that leaves most
-#: splits empty, a window that skips whole splits, and the dense main
-#: paths' shapes (8 rows at the shared position; gemma2's local layers at
-#: 161 slots and at 4,177, where the window skips the first 74 keys;
-#: whisper's decoder; pixtral at len + 1 = 163 > S = 161, the decode
-#: write clamped onto the last slot: lens = S, the window's end at 163;
-#: qwen3-0.6b's heads on one of two model ranks, and phase 31's launch on
-#: one of 16 ranks' 16-slot range: every q head, rows that attend none).
-#: A len above S is the query's position + 1 past the last slot.
-DECODE_CASES = [
-    ("main", (8, 161, 16, 8, 128, [145] * 8), 0, 0.0),
-    ("main-mixed-lens", (8, 161, 16, 8, 128,
-                         [161, 160, 151, 140, 129, 97, 64, 1]), 0, 0.0),
-    ("lens-1-and-S", (2, 64, 4, 4, 16, [1, 64]), 0, 0.0),
-    ("gqa2-ragged", (2, 96, 8, 4, 32, [96, 40]), 0, 0.0),
-    ("gqa4-short", (1, 50, 4, 1, 16, [7]), 0, 0.0),
-    ("window16", (3, 130, 8, 2, 64, [130, 1, 77]), 16, 0.0),
-    ("softcap30", (2, 70, 4, 2, 32, [70, 33]), 0, 30.0),
-    ("window24-softcap50", (2, 100, 4, 2, 32, [100, 65]), 24, 50.0),
-    ("d48-odd-heads", (1, 96, 6, 3, 48, [11]), 0, 0.0),
-    ("zero-len-row", (2, 64, 4, 2, 16, [0, 9]), 0, 0.0),
-    ("s1100-8splits", (2, 1100, 4, 2, 32, [1100, 731]), 0, 0.0),
-    ("len3-empty-splits", (3, 200, 4, 2, 32, [3, 200, 150]), 0, 0.0),
-    ("window64-skips-splits", (2, 600, 4, 2, 32, [600, 407]), 64, 0.0),
-    ("g8-d64", (2, 161, 8, 1, 64, [145, 161]), 0, 0.0),
-    ("zamba2-d80-mha32", (8, 161, 32, 32, 80, [145] * 8), 0, 0.0),
-    ("qwen3-moe-g8", (8, 161, 32, 4, 128, [145] * 8), 0, 0.0),
-    ("gemma2", (8, 161, 32, 16, 128, [145] * 8), 4096, 50.0, GEMMA2_SCALE),
-    ("gemma2-long", (2, 4177, 32, 16, 128, [4170] * 2), 4096, 50.0,
-     GEMMA2_SCALE),
-    ("whisper", (8, 161, 20, 20, 64, [145] * 8), 0, 0.0),
-    ("pixtral", (8, 161, 32, 8, 128, [163] * 8), 0, 0.0),
-    ("clamped-window", (2, 96, 8, 2, 64, [100, 97]), 40, 30.0),
-    ("qwen3-tp2", (8, 144, 8, 4, 128, [144] * 8), 0, 0.0),
-    ("qwen3-seq16", (8, 16, 16, 8, 128, [16, 16, 9, 1, 0, 0, 16, 3]), 0,
-     0.0),
-]
-
-#: the served launch shapes phase 5 times, by path: the case of that name
-#: in FLASH_CASES and in DECODE_CASES; the first is the main path's, whose
-#: numbers go into the JSON line
-TIMED = [("qwen3", "main"), ("zamba2", "zamba2-d80-mha32"),
-         ("qwen3-moe", "qwen3-moe-g8"), ("gemma2", "gemma2"),
-         ("gemma2-long", "gemma2-long"), ("whisper", "whisper"),
-         ("pixtral", "pixtral"), ("qwen3-tp2", "qwen3-tp2")]
-
-
-def attended_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks keep in one S x S attention."""
-    qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
-    ok = np.ones((S, S), bool)
-    if causal:
-        ok &= kp <= qp
-    if window > 0:
-        ok &= kp > qp - window
-    return int(ok.sum())
-
-
 def _check_close(name, dtype, out, ref, errs) -> float:
     a, b = out.float(), ref.float()
     err = (a - b).abs().max().item()
@@ -1173,140 +824,6 @@ def _check_close(name, dtype, out, ref, errs) -> float:
                              f"{err:.3g} > {tol}")
     errs.append(f"{name}/{str(dtype)[6:]}={err:.2g}")
     return err
-
-
-def _rand(gen, shape, dtype):
-    return torch.randn(shape, generator=gen, device=DEVICE, dtype=dtype)
-
-
-def _timing_line(label, shape, t, extra) -> str:
-    lib = (NO_SDPA if t["lib"] is None else
-           f"{_us(t['lib'])} (|sdpa - kernel| {t['lib_err']:.2g})")
-    return (f"phase 5 {label} bf16 {shape}{extra}: device time kernel "
-            f"{_us(t['ker'])}, plain {_us(t['plain'])}, sdpa {lib}; bound "
-            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}), "
-            f"{t['bound_ms'] / t['ker']['ms']:.3f} of it reached")
-
-
-#: why ``scaled_dot_product_attention`` has no time beside a launch with
-#: a softcap: it cannot compute cap * tanh(s / cap) on the logits
-NO_SDPA = "none: SDPA has no softcap"
-
-
-def case_opts(case) -> dict:
-    """A FLASH_CASES or DECODE_CASES entry's window, softcap and scale
-    (D^-0.5 unless the entry gives one)."""
-    name, shape, *rest = case
-    if len(shape) == 5:                       # flash: causal comes first
-        rest = rest[1:]
-    window, cap, *scale = rest
-    return dict(window=window, softcap=cap,
-                scale=scale[0] if scale else shape[4] ** -0.5)
-
-
-def time_flash(B, S, Hq, Hkv, D, L, gen, iters, window=0, softcap=0.0,
-               scale=None) -> dict:
-    """The flash kernel at one served launch (bf16, causal) beside its
-    bound, the plain version and ``scaled_dot_product_attention`` on
-    [B, Hq, S, D] with K/V repeated to the query heads (made outside the
-    timing; none where the launch has a softcap); L sets of q/k/v cycled
-    so each launch reads device memory."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    dtype = torch.bfloat16
-    scale = D ** -0.5 if scale is None else scale
-    opts = dict(window=window, attn_softcap=softcap, scale=scale)
-    es = torch.empty((), dtype=dtype).element_size()
-    qs = [_rand(gen, (B, S, Hq, D), dtype) for _ in range(L)]
-    ks = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    vs = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    ker = timed(lambda i: fa_ops.flash_attention(
-        qs[i % L], ks[i % L], vs[i % L], **opts), iters, "flash_fwd")
-    plain = timed(lambda i: attention_ref(
-        qs[i % L].transpose(1, 2), ks[i % L].transpose(1, 2),
-        vs[i % L].transpose(1, 2), scale=scale, window=window,
-        softcap=softcap), max(L, iters // 10))
-    lib, lib_err = None, None
-    if softcap == 0.0:       # every served window comes with a softcap
-        assert window == 0, window
-        G = Hq // Hkv
-        qh = [t.transpose(1, 2).contiguous() for t in qs]
-        kh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous()
-              for t in ks]
-        vh = [t.transpose(1, 2).repeat_interleave(G, 1).contiguous()
-              for t in vs]
-        kw = dict(is_causal=True, scale=scale)
-        lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L], **kw),
-                    iters)
-        lib_err = (sdpa(qh[0], kh[0], vh[0], **kw).transpose(1, 2).float()
-                   - fa_ops.flash_attention(qs[0], ks[0], vs[0], **opts)
-                   .float()).abs().max().item()
-        del qh, kh, vh
-    nbytes = B * S * D * es * (2 * Hq + 2 * Hkv)
-    ops = 4 * D * Hq * B * attended_pairs(S, True, window)
-    bound_ms, bound_by = bound(nbytes, ops, dtype)
-    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
-                bound_ms=bound_ms, bound_by=bound_by,
-                nbytes=nbytes, ops=ops)
-
-
-def attended_slots(S: int, lens, window: int) -> int:
-    """Cache slots the dense decode reads over the rows: [max(0, end -
-    window), min(end, S)) for each row's end = lens[b] (its position +
-    1, past S where the write was clamped onto the last slot)."""
-    return sum(min(e, S) - (max(0, e - window) if window else 0)
-               for e in lens)
-
-
-def time_decode(B, S, Hq, Hkv, D, lens, L, gen, iters, window=0,
-                softcap=0.0, scale=None) -> dict:
-    """The dense decode kernel at one served launch (bf16, every row at
-    one shared position, as the dense path's cache is) beside its bound,
-    the plain version and ``scaled_dot_product_attention`` of the 1-token
-    query against the attended K/V repeated to Hq (made outside the
-    timing; none where the launch has a softcap)."""
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    dtype = torch.bfloat16
-    scale = D ** -0.5 if scale is None else scale
-    opts = dict(window=window, attn_softcap=softcap, scale=scale)
-    es = torch.empty((), dtype=dtype).element_size()
-    ends = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
-    ln = torch.clamp(ends, max=S)
-    pos = torch.tensor(lens[0] - 1, dtype=torch.int32, device=DEVICE)
-    qs = [_rand(gen, (B, 1, Hq, D), dtype) for _ in range(L)]
-    kc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    vc = [_rand(gen, (B, S, Hkv, D), dtype) for _ in range(L)]
-    ker = timed(lambda i: da_ops.decode_attention(
-        qs[i % L], kc[i % L], vc[i % L], pos, **opts), iters,
-        "dense_decode")
-    plain = timed(lambda i: decode_attention_ref(
-        qs[i % L].transpose(1, 2), kc[i % L], vc[i % L], ln, scale=scale,
-        window=window, softcap=softcap, ends=ends), max(L, iters // 10))
-    lib, lib_err = None, None
-    if softcap == 0.0:
-        hi = min(lens[0], S)
-        lo = max(0, lens[0] - window) if window else 0
-        qh = [t.transpose(1, 2).contiguous() for t in qs]
-        kh = [t[:, lo:hi].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-              .contiguous() for t in kc]
-        vh = [t[:, lo:hi].transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-              .contiguous() for t in vc]
-        lib = timed(lambda i: sdpa(qh[i % L], kh[i % L], vh[i % L],
-                                   scale=scale), iters)
-        lib_err = (sdpa(qh[0], kh[0], vh[0], scale=scale).transpose(1, 2)
-                   .float() - da_ops.decode_attention(
-                       qs[0], kc[0], vc[0], pos, **opts).float()
-                   ).abs().max().item()
-        del qh, kh, vh
-    live = attended_slots(S, lens, window)
-    nbytes = live * Hkv * D * 2 * es + 2 * B * Hq * D * es + B * 4
-    ops = 4 * Hq * D * live
-    bound_ms, bound_by = bound(nbytes, ops, dtype)
-    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
-                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes, ops=ops)
 
 
 def phase_dense_kernels_vs_plain() -> dict:
@@ -1324,9 +841,9 @@ def phase_dense_kernels_vs_plain() -> dict:
 
     # flash prefill: correctness
     errs, worst = [], 0.0
-    for seed, case in enumerate(FLASH_CASES):
+    for seed, case in enumerate(kb.FLASH_CASES):
         name, (B, S, Hq, Hkv, D), causal = case[:3]
-        o = case_opts(case)
+        o = kb.case_opts(case)
         r = np.random.default_rng(seed)
         arrs = [r.normal(0, 1, (B, S, H, D)).astype(np.float32)
                 for H in (Hq, Hkv, Hkv)]
@@ -1346,9 +863,9 @@ def phase_dense_kernels_vs_plain() -> dict:
 
     # dense decode: correctness
     errs, worst = [], 0.0
-    for seed, case in enumerate(DECODE_CASES):
+    for seed, case in enumerate(kb.DECODE_CASES):
         name, (B, S, Hq, Hkv, D, lens) = case[:2]
-        o = case_opts(case)
+        o = kb.case_opts(case)
         r = np.random.default_rng(100 + seed)
         arrs = [r.normal(0, 1, (B, 1, Hq, D)).astype(np.float32),
                 r.normal(0, 1, (B, S, Hkv, D)).astype(np.float32),
@@ -1369,55 +886,22 @@ def phase_dense_kernels_vs_plain() -> dict:
             worst = max(worst, _check_close(name, dt, got, ref, errs))
     print(f"phase 5 decode kernel vs plain: {len(errs)} cases ok, max abs "
           f"err {worst:.3g} [{' '.join(errs)}]")
-    timing = time_served_shapes(L)
-    cases = {name: shape for name, shape, *_ in DECODE_CASES}
+    rows = kb.time_served_shapes("phase 5", L)
+    cases = {name: shape for name, shape, *_ in kb.DECODE_CASES}
     plans = []
-    for path, name in TIMED:
+    for path, name in kb.TIMED:
         B, S, Hq, Hkv, D, _ = cases[name]
         p = split_plan(S, B, Hkv)
         plans.append(f"{path} (S {S}, Hkv {Hkv}): {p.splits} splits of "
                      f"{p.tokens} slots, cluster {p.cluster}, {p.blocks} "
                      f"blocks")
     print(f"phase 5 decode split plan: {'; '.join(plans)}")
-    timing["flash_attention_fwd"]["max_abs_err"] = flash_err
-    timing["decode_attention_fwd"]["max_abs_err"] = worst
-    return timing
-
-
-def time_served_shapes(L: int) -> dict:
-    """Both attention kernels timed at every served launch shape (bf16;
-    L sets of inputs cycled so each launch reads from device memory, as a
-    step does), one line each; returns the main shapes' numbers for the
-    JSON line (every key but ``max_abs_err``)."""
-    gen = torch.Generator(device=DEVICE).manual_seed(99)
-    out = {}
-    for kernel, cases, fn in (("flash", FLASH_CASES, time_flash),
-                              ("decode", DECODE_CASES, time_decode)):
-        by_name = {case[0]: case for case in cases}
-        for n, (path, name) in enumerate(TIMED):
-            case = by_name[name]
-            shape = case[1]
-            t = fn(*shape, L, gen, (20 if n == 0 else 10) * L,
-                   **case_opts(case))
-            o = case_opts(case)
-            opts = (f", window {o['window']}" if o["window"] else "") + (
-                f", softcap {o['softcap']:g}" if o["softcap"] else "") + (
-                f", scale {o['scale']:.4g}")
-            extra = (f" causal{opts}, {t['nbytes'] / 1e6:.2f} MB, "
-                     f"{t['ops'] / 1e9:.3f} GFLOP" if kernel == "flash" else
-                     f" lens {shape[-1][0]}{opts}, "
-                     f"{t['nbytes'] / 1e6:.2f} MB")
-            print(_timing_line(f"{kernel} {path}", tuple(shape[:5]), t,
-                               extra))
-            if n == 0:
-                out[f"{kernel}_attention_fwd"] = dict(
-                    ms=t["ker"]["ms"], plain_ms=t["plain"]["ms"],
-                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                    library_ms=t["lib"]["ms"])
-            del t
-            gc.collect()
-            torch.cuda.empty_cache()
-    return out
+    # the JSON line carries each kernel's main path (qwen3-0.6b) launch
+    main = {r["kernel"]: r for r in rows if r["launch"] == kb.TIMED[0][0]}
+    return {"flash_attention_fwd": dict(
+                max_abs_err=flash_err, **_json(main["flash_attention_fwd"])),
+            "decode_attention_fwd": dict(
+                max_abs_err=worst, **_json(main["decode_attention_fwd"]))}
 
 
 # --- phase 6 -----------------------------------------------------------------
@@ -1542,31 +1026,6 @@ def phase_dense_parity(cfg, p_cpu) -> None:
 
 # --- phase 8 -----------------------------------------------------------------
 
-def ssd_key(xb, B_mat, chunk, initial_state) -> tuple:
-    """What fixes an SSD launch's work and memory walk: xb's shape, G and
-    N, the chunk, whether an initial state is read, and B's strides (C's
-    are the same on every path)."""
-    return (tuple(xb.shape), tuple(B_mat.shape[2:]), chunk,
-            initial_state is not None, B_mat.stride())
-
-
-def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype, init):
-    """Least time for the card: xb, a, the grouped B and C and (when
-    given) the initial state read once, y and the final state written
-    once; the operations of the causal (j <= i) score and score-times-xb
-    products and of the inter-chunk and state-update products, per
-    chunk."""
-    es = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * B * S * H * P * es + B * S * H * 4 + 2 * B * S * G * N * es
-              + (1 + (init is not None)) * B * H * P * N * 4)
-    ops = 0
-    for t0 in range(0, S, chunk):
-        n = min(chunk, S - t0)
-        pairs = n * (n + 1) // 2
-        ops += 2 * pairs * (N + P) + 4 * n * N * P
-    return (*bound(nbytes, B * H * ops, dtype), nbytes, B * H * ops)
-
-
 def phase_ssd_kernel_vs_plain() -> dict:
     """The SSD-scan kernel against its plain version on the card (y and
     the final state), every case with B and C as views into one
@@ -1575,7 +1034,8 @@ def phase_ssd_kernel_vs_plain() -> dict:
     version in f32 on the same inputs (the cost of the tensor-core
     route's bf16 roundings); both served launches must take the tensor
     cores.  Then timed at both SSM main paths' launches.  Returns the
-    timing of each main case, by name, and the launch keys (``ssd_key``)
+    timing of each main case, by name, and the launch keys
+    (``kernel_bench.ssd_key``)
     the main paths must match."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.cases import (SSD_CASES, SSD_MAIN,
@@ -1642,50 +1102,12 @@ def phase_ssd_kernel_vs_plain() -> dict:
         if route(torch.bfloat16, chunk, P, N) != TENSOR_CORES:
             raise AssertionError(f"{arch}'s SSD launch {name} does not take "
                                  f"the tensor cores")
-        t = time_ssd(name)
-        keys[arch] = t.pop("key")
-        out[name] = dict(max_abs_err=worst, **t)
+        row, keys[arch] = kb.time_ssd("phase 8", name)
+        out[name] = dict(max_abs_err=worst, **_json(row))
     # one model rank's launch on a model axis of two (phase 33's prefill)
     for name in SSD_TP.values():
-        time_ssd(name)
+        kb.time_ssd("phase 8", name)
     return out, keys
-
-
-def time_ssd(name: str) -> dict:
-    """The SSD kernel at one served launch (bf16, the case ``name`` of
-    ``cases.py``; eight sets of inputs cycled, over 300 MB against the 50
-    MB L2, so each launch reads from device memory as a prefill's layers
-    do) beside its bound and the plain version; prints one line.  No
-    single PyTorch call computes the scan, so there is no library time."""
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan.cases import SSD_CASES, ssd_case_on
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-    cases = {n: (shape, init) for n, shape, init in SSD_CASES}
-    (B, S, H, P, G, N, chunk), init = cases[name]
-    dtype = torch.bfloat16
-    ins = [ssd_case_on(DEVICE, dtype, B, S, H, P, G, N, init, 99 + k)
-           for k in range(8)]
-    key = ssd_key(ins[0][0], ins[0][2], chunk, ins[0][4])
-    # "ssd_scan" names the kernels of this tree and of earlier ones
-    ker = timed(lambda i: ssd_ops.ssd_scan(
-        *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]),
-        80, "ssd_scan")
-    plain = timed(lambda i: ssd_scan_ref(
-        *ins[i % 8][:4], chunk=chunk, initial_state=ins[i % 8][4]), 16)
-    bound_ms, bound_by, nbytes, ops = ssd_bound_ms(B, S, H, P, G, N, chunk,
-                                                   dtype, init)
-    print(f"phase 8 ssd {name} bf16 (B={B}, S={S}, H={H}, P={P}, G={G}, "
-          f"N={N}, chunk={chunk}, initial state {init or 'none'}, B/C "
-          f"strides {tuple(ins[0][2].stride())}), device time: kernel "
-          f"{_us(ker)}, plain {_us(plain)}, bound {bound_ms * 1e3:.3f} us "
-          f"({bound_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), "
-          f"{bound_ms / ker['ms']:.3f} of it reached; library: none (no "
-          f"single PyTorch call computes the chunked scan)")
-    del ins
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(ms=ker["ms"], plain_ms=plain["ms"], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, key=key)
 
 
 # --- phases 9 and 10 ----------------------------------------------------------
@@ -1718,7 +1140,7 @@ def phase_ssm_path(n, arch, argv, layers, apps, ssd_key_want) -> dict:
     launch, seen = ssd_ops.ssd_scan_fwd, set()
 
     def recorded(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
-        seen.add(ssd_key(xb, B_mat, chunk, initial_state))
+        seen.add(kb.ssd_key(xb, B_mat, chunk, initial_state))
         return launch(xb, a, B_mat, C_mat, chunk=chunk,
                       initial_state=initial_state)
 
@@ -1808,13 +1230,6 @@ def phase_ssm_parity() -> None:
 
 # --- phase 12 ----------------------------------------------------------------
 
-def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
-    """The largest |a - b| over one bf16 ulp at |b| (8 significant bits)."""
-    b = b.float()
-    e = torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126)))
-    return ((a.float() - b).abs() / torch.exp2(e - 7)).max().item()
-
-
 #: the RMSNorm kernels, and the timed shape of each (``cases.py``'s
 #: RMSNORM_TIMED or FUSED_TIMED) whose numbers go into the JSON line: the
 #: MoE path's decode step, and zamba2's prefill for the gated norm
@@ -1822,34 +1237,6 @@ NORM_JSON = {"rmsnorm_fwd": "qwen3-moe decode",
              "add_rmsnorm_fwd": "qwen3-moe decode",
              "qk_norm_rope_fwd": "qwen3-moe paged decode",
              "gated_rmsnorm_fwd": "zamba2 prefill"}
-
-
-def norm_cases():
-    """This checkout's ``kernels/rmsnorm/cases.py``, loaded from its file
-    (it imports the package only inside its functions), so that
-    ``--kernel-times SRC`` times another checkout's package at this
-    tree's shapes and against this tree's unfused sequences."""
-    import importlib.util
-    path = ROOT / "src" / "repro_torch" / "kernels" / "rmsnorm" / "cases.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke_norm_cases",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _differ(got, want) -> int:
-    """Elements of ``got`` that differ from ``want`` (outputs of one call:
-    a tensor or a tuple of them)."""
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    n = 0
-    for g, w in zip(got, want, strict=True):
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"{g.shape} {g.dtype} vs {w.shape} "
-                                 f"{w.dtype}")
-        n += int((g != w).sum())
-    return n
 
 
 def phase_rmsnorm_kernel_vs_plain() -> dict:
@@ -1860,14 +1247,14 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
     loops), ``qk_norm_rope_fwd`` on every case of ``QK_ROPE_FWD_CASES``
     (``QK_ROPE_CASES``, the train launch and the plan's loops); each fused
     kernel must also equal the unfused card sequence in every element.
-    Then timed (``time_norm_kernels``).  Returns the JSON numbers of each
-    kernel, by name."""
+    Then timed (``kernel_bench.time_norm_kernels``).  Returns the JSON
+    numbers of each kernel, by name."""
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_ref,
                                                  gated_rmsnorm_ref,
                                                  qk_norm_rope_ref,
                                                  rmsnorm_ref)
-    C = norm_cases()
+    C = kb.norm_cases()
     worst = {name: 0.0 for name in NORM_JSON}
     cases = {name: 0 for name in NORM_JSON}
     differ = {name: 0 for name in NORM_JSON}
@@ -1893,12 +1280,12 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
             got = rms_ops.add_rmsnorm(a, b, w, 1e-6)
             check("add_rmsnorm_fwd", label, xdt, got,
                   add_rmsnorm_ref(a, b, w, 1e-6))
-            differ["add_rmsnorm_fwd"] += _differ(
+            differ["add_rmsnorm_fwd"] += kb.differ(
                 got, C.add_rmsnorm_unfused(a, b, w, 1e-6))
             got = rms_ops.gated_rmsnorm(a, b, w, 1e-6)
             check("gated_rmsnorm_fwd", label, xdt, got,
                   gated_rmsnorm_ref(a, b, w, 1e-6))
-            differ["gated_rmsnorm_fwd"] += _differ(
+            differ["gated_rmsnorm_fwd"] += kb.differ(
                 got, C.gated_rmsnorm_unfused(a, b, w, 1e-6))
     # the gated kernel's card-only cases, after the shared ones
     for seed, (case, shape, layout) in enumerate(C.GATED_FWD_CASES):
@@ -1910,7 +1297,7 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
             got = rms_ops.gated_rmsnorm(a, b, w, 1e-6)
             check("gated_rmsnorm_fwd", label, xdt, got,
                   gated_rmsnorm_ref(a, b, w, 1e-6))
-            differ["gated_rmsnorm_fwd"] += _differ(
+            differ["gated_rmsnorm_fwd"] += kb.differ(
                 got, C.gated_rmsnorm_unfused(a, b, w, 1e-6))
     theta = C.QK_ROPE_THETA
     for seed, (case, dims, positions, norm, layout) in \
@@ -1921,7 +1308,7 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
             got = rms_ops.qk_norm_rope(*args, theta, 1e-6)
             check("qk_norm_rope_fwd", f"{case}/w{str(wdt)[6:]}", xdt, got,
                   qk_norm_rope_ref(*args, theta, 1e-6))
-            differ["qk_norm_rope_fwd"] += _differ(
+            differ["qk_norm_rope_fwd"] += kb.differ(
                 got, C.qk_norm_rope_unfused(*args, theta, 1e-6))
     torch.cuda.synchronize()
     for name in NORM_JSON:
@@ -1935,154 +1322,10 @@ def phase_rmsnorm_kernel_vs_plain() -> dict:
     if any(differ.values()):
         raise AssertionError(f"fused kernels differ from the unfused card "
                              f"sequences: {differ}")
-    timing = time_norm_kernels("phase 12", C)
-    return {name: dict(max_abs_err=worst[name], **timing[name])
-            for name in NORM_JSON}
-
-
-def fused_inputs(entry: str, arch: str, B: int, S: int, positions, seed):
-    """Inputs of one fused kernel at one of the paths' launches (bf16, the
-    arch's widths; random values from ``seed``)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.ssm import mamba2_dims
-    cfg, dtype = get_config(arch), torch.bfloat16
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-
-    def weight(d):
-        return 1 + 0.1 * _rand(gen, (d,), dtype)
-    if entry == "add_rmsnorm_fwd":
-        d = cfg.d_model
-        return (_rand(gen, (B, S, d), dtype), _rand(gen, (B, S, d), dtype),
-                weight(d))
-    if entry == "gated_rmsnorm_fwd":
-        dm = mamba2_dims(cfg)
-        z = _rand(gen, (B, S, dm["in_dim"]), dtype)[..., :dm["di"]]
-        return _rand(gen, (B, S, dm["di"]), dtype), z, weight(dm["di"])
-    hd = cfg.head_dim
-    q = _rand(gen, (B, S, cfg.num_heads, hd), dtype)
-    k = _rand(gen, (B, S, cfg.num_kv_heads, hd), dtype)
-    wq, wk = ((weight(hd), weight(hd)) if cfg.use_qk_norm else (None, None))
-    pos = {"rows": lambda: torch.randint(128, 161, (B, 1), generator=gen,
-                                         device=DEVICE, dtype=torch.int32),
-           "one": lambda: torch.full((1,), 150, dtype=torch.int32,
-                                     device=DEVICE),
-           "seq": lambda: torch.arange(S, device=DEVICE)}[positions]()
-    return q, k, wq, wk, pos
-
-
-#: operations per element of the normed activations: the norm's 4 (square
-#: and add, scale, times w); the add's 1; the gate's silu (exp, add,
-#: divide) and mul; RoPE's two products and a sum, and per pair the angle,
-#: cos and sin.  All fp32 on the CUDA cores.
-NORM_OPS = {"rmsnorm_fwd": 4, "add_rmsnorm_fwd": 5, "gated_rmsnorm_fwd": 8,
-            "qk_norm_rope_fwd": 4 + 3 + 1.5}
-
-
-def time_norm_kernels(label: str, C) -> dict:
-    """``rmsnorm_fwd`` at ``C.RMSNORM_TIMED`` beside its bound, the plain
-    version and ``torch.nn.functional.rms_norm``; then each fused kernel at
-    ``C.FUSED_TIMED`` beside its bound, its plain version and the unfused
-    card sequence it replaces (device time of all its kernels), with the
-    elements that differ from that sequence (none may), eight inputs
-    cycled.  A package without the fused kernels (an earlier checkout's,
-    with ``--kernel-times SRC``) has only the unfused sequences timed.
-    One line each; returns the JSON numbers at ``NORM_JSON``'s shapes."""
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.rmsnorm import ref as rms_ref
-    from repro_torch.configs import get_config
-    dtype, out = torch.bfloat16, {}
-    lib_fn = torch.nn.functional.rms_norm
-    for k, (name, shape) in enumerate(C.RMSNORM_TIMED.items()):
-        ins = [C.rmsnorm_case_on(DEVICE, dtype, dtype, shape, "dense", 50 + j)
-               for j in range(8)]
-        d = shape[-1]
-        # "norm_kernel" names the row kernels of this tree and of earlier ones
-        ker = timed(lambda i: rms_ops.rmsnorm(*ins[i % 8], 1e-6), 400,
-                    "norm_kernel")
-        plain = timed(lambda i: rms_ref.rmsnorm_ref(*ins[i % 8], 1e-6), 100)
-        lib = timed(lambda i: lib_fn(ins[i % 8][0], (d,), ins[i % 8][1],
-                                     1e-6), 400)
-        x, w = ins[0]
-        ulps = bf16_ulps(lib_fn(x, (d,), w, 1e-6), rms_ops.rmsnorm(x, w, 1e-6))
-        numel = x.numel()
-        nbytes = 2 * numel * x.element_size() + d * w.element_size()
-        bound_ms, bound_by = bound(nbytes, NORM_OPS["rmsnorm_fwd"] * numel,
-                                   torch.float32)
-        if name == NORM_JSON["rmsnorm_fwd"]:
-            out["rmsnorm_fwd"] = dict(ms=ker["ms"], plain_ms=plain["ms"],
-                                      bound_ms=bound_ms, bound_by=bound_by,
-                                      library_ms=lib["ms"])
-        print(f"{label} rmsnorm {name} bf16 {tuple(shape)}: device time "
-              f"kernel {_us(ker)}, plain {_us(plain)}, F.rms_norm "
-              f"{_us(lib)}, bound {bound_ms * 1e3:.4f} us ({bound_by}: "
-              f"{nbytes / 1e6:.3f} MB); F.rms_norm vs kernel max "
-              f"{ulps:.2f} bf16 ulp: "
-              f"{'the same' if ulps <= 1 else 'not the same'} function to "
-              f"1 ulp")
-        del ins
-    fused = hasattr(rms_ops, "add_rmsnorm")
-    for entry, launches in C.FUSED_TIMED.items():
-        op = entry[:-4]
-        for name, arch, B, S, *pos in launches:
-            theta = get_config(arch).rope_theta
-            extra = (theta,) if pos else ()
-            ins = [fused_inputs(entry, arch, B, S, pos[0] if pos else None,
-                                60 + j) for j in range(8)]
-            iters = 400 if S == 1 else 100
-            unfused_fn = getattr(C, f"{op}_unfused")
-            unf = timed(lambda i: unfused_fn(*ins[i % 8], *extra, 1e-6),
-                        iters // 4)
-            shapes = tuple(tuple(t.shape) for t in ins[0] if t is not None
-                           and t.dim() > 1)
-            if not fused:
-                print(f"{label} {op} {name} bf16 {shapes}: device time of "
-                      f"the unfused card sequence {_us(unf)} (this package "
-                      f"has no fused kernel)")
-                continue
-            fn = getattr(rms_ops, op)
-            plain_fn = getattr(rms_ref, f"{op}_ref")
-            ker = timed(lambda i: fn(*ins[i % 8], *extra, 1e-6), iters,
-                        "qk_norm_rope_kernel" if pos else "norm_kernel")
-            plain = timed(lambda i: plain_fn(*ins[i % 8], *extra, 1e-6),
-                          iters // 4)
-            got = fn(*ins[0], *extra, 1e-6)
-            diff = _differ(got, unfused_fn(*ins[0], *extra, 1e-6))
-            if diff:
-                raise AssertionError(f"{op} {name}: {diff} elements differ "
-                                     f"from the unfused card sequence")
-            outs = got if isinstance(got, tuple) else (got,)
-            nbytes = (sum(t.numel() * t.element_size()
-                          for t in list(ins[0]) + list(outs)
-                          if t is not None)
-                      + (4 * ins[0][0].shape[-1] // 2 if pos else 0))
-            numel = sum(t.numel() for t in outs)
-            bound_ms, bound_by = bound(nbytes, NORM_OPS[entry] * numel,
-                                       torch.float32)
-            if name == NORM_JSON[entry]:
-                out[entry] = dict(ms=ker["ms"], plain_ms=plain["ms"],
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=None)
-            print(f"{label} {op} {name} bf16 {shapes}"
-                  f"{' positions ' + pos[0] if pos else ''}: device time "
-                  f"kernel {_us(ker)}, plain {_us(plain)}, unfused card "
-                  f"sequence {_us(unf)} ({unf['ms'] / ker['ms']:.1f}x the "
-                  f"kernel); bound {bound_ms * 1e3:.4f} us ({bound_by}: "
-                  f"{nbytes / 1e6:.3f} MB), {bound_ms / ker['ms']:.3f} of it "
-                  f"reached; {diff} elements differ from the unfused "
-                  f"sequence; library: none (no single PyTorch call "
-                  f"computes it)")
-            del ins
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
-
-
-#: operations per element of the split gated norm's entries: the gate
-#: (silu: exp, add, divide; the product) and the square and add; the
-#: norm's scale and times w after the gate; dot's product of three and
-#: add after the gate; the backward's gated row as ``gated_rmsnorm_bwd``
-SPLIT_OPS = {"gated_rmsnorm_sumsq": 6, "gated_rmsnorm_scale": 7,
-             "gated_rmsnorm_dot": 7, "gated_rmsnorm_scale_bwd": 22}
+    rows = {(r["kernel"], r["launch"]): r
+            for r in kb.time_norm_kernels("phase 12", C)}
+    return {name: dict(max_abs_err=worst[name], **_json(rows[name, at]))
+            for name, at in NORM_JSON.items()}
 
 
 def phase_split_norm_vs_plain() -> dict:
@@ -2092,9 +1335,10 @@ def phase_split_norm_vs_plain() -> dict:
     (x, w) dtype pairs: each rank's outputs against the plain versions
     fed the kernels' sums, and the ranks' outputs side by side against
     the whole-row ``gated_rmsnorm_fwd`` / ``_bwd`` (``cases.py::
-    split_check``'s bounds).  Then timed (``time_split_norm``).  Returns
-    the JSON numbers of each entry, by name."""
-    C = norm_cases()
+    split_check``'s bounds).  Then timed (``kernel_bench.
+    time_split_norm``).  Returns the JSON numbers of each entry, by
+    name."""
+    C = kb.norm_cases()
     worst = {}
     n = 0
     for seed, case in enumerate(C.SPLIT_CASES):
@@ -2115,103 +1359,15 @@ def phase_split_norm_vs_plain() -> dict:
           f"pairs); the largest excess over each bound's ulps (<= its f32 "
           f"floor; the sums relative): "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
-    timing = time_split_norm("phase 12", C)
+    timing = {r["kernel"]: r for r in kb.time_split_norm("phase 12", C)}
     errs = {"gated_rmsnorm_sumsq": worst["sumsq"],
             "gated_rmsnorm_scale": max(worst["scale"],
                                        worst["scale vs whole"]),
             "gated_rmsnorm_dot": worst["dot"],
             "gated_rmsnorm_scale_bwd": max(
                 worst[k] for k in worst if k[:2] in ("dy", "dz", "dw"))}
-    return {e: dict(max_abs_err=errs[e], **timing[e]) for e in timing}
-
-
-def time_split_norm(label: str, C) -> dict:
-    """Each split entry at its path's launch (``C.SPLIT_TIMED``: one of
-    two ranks' columns of phase 33's bf16 prefill for the forward, of its
-    f32 train step for the backward) beside its bound (the rank's inputs
-    read once, its outputs written once) and its plain version; no single
-    PyTorch call computes any of them.  Four inputs cycled.  A package
-    without them (``--kernel-times SRC`` of an earlier checkout) is
-    skipped.  One line each; returns the JSON numbers."""
-    from repro_torch.kernels.rmsnorm import kernel as K
-    from repro_torch.kernels.rmsnorm import ref as R
-    from repro_torch.kernels.rmsnorm.ops import row_view
-    if not hasattr(K, "gated_rmsnorm_sumsq"):
-        print(f"{label}: this package has no split gated norm")
-        return {}
-    cases = {c[0]: c for c in C.SPLIT_CASES}
-    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
-    out = {}
-    for entry, (name, dt) in C.SPLIT_TIMED.items():
-        _, shape, M = cases[name]
-        dtype, D = dts[dt], shape[-1]
-        ins = []
-        for j in range(4):
-            _, blocks = C.split_case_on(DEVICE, dtype, dtype, shape, M,
-                                        80 + j)
-            y, z, dout = (row_view(t) for t in blocks[0][:3])
-            w = blocks[0][3]
-            # the rank's sums stand in for the sums over the ranks
-            ss = K.gated_rmsnorm_sumsq(y, z) * M
-            dot = K.gated_rmsnorm_dot(dout, y, z, w) * M
-            ins.append((y, z, dout, w, ss, dot))
-        calls = {
-            "gated_rmsnorm_sumsq": (
-                lambda i: K.gated_rmsnorm_sumsq(*ins[i % 4][:2]),
-                lambda i: R.gated_rmsnorm_sumsq_ref(*ins[i % 4][:2])),
-            "gated_rmsnorm_scale": (
-                lambda i: K.gated_rmsnorm_scale(
-                    *ins[i % 4][:2], ins[i % 4][3], ins[i % 4][4],
-                    d_total=D, eps=1e-6),
-                lambda i: R.gated_rmsnorm_scale_ref(
-                    *ins[i % 4][:2], ins[i % 4][3], ins[i % 4][4], D)),
-            "gated_rmsnorm_dot": (
-                lambda i: K.gated_rmsnorm_dot(ins[i % 4][2], *ins[i % 4][:2],
-                                              ins[i % 4][3]),
-                lambda i: R.gated_rmsnorm_dot_ref(
-                    ins[i % 4][2], *ins[i % 4][:2], ins[i % 4][3])),
-            "gated_rmsnorm_scale_bwd": (
-                lambda i: K.gated_rmsnorm_scale_bwd(
-                    ins[i % 4][2], *ins[i % 4][:2], *ins[i % 4][3:],
-                    d_total=D, eps=1e-6),
-                lambda i: R.gated_rmsnorm_scale_bwd_ref(
-                    ins[i % 4][2], *ins[i % 4][:2], *ins[i % 4][3:], D)),
-        }
-        kfn, pfn = calls[entry]
-        # the two forward entries and dot are one launch each (norm_kernel
-        # and gated_dot_kernel); scale_bwd two (the row kernel, dw's sum)
-        name_of = {"gated_rmsnorm_sumsq": "norm_kernel",
-                   "gated_rmsnorm_scale": "norm_kernel",
-                   "gated_rmsnorm_dot": "gated_dot_kernel"}.get(entry, "")
-        ker = timed(kfn, 100, name_of, 0 if name_of else 2)
-        split = ("" if name_of else
-                 f" ({bwd_launches(kfn, 100)})")
-        plain = timed(pfn, 25)
-        y, z, dout, w, ss, dot = ins[0]
-        rows, d = y.shape
-        es, ws = y.element_size(), w.element_size()
-        act = rows * d * es
-        nbytes = {"gated_rmsnorm_sumsq": 2 * act + 4 * rows,
-                  "gated_rmsnorm_scale": 3 * act + d * ws + 4 * rows,
-                  "gated_rmsnorm_dot": 3 * act + d * ws + 4 * rows,
-                  "gated_rmsnorm_scale_bwd": 5 * act + 2 * d * ws
-                  + 8 * rows}[entry]
-        bound_ms, bound_by = bound(nbytes, SPLIT_OPS[entry] * rows * d,
-                                   torch.float32)
-        out[entry] = dict(ms=ker["ms"], plain_ms=plain["ms"],
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=None)
-        print(f"{label} {entry} {name} {dt} (one of {M} ranks: {rows} rows "
-              f"x {d} of {D} columns): device time kernel {_us(ker)}"
-              f"{split}, plain "
-              f"{_us(plain)}; bound {bound_ms * 1e3:.4f} us ({bound_by}: "
-              f"{nbytes / 1e6:.3f} MB), {bound_ms / ker['ms']:.3f} of it "
-              f"reached; library: none (no single PyTorch call computes "
-              f"it)")
-        del ins
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+    return {e: dict(max_abs_err=errs[e], **_json(timing[e]))
+            for e in timing}
 
 
 # --- phases 13, 14 and 15 ----------------------------------------------------
@@ -2281,59 +1437,6 @@ def phase_moe_parity() -> None:
 
 # --- phase 16 ----------------------------------------------------------------
 
-#: operations per element of the normed activations in each backward (fp32
-#: on the CUDA cores): g = dy * w, the two sums (square and add, product
-#: and add), dx's three and dw's two; the add's dr; the gate's silu, its
-#: derivative and three products; RoPE's rotation (four products and two
-#: sums) and, per pair, the angle, cos and sin
-NORM_BWD_OPS = {"rmsnorm_bwd": 10, "add_rmsnorm_bwd": 11,
-                "gated_rmsnorm_bwd": 22, "qk_norm_rope_bwd": 10 + 6 + 1.5}
-
-
-def bwd_inputs(entry: str, arch: str, B: int, S: int, seed: int):
-    """The backward kernel's inputs at one of the train step's launches
-    (bf16, the arch's widths, random values from ``seed``): the forward's
-    inputs as the model passes them (the gated norm's z a slice of the
-    Mamba2 input projection) and the incoming gradients, dense."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.rmsnorm.ops import inv_freq, row_view
-    if entry == "qk_norm_rope_bwd":
-        q, k, wq, wk, pos = fused_inputs("qk_norm_rope_fwd", arch, B, S,
-                                         "seq", seed)
-        gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-        freq = inv_freq(q.device, q.shape[-1], get_config(arch).rope_theta)
-        return (_rand(gen, q.shape, q.dtype), _rand(gen, k.shape, k.dtype),
-                q, k, wq, wk, pos, freq)
-    fwd = {"rmsnorm_bwd": "add_rmsnorm_fwd", "add_rmsnorm_bwd":
-           "add_rmsnorm_fwd", "gated_rmsnorm_bwd": "gated_rmsnorm_fwd"}[entry]
-    a, b, w = fused_inputs(fwd, arch, B, S, None, seed)
-    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
-    dy = row_view(_rand(gen, a.shape, a.dtype))
-    if entry == "rmsnorm_bwd":
-        return dy, row_view(a), w
-    if entry == "add_rmsnorm_bwd":
-        return dy, row_view(_rand(gen, a.shape, a.dtype)), row_view(a), w
-    return dy, row_view(a), row_view(b), w
-
-
-def bwd_plain(entry: str, ins, theta: float):
-    """The plain formula on ``bwd_inputs``'s arguments (``theta``: RoPE's,
-    of the arch)."""
-    from repro_torch.kernels.rmsnorm import ref as R
-    if entry == "qk_norm_rope_bwd":
-        dq, dk, q, k, wq, wk, pos, _ = ins
-        return R.qk_norm_rope_bwd_ref(dq, dk, q, k, wq, wk, pos, theta,
-                                      1e-6)
-    if entry == "rmsnorm_bwd":
-        dy, x, w = ins
-        return R.rmsnorm_bwd_ref(dy, x, w, 1e-6)
-    if entry == "add_rmsnorm_bwd":
-        dh, dr, r, w = ins
-        return R.add_rmsnorm_bwd_ref(dh, dr, r, w, 1e-6)
-    dout, y, z, w = ins
-    return R.gated_rmsnorm_bwd_ref(dout, y, z, w, 1e-6)
-
-
 def phase_rmsnorm_bwd_vs_plain() -> dict:
     """The four RMSNorm backward kernels on the card against their plain
     formulas and against torch.autograd of the plain forwards, on every
@@ -2345,9 +1448,10 @@ def phase_rmsnorm_bwd_vs_plain() -> dict:
     of x's and w's, relative to its largest value: a bf16 x rounds the
     terms its sum adds); each call made twice on the same
     inputs must give the same bits (dw's fixed-order sum).  Then each is
-    timed at the train step's launch (``BWD_TIMED``).  Returns the JSON
+    timed at the train step's launch (``BWD_TIMED``; each entry has one).
+    Returns the JSON
     numbers of each backward kernel, by name."""
-    C = norm_cases()
+    C = kb.norm_cases()
     worst = {e: [0.0, 0.0] for e in C.BWD_ENTRIES}
     cases = {e: 0 for e in C.BWD_ENTRIES}
     differ = {e: 0 for e in C.BWD_ENTRIES}
@@ -2384,71 +1488,10 @@ def phase_rmsnorm_bwd_vs_plain() -> dict:
     if any(differ.values()):
         raise AssertionError(f"backward kernels are not deterministic: "
                              f"{differ}")
-    timing = time_norm_bwd_kernels("phase 16", C)
-    return {e: dict(max_abs_err=worst[e][0], **timing[e])
+    timing = {r["kernel"]: r
+              for r in kb.time_norm_bwd_kernels("phase 16", C)}
+    return {e: dict(max_abs_err=worst[e][0], **_json(timing[e]))
             for e in C.BWD_ENTRIES}
-
-
-def time_norm_bwd_kernels(label: str, C) -> dict:
-    """Each backward kernel at the train step's launch (``C.BWD_TIMED``,
-    bf16): device time of its two launches, beside its bound, its plain
-    formula and, for ``rmsnorm_bwd``, the backward of
-    ``torch.nn.functional.rms_norm`` under autograd (the library time);
-    four inputs cycled.  One line each; returns the JSON numbers."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.rmsnorm import kernel as K
-    out = {}
-    for entry, launches in C.BWD_TIMED.items():
-        fn = getattr(K, entry)
-        for name, arch, B, S in launches:
-            theta = get_config(arch).rope_theta
-            ins = [bwd_inputs(entry, arch, B, S, 70 + j) for j in range(4)]
-            if entry == "qk_norm_rope_bwd":
-                def call(i):
-                    dq, dk, q, k, wq, wk, pos, freq = ins[i % 4]
-                    return fn(dq, dk, q, k, wq, wk, pos, freq, eps=1e-6)
-            else:
-                def call(i):
-                    return fn(*ins[i % 4], eps=1e-6)
-            ker = timed(call, 40, per_call=2)  # the row kernel, dw's sum
-            split = bwd_launches(call, 40)
-            plain = timed(lambda i: bwd_plain(entry, ins[i % 4], theta),
-                          10)
-            lib = None
-            if entry == "rmsnorm_bwd":
-                dy, x, w = ins[0]
-                xr = x.detach().requires_grad_(True)
-                wr = w.detach().requires_grad_(True)
-                y = torch.nn.functional.rms_norm(xr, (x.shape[-1],), wr,
-                                                 1e-6)
-                lib = timed(lambda i: torch.autograd.grad(
-                    y, (xr, wr), dy, retain_graph=True), 40)
-            outs = call(0)
-            nbytes = (sum(t.numel() * t.element_size()
-                          for t in list(ins[0]) + list(outs)
-                          if t is not None and t.dtype.is_floating_point)
-                      + (ins[0][6].numel() * 8
-                         if entry == "qk_norm_rope_bwd" else 0))
-            numel = outs[0].numel() + (outs[1].numel()
-                                       if entry == "qk_norm_rope_bwd" else 0)
-            bound_ms, bound_by = bound(nbytes, NORM_BWD_OPS[entry] * numel,
-                                       torch.float32)
-            out[entry] = dict(ms=ker["ms"], plain_ms=plain["ms"],
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=None if lib is None else lib["ms"])
-            shapes = tuple(tuple(t.shape) for t in ins[0]
-                           if t is not None and t.dim() > 1)
-            print(f"{label} {entry} {name} bf16 {shapes}: device time "
-                  f"kernel {_us(ker)} ({split}), plain {_us(plain)}"
-                  + (f", F.rms_norm's backward under autograd {_us(lib)}"
-                     if lib else ", library: none (no single PyTorch call)")
-                  + f"; bound {bound_ms * 1e3:.3f} us ({bound_by}: "
-                  f"{nbytes / 1e6:.2f} MB), {bound_ms / ker['ms']:.3f} of "
-                  f"it reached")
-            del ins
-            gc.collect()
-    torch.cuda.empty_cache()
-    return out
 
 
 # --- phases 17 and 18 --------------------------------------------------------
@@ -3917,7 +2960,7 @@ SEQ_POSITIONS = [32_767, 30_000, 20_001, 16_384, 9_000, 4_095, 2_048, 5]
 SEQ_CASES = [
     ("qwen3-0.6b", (8, 16, 8, 128), SEQ_POSITIONS, 0, 0.0, 128 ** -0.5),
     ("gemma2-27b-local", (8, 32, 16, 128), SEQ_POSITIONS, 4096, 50.0,
-     GEMMA2_SCALE),
+     kb.GEMMA2_SCALE),
 ]
 #: the log-sum-exp's bound, kernel vs plain: both sum fp32 exponentials
 #: over at most 2,048 slots, in another order; at |lse| up to ~20 that is
@@ -4404,7 +3447,7 @@ def _mamba_tp_rank(rank, world, port, out_dir, runs, rows, steps,
     launch, seen = ssd_ops.ssd_scan_fwd, set()
 
     def recorded(xb, a, B_mat, C_mat, *, chunk, initial_state=None):
-        seen.add(ssd_key(xb, B_mat, chunk, initial_state))
+        seen.add(kb.ssd_key(xb, B_mat, chunk, initial_state))
         return launch(xb, a, B_mat, C_mat, chunk=chunk,
                       initial_state=initial_state)
     ssd_ops.ssd_scan_fwd = recorded
@@ -4598,7 +3641,7 @@ def phase_mamba_tp() -> dict:
         B, S, H, P, G, N, chunk = cases[SSD_TP[arch]]
         xb, _, Bm, _, _ = ssd_case_on(DEVICE, torch.bfloat16, B, S, H, P, G,
                                       N)
-        key = ssd_key(xb, Bm, chunk, None)
+        key = kb.ssd_key(xb, Bm, chunk, None)
         dm = mamba2_dims(cfg)
         for i, r in enumerate(ranks):
             for dtype in ("float32", "bfloat16"):
@@ -4747,6 +3790,130 @@ def phase_mamba_tp() -> dict:
     return summed
 
 
+# --- phase 34: the tools -----------------------------------------------------
+
+#: phase 34's quickstart runs (gitignored): the uninterrupted run, and the
+#: run resumed from its step-10 checkpoint
+TOOLS_DIR = ROOT / "build" / "tools"
+QUICKSTART_STEPS, QUICKSTART_RESUME_AT = 20, 10
+#: the kernels the shakeouts must launch: every kernel of the prefill and
+#: decode calls of the smoke archs (the paged kernel serves no call of
+#: theirs)
+SHAKEOUT_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
+                    "ssd_scan_fwd", "rmsnorm_fwd", "add_rmsnorm_fwd",
+                    "qk_norm_rope_fwd", "gated_rmsnorm_fwd")
+
+
+def phase_tools() -> dict:
+    """The port's tools (``repro_torch.tools``), each through its entry
+    point on the card: ``shakeout_models`` over every arch and
+    ``shakeout_decode`` over its six (each ``OK``; together they launch
+    every kernel of SHAKEOUT_KERNELS); ``quickstart`` for 20 steps with a
+    checkpoint every 10 (the loss falls), then again resumed from that
+    run's step-10 checkpoint (its last 10 losses and its final
+    parameters and moments equal the uninterrupted run's bit for bit);
+    ``serving_demo`` (12 of 12 requests complete); ``roofline`` and
+    ``colocation`` over phase 32's records (every cell's fraction finite,
+    both of the co-location scenario's binding-axis assertions hold).
+    Returns the kernels' launches over the whole phase."""
+    from repro_torch.checkpoint.checkpoint import restore, save
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.tools import (colocation, quickstart, roofline,
+                                   serving_demo, shakeout_decode,
+                                   shakeout_models)
+    from repro_torch.utils.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    fns = launchers()
+    for f in fns.values():
+        f.launches = 0
+    lines, t0 = [], time.perf_counter()
+    for tool in (shakeout_models, shakeout_decode):
+        failed = tool.main(["--device", DEVICE])
+        if failed:
+            raise AssertionError(f"phase 34 {tool.__name__}: {failed}")
+    shake = {name: fns[name].launches for name in SHAKEOUT_KERNELS}
+    if not all(shake.values()):
+        raise AssertionError(f"phase 34 shakeouts: launches {shake}")
+    lines.append(f"shakeouts of {len(ARCH_IDS)} + "
+                 f"{len(shakeout_decode.ARCHS)} archs OK in "
+                 f"{time.perf_counter() - t0:.1f}s, launches {shake}")
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    whole, resumed = TOOLS_DIR / "quickstart", TOOLS_DIR / "resumed"
+    args = ["--steps", str(QUICKSTART_STEPS), "--ckpt-every",
+            str(QUICKSTART_RESUME_AT), "--device", DEVICE, "--ckpt-dir"]
+    full = quickstart.main(args + [str(whole)])
+    losses = full["losses"]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        raise AssertionError(f"phase 34 quickstart: the loss did not fall: "
+                             f"{losses}")
+    state = {"params": full["params"], "m": full["opt"].m,
+             "v": full["opt"].v, "count": full["opt"].count}
+    tree, _ = restore(str(whole), state, step=QUICKSTART_RESUME_AT)
+    save(str(resumed), QUICKSTART_RESUME_AT, tree)
+    del tree
+    again = quickstart.main(args + [str(resumed), "--resume"])
+    bad = sum(int((a != b).sum()) for a, b in zip(
+        tree_leaves(state), tree_leaves(
+            {"params": again["params"], "m": again["opt"].m,
+             "v": again["opt"].v, "count": again["opt"].count})))
+    if (again["start"] != QUICKSTART_RESUME_AT or bad
+            or again["losses"] != losses[QUICKSTART_RESUME_AT:]):
+        raise AssertionError(f"phase 34 quickstart resumed at "
+                             f"{again['start']}: {bad} elements differ; "
+                             f"losses {again['losses']} vs "
+                             f"{losses[QUICKSTART_RESUME_AT:]}")
+    n_params = sum(t.numel() for t in tree_leaves(full["params"]))
+    lines.append(f"quickstart {n_params / 1e6:.1f}M params, "
+                 f"{QUICKSTART_STEPS} steps of 8 x 256: loss "
+                 f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+                 f"{first:.4f}, last 5 {last:.4f}); resumed from step "
+                 f"{QUICKSTART_RESUME_AT}: the last "
+                 f"{QUICKSTART_STEPS - QUICKSTART_RESUME_AT} losses and the "
+                 f"params and moments bit for bit the same; "
+                 f"{time.perf_counter() - t0:.1f}s")
+    del full, again, state
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    served = serving_demo.main(["--device", DEVICE])
+    summary = served["summary"]
+    if summary["completed"] != 12:
+        raise AssertionError(f"phase 34 serving_demo: {summary}")
+    lines.append(f"serving_demo {summary['completed']}/12 requests, "
+                 f"{summary['steps']} steps, {served['joins']} join points, "
+                 f"{summary['preemptions']} preemptions; "
+                 f"{time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    rf = roofline.main(["--dryrun", str(DRYRUN_OUT)])
+    cells = {k: v for k, v in rf.items() if k != "summary"}
+    fracs = [v["roofline_fraction"] for v in cells.values()]
+    if len(cells) != 2 * len(DRYRUN_CELLS) or not np.all(np.isfinite(fracs)):
+        raise AssertionError(f"phase 34 roofline: {rf}")
+    co = colocation.main(["--dryrun", str(DRYRUN_OUT)])
+    lines.append(f"roofline over phase 32's {len(cells)} cells: fractions "
+                 f"{min(fracs):.4g} to {max(fracs):.4g} (median "
+                 f"{rf['summary']['median_fraction']:.4g}, dominant "
+                 f"{rf['summary']['dominant_histogram']}); colocation STP "
+                 f"ours {co['ours']['stp']:.3f}, oracle "
+                 f"{co['oracle']['stp']:.3f}, pairwise "
+                 f"{co['pairwise']['stp']:.3f}, multi-axis binding "
+                 f"{co['multiaxis']['ours']['binding_axes']}, net-axis "
+                 f"{co['netaxis']['ours']['binding_axes']}; "
+                 f"{time.perf_counter() - t0:.1f}s")
+    counts = {name: f.launches for name, f in fns.items()}
+    print(f"phase 34 tools: " + "; ".join(lines)
+          + f"; launches {({k: v for k, v in counts.items() if v})} "
+          f"[{card_line()}]")
+    return counts
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
@@ -4865,10 +4032,12 @@ def main() -> None:
     done(32)
     paths.append(phase_mamba_tp())
     done(33)
+    paths.append(phase_tools())
+    done(34)
     # launches on the main paths: each path's own run, summed over the
     # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, the training paths,
     # 17, 24 and 27's mesh run, 28's real steps, 29's bf16 and 30's runs
-    # on both ranks, 31's on all 16, and 33's on both ranks)
+    # on both ranks, 31's on all 16, 33's on both ranks, and 34's tools)
     launches = {name: sum(counts[name] for counts in paths)
                 for name in KERNELS}
     print(f"total seconds: {time.perf_counter() - t_start:.1f}")
@@ -4891,21 +4060,16 @@ def kernel_times(src: str) -> None:
     backward kernels at the train step's launches (phase 16's), taking the
     ``repro_torch`` package from the ``src`` directory SRC of another
     checkout (default: this one), so that two versions are timed on one
-    card in one call; prints no JSON."""
+    card in one call: ``kernel_bench.time_all`` of this tree over SRC's
+    kernels; prints no JSON."""
     if src:
         sys.path.insert(0, str(Path(src).resolve()))
     card = phase_device_and_build()
     import repro_torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan.cases import SSD_MAIN, SSD_TP
     print(f"kernel times of {Path(repro_torch.__file__).parent}")
-    time_paged_launches("kernel times")
-    time_served_shapes(get_config("qwen3-0.6b").num_layers)
-    for name in list(SSD_MAIN.values()) + list(SSD_TP.values()):
-        time_ssd(name)
-    time_norm_kernels("kernel times", norm_cases())
-    time_split_norm("kernel times", norm_cases())
-    time_norm_bwd_kernels("kernel times", norm_cases())
+    rows = kb.time_all("kernel times")
+    print(f"kernel times: {len(rows)} (kernel, launch) rows of "
+          f"{len({r['kernel'] for r in rows})} kernels")
     print(card)
 
 
@@ -5008,8 +4172,9 @@ def norm_times(src: str) -> None:
         sys.path.insert(0, str(Path(src).resolve()))
     import repro_torch
     print(f"norm times of {Path(repro_torch.__file__).parent}")
-    time_norm_kernels("norm times", norm_cases())
-    time_split_norm("norm times", norm_cases())
+    C = kb.norm_cases()
+    kb.time_norm_kernels("norm times", C)
+    kb.time_split_norm("norm times", C)
     print(card_line())
 
 
@@ -5050,8 +4215,21 @@ def tp_phases() -> None:
     print(card_line())
 
 
+def tools_phases() -> None:
+    """``--tools``: build the kernels and run phase 32 (the dry-run's
+    records, which phase 34 reads) and phase 34 alone; prints no JSON."""
+    phase_device_and_build()
+    for n, phase in ((32, phase_dryrun), (34, phase_tools)):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase {n} seconds: {time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--tp"]:
+    if sys.argv[1:2] == ["--tools"]:
+        tools_phases()
+    elif sys.argv[1:2] == ["--tp"]:
         tp_phases()
     elif sys.argv[1:2] == ["--mamba-tp"]:
         mamba_tp_phases()
