@@ -1,0 +1,96 @@
+"""The frozen formulas equal the kernel bench's bounds at the shapes of
+PERF.md's kernel table, and the model's FLOPs count what they say."""
+import pytest
+import torch
+
+from chipbench.harness import cells
+from chipbench.roofline import kernels, model_flops, peaks
+
+from repro_torch.tools import kernel_bench as kb
+
+
+def _w(arch):
+    from repro_torch.configs import get_config
+    return kernels.widths(get_config(arch))
+
+
+def test_peaks_are_the_bench_s():
+    assert kb.HBM_BYTES_S == peaks.HBM_BYTES_S
+    assert kb.PEAK_OPS_S[torch.bfloat16] == peaks.BF16_FLOPS
+    assert kb.PEAK_OPS_S[torch.float32] == peaks.F32_FLOPS
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,lens", [
+    (8, 16, 8, [128] * 8), (8, 32, 4, [128] * 8), (8, 32, 4, [129] * 8),
+    (16, 32, 4, [1, 17, 300, 2816] * 4)])
+def test_paged_bound(B, Hq, Hkv, lens):
+    assert kernels.paged_bound_ms(B, Hq, 128, 16, Hkv, lens) == \
+        kb.paged_bound_ms(B, Hq, 128, 16, Hkv, lens, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(8, 2048), (8, 1024), (8, 128, 5120),
+                                   (8192, 1024)])
+def test_rmsnorm_bound(shape):
+    rows = 1
+    for s in shape[:-1]:
+        rows *= s
+    assert kernels.rmsnorm_bound(rows, shape[-1]) == kb.rmsnorm_bound(shape)
+
+
+@pytest.mark.parametrize("arch,B,S,positions", [
+    ("qwen3-moe-30b-a3b", 8, 1, "rows"), ("qwen3-0.6b", 8, 1, "rows"),
+    ("qwen3-0.6b", 8, 128, "seq"), ("qwen3-0.6b", 8, 1024, "seq")])
+def test_fused_bounds(arch, B, S, positions):
+    w = _w(arch)
+    assert kernels.add_rmsnorm_bound(B * S, w["d"]) == \
+        kb.fused_bound("add_rmsnorm_fwd", arch, B, S)
+    pos_bytes = kb._POSITION_BYTES[positions](B, S)
+    assert kernels.qk_norm_rope_bound(B, S, w["Hq"], w["Hkv"], w["D"],
+                                      pos_bytes, w["qk_norm"]) == \
+        kb.fused_bound("qk_norm_rope_fwd", arch, B, S, positions)
+
+
+@pytest.mark.parametrize("entry", ["rmsnorm_bwd", "add_rmsnorm_bwd",
+                                   "qk_norm_rope_bwd"])
+def test_norm_bwd_bound(entry):
+    w = _w("qwen3-0.6b")
+    assert kernels.norm_bwd_bound(entry, 8, 1024, w["d"], w["Hq"], w["Hkv"],
+                                  w["D"], w["qk_norm"]) == \
+        kb.norm_bwd_bound(entry, "qwen3-0.6b", 8, 1024)
+
+
+def test_call_sums_follow_the_launches():
+    cfg = cells.model_config(cells.load("qwen3-0.6b.train-16k").config)
+    w = kernels.widths(cfg)
+    launches = {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 56,
+                "qk_norm_rope_fwd": 28}
+    got = kernels.serving_call_ms(cfg, "prefill", 16, 128, [], launches, 16)
+    want = (kernels.rmsnorm_bound(16 * 128, 1024)[0]
+            + 55 * kernels.add_rmsnorm_bound(16 * 128, 1024)[0]
+            + kernels.add_rmsnorm_bound(16, 1024)[0]
+            + 28 * kernels.qk_norm_rope_bound(16, 128, 16, 8, 128,
+                                              4 * 16 * 128)[0])
+    assert got == pytest.approx(want)
+    lens = [5, 100, 1, 1]
+    got = kernels.serving_call_ms(cfg, "decode", 4, 128, lens,
+                                  {"paged_attention_fwd": 28}, 16)
+    assert got == pytest.approx(28 * kernels.paged_bound_ms(
+        4, w["Hq"], w["D"], 16, w["Hkv"], lens)[0])
+
+
+def test_model_flops():
+    moe = cells.model_config(cells.load("qwen3-moe-30b-a3b.chat-batch")
+                             .config)
+    dense = cells.model_config(cells.load("qwen3-0.6b.train-16k").config)
+    # qwen3-30b-a3b activates about 3.3 billion parameters a token
+    active = model_flops.body_params_per_token(moe) + 2048 * 151936
+    assert 3.0e9 < active < 3.5e9
+    assert model_flops.attention_pairs([(0, 4)]) == 10
+    assert model_flops.attention_pairs([(10, 1)]) == 11
+    f = model_flops.forward_flops(dense, [(0, 1)], 1)
+    assert f == pytest.approx(2 * (model_flops.body_params_per_token(dense)
+                                   + 1024 * 151936)
+                              + 4 * 16 * 128 * 28)
+    # about 3.9 GFLOP a token for qwen3-0.6b training at 1,024
+    per_tok = model_flops.train_step_flops(dense, 16, 1024) / 16384
+    assert 3.5e9 < per_tok < 4.2e9
