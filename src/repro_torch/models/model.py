@@ -57,6 +57,7 @@ from repro_torch.models.tp import (copy_to, current_tp, gather_heads,
                                    split, tp_mesh_context, vocab_embed)
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
+from repro_torch.obs.spans import COUNTERS, spanned
 
 Params = Dict[str, Any]
 
@@ -294,6 +295,7 @@ def _embed(params, cfg, tokens):
     return x
 
 
+@spanned("model.unembed")
 def _unembed(params, cfg, h, delta=None):
     """Final norm + LM head (+ gemma2 final softcap). h: [..., d], and the
     last block's pending output ``delta`` (added in the final norm's
@@ -372,6 +374,7 @@ def _seq_split_decode(q, ck, cv, pos, cfg, window: int):
     return merge_partials(o, lse, heads_split)
 
 
+@spanned("model.attn")
 def attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
                delta: Optional[torch.Tensor] = None, *,
                mode: str,                    # train | prefill | decode
@@ -512,6 +515,7 @@ def _mlp(p: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return reduce_from(out) if tp else out
 
 
+@spanned("model.mlp")
 def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
               delta: Optional[torch.Tensor] = None):
     """Pre-norm gated MLP: -> (x + delta, the block's pending output)."""
@@ -522,6 +526,7 @@ def mlp_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return x, out
 
 
+@spanned("model.moe")
 def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
               shared_mlp: Optional[Params] = None,
               delta: Optional[torch.Tensor] = None, *,
@@ -700,6 +705,7 @@ def _paged_kv_write(pool, new, table, positions, page_size):
     return pool
 
 
+@spanned("model.attn")
 def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, delta,
                       pools, table, write_table, positions, kv_lens, *,
                       chunk_attend: bool):
@@ -727,6 +733,7 @@ def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, delta,
     if chunk_attend:
         kd = gather_pages(kp, table)           # [B, maxp*page, Hkv, hd]
         vd = gather_pages(vp, table)
+        COUNTERS.inc("attn.kv_gathered", kd.shape[0] * kd.shape[1])
         out = attention(
             q, kd, vd, causal=True, q_positions=positions,
             k_positions=torch.arange(kd.shape[1], device=x.device),

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models.layers import activation
+from repro_torch.obs.spans import COUNTERS, span
 
 
 class MoEOutput(NamedTuple):
@@ -121,23 +122,31 @@ def moe_ffn(
 ) -> MoEOutput:
     """The MoE FFN of ``N`` tokens.  ``aux_loss`` and
     ``fraction_dropped`` are computed only ``with_aux`` (serving never
-    reads them; JAX's jit drops them as dead code there), else None."""
+    reads them; JAX's jit drops them as dead code there), else None.
+    Counts the ``N * k`` routed pairs and the ``E * C`` buffer slots the
+    experts compute (``moe.pairs_routed``, ``moe.slots_computed``)."""
     N, d = x.shape
     E = w_router.shape[1]
     C = capacity(N, k, capacity_factor, E)
+    COUNTERS.inc("moe.pairs_routed", N * k)
+    COUNTERS.inc("moe.slots_computed", E * C)
 
-    # the router in fp32: JAX promotes the bf16 activations to w_router's
-    # fp32 in its einsum
-    logits = x.float() @ w_router.float()
-    weights, idx = router_topk(logits, k)              # [N, k]
+    with span("moe.router"):
+        # the router in fp32: JAX promotes the bf16 activations to
+        # w_router's fp32 in its einsum
+        logits = x.float() @ w_router.float()
+        weights, idx = router_topk(logits, k)              # [N, k]
 
-    buf, src, wgt, keep = _local_dispatch(x, weights, idx, E, C)
+    with span("moe.dispatch"):
+        buf, src, wgt, keep = _local_dispatch(x, weights, idx, E, C)
 
-    # ---- expert computation (batched products)
-    g = activation(torch.bmm(buf, w_gate), act)
-    u = torch.bmm(buf, w_up)
-    y_buf = torch.bmm((g * u).to(x.dtype), w_down).view(E * C, d)
-    y = _combine(y_buf, src, wgt, k, x.dtype)
+    with span("moe.experts"):
+        g = activation(torch.bmm(buf, w_gate), act)
+        u = torch.bmm(buf, w_up)
+        y_buf = torch.bmm((g * u).to(x.dtype), w_down).view(E * C, d)
+
+    with span("moe.combine"):
+        y = _combine(y_buf, src, wgt, k, x.dtype)
     if not with_aux:
         return MoEOutput(y, None, None)
     probs = torch.softmax(logits, dim=-1)

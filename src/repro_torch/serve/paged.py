@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.obs.spans import COUNTERS, span
 from repro_torch.serve.backends import (PAD_ID, Backend, SimBackend,
                                         _bucket, _shrink_bucket)
 from repro_torch.serve.request import Request
@@ -529,52 +530,71 @@ class TorchPagedBackend(_PagedScheduler, Backend):
     def _greedy(self, logits) -> np.ndarray:
         """argmax over the vocabulary (first index on ties, like
         ``jnp.argmax``), read back to the host: [B]."""
-        return logits.argmax(-1)[:, 0].cpu().numpy()
+        with span("serve.readback"):
+            return logits.argmax(-1)[:, 0].cpu().numpy()
 
     # --- compute hooks ----------------------------------------------------
     def _prefill_rows(self, work) -> List[int]:
-        C = self.prefill_chunk
-        tokens = np.full((self._cap, C), PAD_ID, np.int32)
-        start = np.zeros((self._cap,), np.int32)
-        chunk_lens = np.zeros((self._cap,), np.int32)
-        active = np.zeros((self._cap,), bool)
-        for r, s, cl in work:
-            row = self._rows[r.rid]
-            seq = list(r.prompt) + list(r.tokens)    # recompute view
-            tokens[row, :cl] = seq[s:s + cl]
-            start[row], chunk_lens[row], active[row] = s, cl, True
-        lens = self._sync_tables()
-        # mid-chunk rows carry their pre-chunk progress; grow_to already
-        # covered the chunk's pages, so the device tables are current
-        for r, s, cl in work:
-            lens[self._rows[r.rid]] = s
-        self._push_cache(lens)
-        logits, self._cache = self._chunk(
-            self.params, self._cache, self._to_device(tokens).long(),
-            self._to_device(start), self._to_device(chunk_lens),
-            self._to_device(active))
-        self.prefill_calls += 1
-        toks = self._greedy(logits)
+        """One chunk call over every row (``_cap`` x ``prefill_chunk``
+        token positions, the rows in ``work`` active).  Counts the
+        positions computed against the chunk tokens (``serve.
+        tokens_computed`` / ``serve.tokens_useful``) and, for every layer,
+        the kv entries the active rows attend (``attn.kv_live``: a row
+        that is not prefilling attends none)."""
+        with span("serve.prefill_call"):
+            with span("serve.prepare"):
+                C = self.prefill_chunk
+                tokens = np.full((self._cap, C), PAD_ID, np.int32)
+                start = np.zeros((self._cap,), np.int32)
+                chunk_lens = np.zeros((self._cap,), np.int32)
+                active = np.zeros((self._cap,), bool)
+                for r, s, cl in work:
+                    row = self._rows[r.rid]
+                    seq = list(r.prompt) + list(r.tokens)  # recompute view
+                    tokens[row, :cl] = seq[s:s + cl]
+                    start[row], chunk_lens[row], active[row] = s, cl, True
+                lens = self._sync_tables()
+                # mid-chunk rows carry their pre-chunk progress; grow_to
+                # already covered the chunk's pages, so the device tables
+                # are current
+                for r, s, cl in work:
+                    lens[self._rows[r.rid]] = s
+                self._push_cache(lens)
+                args = (self._to_device(tokens).long(),
+                        self._to_device(start), self._to_device(chunk_lens),
+                        self._to_device(active))
+            COUNTERS.inc("serve.tokens_computed", tokens.size)
+            COUNTERS.inc("serve.tokens_useful", int(chunk_lens.sum()))
+            COUNTERS.inc("attn.kv_live", self.cfg.num_layers
+                         * int((start + chunk_lens).sum()))
+            logits, self._cache = self._chunk(self.params, self._cache,
+                                              *args)
+            self.prefill_calls += 1
+            toks = self._greedy(logits)
         return [int(toks[self._rows[r.rid]]) for r, _, _ in work]
 
     def _decode_rows(self, decoding: Sequence[Request]) -> float:
         t0 = time.perf_counter()
-        token = np.full((self._cap, 1), PAD_ID, np.int32)
-        active = np.zeros((self._cap,), bool)
-        for r in decoding:
-            row = self._rows[r.rid]
-            token[row, 0] = r.tokens[-1]
-            active[row] = True
-        lens = self._sync_tables()
-        # the decode step writes the input token's KV at position len
-        # and attends len + 1 entries: pass len EXCLUDING that token
-        for r in decoding:
-            lens[self._rows[r.rid]] = r.context_len - 1
-        self._push_cache(lens)
-        logits, self._cache = self._decode(
-            self.params, self._cache, self._to_device(token).long(),
-            self._to_device(active))
-        toks = self._greedy(logits)
+        with span("serve.decode_call"):
+            with span("serve.prepare"):
+                token = np.full((self._cap, 1), PAD_ID, np.int32)
+                active = np.zeros((self._cap,), bool)
+                for r in decoding:
+                    row = self._rows[r.rid]
+                    token[row, 0] = r.tokens[-1]
+                    active[row] = True
+                lens = self._sync_tables()
+                # the decode step writes the input token's KV at position
+                # len and attends len + 1 entries: pass len EXCLUDING that
+                # token
+                for r in decoding:
+                    lens[self._rows[r.rid]] = r.context_len - 1
+                self._push_cache(lens)
+                args = (self._to_device(token).long(),
+                        self._to_device(active))
+            logits, self._cache = self._decode(self.params, self._cache,
+                                               *args)
+            toks = self._greedy(logits)
         for r in decoding:
             r.tokens.append(int(toks[self._rows[r.rid]]))
         self.decode_calls += 1

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.params import torch_dtype
+from repro_torch.obs.spans import spanned
 from repro_torch.utils.tree import (tree_leaves, tree_map,
                                     tree_unflatten)
 
@@ -80,6 +81,7 @@ def clip_by_global_norm(grads, max_norm: float, norm=None):
 
 
 @torch.no_grad()
+@spanned("train.optimizer")
 def adamw_update(params, grads, state: OptState, tc: TrainConfig,
                  norm=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step. Returns (new_params, new_state, metrics).

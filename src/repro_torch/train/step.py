@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import model as model_lib
+from repro_torch.obs.spans import span
 from repro_torch.train import compression as comp
 from repro_torch.train import optim
 from repro_torch.train.loss import lm_loss
@@ -40,8 +41,10 @@ def value_and_grad(loss_fn: Callable, params, batch):
     autograd leaves are detached aliases of them)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
-        total, metrics = loss_fn(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        with span("train.forward"):
+            total, metrics = loss_fn(tree_unflatten(params, leaves), batch)
+        with span("train.backward"):
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
