@@ -23,8 +23,9 @@ and any failure exits non-zero:
    is longer);
 3. the main path: ``repro_torch.launch.serve.main`` serves 8 requests
    with the full-width, full-depth qwen3-0.6b (bf16, random weights from
-   a seed); every request must complete and the kernel must have been
-   launched once per layer per decode step;
+   a seed); every request must complete, the paged-prefill kernel must
+   have been launched once per layer per prefill-chunk call and the
+   paged-decode kernel once per layer per decode step;
 4. card vs CPU: the same full-width qwen3-0.6b in f32 (TF32 off), one
    32-token prefill chunk for 2 rows and 4 decode steps, on the card
    (kernel) and on the CPU (plain): greedy tokens equal, logits within
@@ -99,7 +100,8 @@ and any failure exits non-zero:
 13. the MoE paged main path: ``repro_torch.launch.serve.main`` serves 8
     requests with the full-width, full-depth qwen3-moe-30b-a3b (48
     layers, 128 experts, bf16, random weights from a seed) inside a
-    64 GB budget; no step may be forced over it;
+    64 GB budget; no step may be forced over it; phase 3's launch
+    checks;
 14. the MoE dense main path: the same with ``--backend dense``;
 15. card vs CPU on both MoE paths in f32: qwen3-moe-30b-a3b at full width
     and 2 of its 48 layers, 2 rows x 32 tokens and 4 decode steps, with
@@ -268,10 +270,22 @@ and any failure exits non-zero:
     its step-10 checkpoint ends with the same last 10 losses, parameters
     and moments bit for bit; ``serving_demo`` serves 12 of 12 requests;
     ``roofline`` and ``colocation`` over phase 32's records: every
-    cell's fraction finite, both binding-axis assertions hold.
+    cell's fraction finite, both binding-axis assertions hold;
+35. the paged-prefill kernel vs plain: the chunk call's kernel (each
+    row's chunk of queries over its own pages, read through the page
+    table) against its plain version (the page gather and the masked
+    softmax) on the card on every case of
+    ``kernels/paged_prefill/cases.py`` (G 1 to 8, D 16 to 128, ragged
+    starts, partial chunks, rows that are not prefilling, lengths on and
+    one past a page edge, softcap, the chat cell's call; f32 2e-5, bf16
+    2e-2; a row that is not prefilling exactly zero), NaN planted in
+    every pool slot no row attends changing nothing, then timed at the
+    chat cell's chunk call and at qwen3-0.6b's chunk of 128 beside its
+    bound, the plain version and ``scaled_dot_product_attention`` over the
+    prefilling rows' live pages, gathered beforehand.
 
 The timing helpers, timers, bounds and the attention kernels' cases of
-phases 2, 5, 8, 12 and 16 are ``repro_torch.tools.kernel_bench``'s
+phases 2, 5, 8, 12, 16 and 35 are ``repro_torch.tools.kernel_bench``'s
 (``python -m repro_torch.tools.kernel_bench`` times the same rows on
 its own), loaded from this checkout's file.
 
@@ -295,8 +309,9 @@ JSON status line.
 
     python3 chip_smoke.py --kernel-times [SRC]
 
-builds the kernels and runs the timing of phases 2, 5, 8, 12 and 16
-alone (``kernel_bench.time_all``: the paged kernel at G = 2 and 8,
+builds the kernels and runs the timing of phases 2, 5, 8, 12, 16 and
+35 alone (``kernel_bench.time_all``: the paged kernel at G = 2 and 8,
+the paged-prefill kernel at both chunk calls (none where SRC lacks it),
 flash and dense decode at every served shape, the SSD scan at both SSM
 launches and one model rank's of each, the RMSNorm kernels and the
 unfused sequences at the paths' shapes, the split gated norm's entries,
@@ -307,6 +322,10 @@ say), so that two versions of the kernels are timed on one card in one
 call.  The timing code is this tree's
 (``kernel_bench.py`` is loaded from its file and imports the kernels
 inside its timers), so SRC needs no ``repro_torch.tools``.
+
+    python3 chip_smoke.py --paged-prefill
+
+builds the kernels and runs phase 35 alone.
 
     python3 chip_smoke.py --tools
 
@@ -557,10 +576,12 @@ def launchers() -> dict:
         flash_attention_fwd
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_fwd
+    from repro_torch.kernels.paged_prefill.kernel import paged_prefill_fwd
     from repro_torch.kernels.rmsnorm import kernel as rms
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     return {f.__name__: f for f in (
-        paged_attention_fwd, flash_attention_fwd, decode_attention_fwd,
+        paged_attention_fwd, paged_prefill_fwd, flash_attention_fwd,
+        decode_attention_fwd,
         ssd_scan_fwd, rms.rmsnorm_fwd, rms.add_rmsnorm_fwd,
         rms.qk_norm_rope_fwd, rms.gated_rmsnorm_fwd, rms.rmsnorm_bwd,
         rms.add_rmsnorm_bwd, rms.qk_norm_rope_bwd, rms.gated_rmsnorm_bwd,
@@ -605,9 +626,10 @@ def check_launches(counts: dict, want: dict, cfg, layers: int) -> None:
 
 def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
     """A paged main path at full width and depth: 8 requests complete,
-    none forced over the budget; the paged kernel runs once per layer
-    per decode step and the RMSNorm kernel once per norm per call (prefill
-    chunks and decode steps); no other kernel."""
+    none forced over the budget; the paged-prefill kernel runs once per
+    layer per prefill-chunk call, the paged-decode kernel once per layer
+    per decode step and the RMSNorm kernel once per norm per call
+    (prefill chunks and decode steps); no other kernel."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     out, counts = serve_counted(argv)
@@ -617,6 +639,7 @@ def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
     pre = sum(be.prefill_calls for be in backends)
     dec = sum(be.decode_calls for be in backends)
     check_launches(counts, {"paged_attention_fwd": layers * dec,
+                            "paged_prefill_fwd": layers * pre,
                             **norm_launches(arch, pre, dec)}, cfg, layers)
     if dec == 0 or summary["forced_steps"]:
         raise AssertionError(f"{dec} decode steps, {summary['forced_steps']} "
@@ -628,8 +651,9 @@ def phase_paged_path(n: int, arch: str, argv, layers: int) -> dict:
           f"{summary['completed']}/8 requests, {tok} tokens in "
           f"{out['wall_s']:.2f}s wall ({tok / out['wall_s']:.1f} tok/s); "
           f"{pre} prefill-chunk calls, {dec} decode steps, mean "
-          f"{1e3 * dec_s / dec:.2f} ms/step; paged-decode kernel launched "
-          f"{counts['paged_attention_fwd']} = {layers} x {dec}, "
+          f"{1e3 * dec_s / dec:.2f} ms/step; paged-prefill kernel launched "
+          f"{counts['paged_prefill_fwd']} = {layers} x {pre}, paged-decode "
+          f"kernel {counts['paged_attention_fwd']} = {layers} x {dec}, "
           f"{norms_line(counts, arch, pre, dec)}; none forced over budget; "
           f"peak device memory {peak:.2f} GiB")
     decode_step_profile(backends[0], f"phase {n} decode-step profile")
@@ -3914,11 +3938,73 @@ def phase_tools() -> dict:
     return counts
 
 
+# --- phase 35 ----------------------------------------------------------------
+
+def phase_paged_prefill_vs_plain() -> dict:
+    """The paged-prefill kernel against its plain version on every case
+    of ``kernels/paged_prefill/cases.py`` (f32 2e-5, bf16 2e-2; a row
+    that is not prefilling exactly zero; ``start`` a strided view, as the
+    model passes it), NaN planted in every slot no row attends changing
+    nothing at the chat cell's call, then timed at every launch of the
+    cases' ``TIMED`` (``kernel_bench.time_paged_prefill_launches``)."""
+    from repro_torch.kernels.paged_prefill import ops as pp_ops
+    from repro_torch.kernels.paged_prefill.cases import (CARD_CASES,
+                                                         live_mask,
+                                                         prefill_case)
+    from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
+    errs, worst = [], 0.0
+    for seed, (name, shape, cap) in enumerate(CARD_CASES):
+        arrs = prefill_case(*shape, seed=seed)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp = (torch.from_numpy(a).to(DEVICE, dtype)
+                         for a in (arrs[0], arrs[1][0], arrs[2][0]))
+            table, st, ln = (torch.from_numpy(a).to(DEVICE)
+                             for a in arrs[3:])
+            C = q.shape[1]
+            pos = st[:, None] + torch.arange(C, dtype=torch.int32,
+                                             device=DEVICE)[None, :]
+            out = pp_ops.paged_prefill(q, kp, vp, table, pos[:, 0], ln,
+                                       attn_softcap=cap)
+            ref = paged_prefill_ref(q, kp, vp, table, st, ln,
+                                    scale=shape[4] ** -0.5, softcap=cap)
+            torch.cuda.synchronize()
+            live = ln >= 1
+            if not torch.all(out[~live] == 0):
+                raise AssertionError(f"{name}: a row that is not "
+                                     f"prefilling is not zero")
+            a, b = out[live].float(), ref[live].float()
+            err = (a - b).abs().max().item()
+            tol = TOL[dtype]
+            if not torch.allclose(a, b, atol=tol, rtol=tol):
+                raise AssertionError(f"{name} {dtype}: kernel vs plain "
+                                     f"max abs err {err:.3g} > {tol}")
+            worst = max(worst, err)
+            errs.append(f"{name}/{str(dtype)[6:]}={err:.2g}")
+            if name == "chat-call":
+                mask = torch.from_numpy(live_mask(
+                    arrs[3], arrs[5], kp.shape[1], kp.shape[0])).to(DEVICE)
+                kp[~mask] = float("nan")
+                vp[~mask] = float("nan")
+                dirty = pp_ops.paged_prefill(q, kp, vp, table, st, ln)
+                if not torch.equal(dirty, out):
+                    raise AssertionError(f"{name} {dtype}: NaN in slots no "
+                                         f"row attends changed the output")
+    print(f"phase 35 paged prefill vs plain: {len(errs)} cases ok, max abs "
+          f"err {worst:.3g}, NaN past the lengths inert [{' '.join(errs)}]")
+    row = kb.time_paged_prefill_launches("phase 35")[0]
+    return dict(max_abs_err=worst, **_json(row))
+
+
 #: what each kernel replaces: its source in the port and the TPU kernel
 KERNELS = {
     "paged_attention_fwd": (
         "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/kernel.py:81"),
+    # the JAX package's chunk path is plain XLA (the page gather and the
+    # masked softmax): no Pallas kernel
+    "paged_prefill_fwd": (
+        "src/repro_torch/kernels/paged_prefill/csrc/paged_prefill.cu",
+        "src/repro/models/model.py:632"),
     "flash_attention_fwd": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:90"),
@@ -4034,6 +4120,8 @@ def main() -> None:
     done(33)
     paths.append(phase_tools())
     done(34)
+    timing["paged_prefill_fwd"] = phase_paged_prefill_vs_plain()
+    done(35)
     # launches on the main paths: each path's own run, summed over the
     # paths (phases 3, 6, 9, 10, 13, 14, 19 to 22, the training paths,
     # 17, 24 and 27's mesh run, 28's real steps, 29's bf16 and 30's runs
@@ -4053,7 +4141,9 @@ def main() -> None:
 
 def kernel_times(src: str) -> None:
     """``--kernel-times [SRC]``: build the kernels and time the paged
-    kernel at both paged paths' launches (phase 2's timing), both dense
+    kernel at both paged paths' launches (phase 2's timing), the
+    paged-prefill kernel at both chunk calls (phase 35's; none where SRC
+    lacks it), both dense
     attention kernels at every served launch shape (phase 5's), the SSD
     kernel at both SSM paths' launches (phase 8's), the RMSNorm kernels
     and unfused sequences at the paths' shapes (phase 12's) and the
@@ -4215,6 +4305,16 @@ def tp_phases() -> None:
     print(card_line())
 
 
+def paged_prefill_phase() -> None:
+    """``--paged-prefill``: build the kernels and run phase 35 alone (the
+    paged-prefill kernel on every case, and timed); prints no JSON."""
+    phase_device_and_build()
+    t0 = time.perf_counter()
+    phase_paged_prefill_vs_plain()
+    print(f"phase 35 seconds: {time.perf_counter() - t0:.1f}")
+    print(card_line())
+
+
 def tools_phases() -> None:
     """``--tools``: build the kernels and run phase 32 (the dry-run's
     records, which phase 34 reads) and phase 34 alone; prints no JSON."""
@@ -4229,6 +4329,8 @@ def tools_phases() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tools"]:
         tools_phases()
+    elif sys.argv[1:2] == ["--paged-prefill"]:
+        paged_prefill_phase()
     elif sys.argv[1:2] == ["--tp"]:
         tp_phases()
     elif sys.argv[1:2] == ["--mamba-tp"]:

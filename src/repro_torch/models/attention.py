@@ -6,7 +6,9 @@ path.  Where the JAX package reaches a Pallas kernel (with
 the tensor lies on the card, whatever ``use_pallas`` says: prefill
 self-attention goes to ``kernels/flash_attention``, dense decode to
 ``kernels/decode_attention`` and paged decode to
-``kernels/paged_attention``.  A CPU tensor takes the plain path.
+``kernels/paged_attention``.  The paged prefill chunk, plain XLA in the
+JAX package, goes to ``kernels/paged_prefill`` on the card too.  A CPU
+tensor takes the plain path.
 
 The train mode is the exception, and the model's mode decides it, never
 the device: ``attention(..., differentiable=True)`` takes the plain path
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.layers import softcap
+from repro_torch.obs.spans import COUNTERS
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -154,6 +157,49 @@ def paged_decode_attention(
         k_positions=torch.arange(k.shape[1], device=q.device),
         kv_len=lens, window=window, attn_softcap=attn_softcap,
         scale=scale, f32_logits=f32_logits)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,           # [B, C, Hq, D] one chunk per row
+    k_pool: torch.Tensor,      # [P, page, Hkv, D] shared page pool
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, maxp] int32 (unused slots -> page 0)
+    start: torch.Tensor,       # [B] int32: position of query 0, any stride
+    kv_lens: torch.Tensor,     # [B] int32: valid tokens after the write
+    *,
+    attn_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    f32_logits: bool = True,
+) -> torch.Tensor:
+    """A prefill chunk's attention over the page pool: query ``i`` of row
+    ``b`` sits at position ``start[b] + i`` and attends causally to the
+    row's first ``kv_lens[b]`` tokens, which include the chunk's own.
+
+    The tensor's device decides the path: on a CUDA tensor this always
+    launches the CUDA paged-prefill kernel, which reads each row's live
+    pages in place (fp32 online softmax, so ``f32_logits`` does not apply
+    there); on a CPU tensor it gathers every row's whole page table and
+    runs the plain ``attention``, as the JAX package's chunk path does,
+    and counts the gathered slots (``attn.kv_gathered``; on the card the
+    paged backend counts the slots the kernel reads).  A row with
+    ``kv_lens == 0`` comes out as zeros from the kernel and as a uniform
+    average from the plain path; callers never read such rows."""
+    if q.is_cuda:
+        from repro_torch.kernels.paged_prefill import ops as pp_ops
+        return pp_ops.paged_prefill(
+            q, k_pool, v_pool, page_table, start, kv_lens,
+            attn_softcap=attn_softcap, scale=scale)
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+    k = gather_pages(k_pool, page_table)       # [B, maxp*page, Hkv, D]
+    v = gather_pages(v_pool, page_table)
+    COUNTERS.inc("attn.kv_gathered", k.shape[0] * k.shape[1])
+    positions = start[:, None] + torch.arange(
+        q.shape[1], dtype=start.dtype, device=q.device)[None, :]
+    return attention(
+        q, k, v, causal=True, q_positions=positions,
+        k_positions=torch.arange(k.shape[1], device=q.device),
+        kv_len=kv_lens, attn_softcap=attn_softcap, scale=scale,
+        f32_logits=f32_logits)
 
 
 def decode_attention(

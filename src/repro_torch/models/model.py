@@ -45,7 +45,8 @@ from torch.utils.checkpoint import (checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (attention, decode_attention,
-                                          paged_decode_attention)
+                                          paged_decode_attention,
+                                          paged_prefill_attention)
 from repro_torch.models.layers import (add_rms_norm, mlp, qk_norm_rope,
                                        rms_norm, softcap)
 from repro_torch.models.moe import moe_ffn
@@ -57,7 +58,7 @@ from repro_torch.models.tp import (copy_to, current_tp, gather_heads,
                                    split, tp_mesh_context, vocab_embed)
 from repro_torch.models.params import (P, abstract_params, init_params,
                                        torch_dtype)
-from repro_torch.obs.spans import COUNTERS, spanned
+from repro_torch.obs.spans import spanned
 
 Params = Dict[str, Any]
 
@@ -717,9 +718,9 @@ def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, delta,
     through ``write_table`` (inactive rows' tables are zeroed there, so
     their writes land on the scratch page); gathers use the real
     ``table``.  With ``chunk_attend`` the S chunk tokens attend causally
-    through the gathered pages (prefill chunks); otherwise S == 1 decode.
+    to their rows' pages (prefill chunks: ``positions[b]`` runs from
+    ``positions[b, 0]`` in steps of one); otherwise S == 1 decode.
     """
-    from repro_torch.kernels.paged_attention.ref import gather_pages
     B, S, _ = x.shape
     hd = cfg.head_dim
     h, x = add_rms_norm(x, delta, p["ln_w"], cfg.norm_eps)
@@ -731,14 +732,10 @@ def _paged_attn_block(p: Params, cfg: ModelConfig, x: torch.Tensor, delta,
     kp = _paged_kv_write(pools[0], k, write_table, positions, page)
     vp = _paged_kv_write(pools[1], v, write_table, positions, page)
     if chunk_attend:
-        kd = gather_pages(kp, table)           # [B, maxp*page, Hkv, hd]
-        vd = gather_pages(vp, table)
-        COUNTERS.inc("attn.kv_gathered", kd.shape[0] * kd.shape[1])
-        out = attention(
-            q, kd, vd, causal=True, q_positions=positions,
-            k_positions=torch.arange(kd.shape[1], device=x.device),
-            kv_len=kv_lens, attn_softcap=cfg.attn_softcap,
-            scale=_attn_scale(cfg), f32_logits=cfg.attn_f32_logits)
+        out = paged_prefill_attention(
+            q, kp, vp, table, positions[:, 0], kv_lens,
+            attn_softcap=cfg.attn_softcap, scale=_attn_scale(cfg),
+            f32_logits=cfg.attn_f32_logits)
     else:
         out = paged_decode_attention(
             q, kp, vp, table, kv_lens,

@@ -12,8 +12,9 @@ backend written for PyTorch:
   twin) that need no model at all.
 * :class:`TorchPagedBackend` — the real thing: drives
   ``build_prefill_chunk_step`` / ``build_paged_decode_step`` (and
-  through them the CUDA paged-decode kernel on the card) over a shared
-  page pool with per-request page tables and lengths.
+  through them the CUDA paged-prefill and paged-decode kernels on the
+  card) over a shared page pool with per-request page tables and
+  lengths.
 
 Joining never depends on a shared position (``join_stride == 1``,
 ``position == 0``): a request joins whenever its worst-case pages fit
@@ -27,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.kernels.paged_prefill.kernel import read_slots
 from repro_torch.obs.spans import COUNTERS, span
 from repro_torch.serve.backends import (PAD_ID, Backend, SimBackend,
                                         _bucket, _shrink_bucket)
@@ -540,7 +542,11 @@ class TorchPagedBackend(_PagedScheduler, Backend):
         positions computed against the chunk tokens (``serve.
         tokens_computed`` / ``serve.tokens_useful``) and, for every layer,
         the kv entries the active rows attend (``attn.kv_live``: a row
-        that is not prefilling attends none)."""
+        that is not prefilling attends none).  On the card it also counts
+        the kv slots the paged-prefill kernel reads (``attn.kv_gathered``:
+        each prefilling row's live pages, ``paged_prefill.kernel.
+        read_slots``); on the CPU the plain path counts the slots it
+        gathers."""
         with span("serve.prefill_call"):
             with span("serve.prepare"):
                 C = self.prefill_chunk
@@ -567,6 +573,10 @@ class TorchPagedBackend(_PagedScheduler, Backend):
             COUNTERS.inc("serve.tokens_useful", int(chunk_lens.sum()))
             COUNTERS.inc("attn.kv_live", self.cfg.num_layers
                          * int((start + chunk_lens).sum()))
+            if self.device.type == "cuda":
+                COUNTERS.inc("attn.kv_gathered", self.cfg.num_layers
+                             * read_slots(start, chunk_lens,
+                                          self.page_size))
             logits, self._cache = self._chunk(self.params, self._cache,
                                               *args)
             self.prefill_calls += 1

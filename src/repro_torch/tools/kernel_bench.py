@@ -538,6 +538,112 @@ def _paged_line(t: dict) -> str:
             f"reached")
 
 
+# --- paged prefill -----------------------------------------------------------
+
+def paged_prefill_bound(B, C, Hq, Hkv, D, page, starts, chunk_lens, dtype):
+    """(ms, bound by, bytes, operations) of a chunk call: each prefilling
+    row's live K/V pages (``ceil((start + chunk) / page)`` of them), its
+    chunk's queries and outputs and its live table slots moved once,
+    start and kv_lens read; 4 * D operations per query head and (chunk
+    query, attended key) pair: query i of a chunk from ``start`` attends
+    ``start + i + 1`` keys.  A row without a chunk needs nothing."""
+    es = dtype.itemsize
+    act = [(int(s), int(c)) for s, c in zip(starts, chunk_lens) if c > 0]
+    pages = sum(-(-(s + c) // page) for s, c in act)
+    tokens = sum(c for _, c in act)
+    nbytes = (pages * page * Hkv * D * 2 * es + 2 * tokens * Hq * D * es
+              + pages * 4 + 8 * B)
+    pairs = sum(c * s + c * (c + 1) // 2 for s, c in act)
+    ops = 4 * Hq * D * pairs
+    return (*bound(nbytes, ops, dtype), nbytes, ops)
+
+
+def time_paged_prefill_launches(label: str) -> list:
+    """The paged-prefill kernel timed at every launch of its cases'
+    ``TIMED``, one line each; returns the rows, the chat call's first.
+    A package without the kernel (an older checkout) gives none."""
+    try:
+        from repro_torch.kernels.paged_prefill.cases import TIMED
+    except ImportError:
+        print(f"{label} paged prefill: not in this package")
+        return []
+    rows = []
+    for path, shape, layers in TIMED:
+        t = time_paged_prefill(shape, min(layers, 8), 20 * layers)
+        print(f"{label} paged prefill {path} {_paged_prefill_line(t)}")
+        rows.append(_row("paged_prefill_fwd", path, t["ker"], t["plain"],
+                         t["lib"], t["bound_ms"], t["bound_by"]))
+    return rows
+
+
+def time_paged_prefill(shape, L: int, iters: int) -> dict:
+    """The paged-prefill kernel at one chunk call (bf16, L layers' pools
+    cycled so each launch reads its pages from device memory) beside its
+    bound, the plain version (the page gather of every row's whole table
+    and the fp32 masked softmax: the chunk path without the kernel) and
+    ``scaled_dot_product_attention`` over the prefilling rows' live pages
+    already gathered and repeated to the query heads, with the causal and
+    length mask."""
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+    from repro_torch.kernels.paged_prefill import ops as pp_ops
+    from repro_torch.kernels.paged_prefill.cases import prefill_case
+    from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
+    B, page, Hq, Hkv, D, C, starts, chunk_lens, maxp = shape
+    dtype = torch.bfloat16
+    q, kp, vp, table, st, ln = prefill_case(*shape, seed=99)
+    P = kp.shape[1]
+    gen = torch.Generator(device=DEVICE).manual_seed(99)
+    q = torch.from_numpy(q).to(DEVICE, dtype)
+    kp = rand(gen, (L, P, page, Hkv, D), dtype)
+    vp = rand(gen, (L, P, page, Hkv, D), dtype)
+    table, st, ln = (torch.from_numpy(a).to(DEVICE) for a in (table, st, ln))
+    scale = D ** -0.5
+    bound_ms, bound_by, nbytes, ops = paged_prefill_bound(
+        B, C, Hq, Hkv, D, page, starts, chunk_lens, dtype)
+    ker = timed(lambda i: pp_ops.paged_prefill(
+        q, kp[i % L], vp[i % L], table, st, ln), iters, "paged_prefill",
+        floor_ms=bound_ms)
+    plain = timed(lambda i: paged_prefill_ref(
+        q, kp[i % L], vp[i % L], table, st, ln, scale=scale), 4,
+        floor_ms=bound_ms)
+    act = torch.nonzero(torch.as_tensor(chunk_lens) > 0)[:, 0].to(DEVICE)
+    npg = -(-int(max(np.asarray(starts) + np.asarray(chunk_lens))) // page)
+    S = npg * page
+    G = Hq // Hkv
+    kd = [gather_pages(kp[i], table[act, :npg]).movedim(2, 1)
+          .repeat_interleave(G, dim=1).contiguous() for i in range(L)]
+    vd = [gather_pages(vp[i], table[act, :npg]).movedim(2, 1)
+          .repeat_interleave(G, dim=1).contiguous() for i in range(L)]
+    q_pos = st[act, None] + torch.arange(C, device=DEVICE)[None, :]
+    k_pos = torch.arange(S, device=DEVICE)
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (k_pos[None, None, :] < ln[act, None, None]))[:, None]
+    qs = q[act].transpose(1, 2).contiguous()         # [b, Hq, C, D]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = timed(lambda i: sdpa(qs, kd[i % L], vd[i % L], attn_mask=mask,
+                               scale=scale), iters, floor_ms=bound_ms)
+    got = pp_ops.paged_prefill(q, kp[0], vp[0], table, st, ln)[act]
+    lib_err = (sdpa(qs, kd[0], vd[0], attn_mask=mask, scale=scale)
+               .transpose(1, 2).float() - got.float()).abs().max().item()
+    del kd, vd, kp, vp
+    _release()
+    return dict(ker=ker, plain=plain, lib=lib, lib_err=lib_err,
+                bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes,
+                ops=ops, shape=(B, int(act.numel()), C, Hq, Hkv, D, page,
+                                maxp))
+
+
+def _paged_prefill_line(t: dict) -> str:
+    B, act, C, Hq, Hkv, D, page, maxp = t["shape"]
+    return (f"bf16 (B={B}, prefilling {act}, C={C}, Hq={Hq}, Hkv={Hkv}, "
+            f"D={D}, page={page}, maxp={maxp}), device time: kernel "
+            f"{us(t['ker'])}, plain {us(t['plain'])}, sdpa {us(t['lib'])} "
+            f"(|sdpa - kernel| {t['lib_err']:.2g}), bound "
+            f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+            f"{t['nbytes'] / 1e6:.2f} MB, {t['ops'] / 1e9:.3f} GFLOP), "
+            f"{t['bound_ms'] / t['ker']['ms']:.3f} of it reached")
+
+
 # --- flash prefill and dense decode ----------------------------------------
 
 #: gemma2-27b's attention scale: 144^-0.5 (d_model / num_heads), where
@@ -1165,11 +1271,13 @@ def time_norm_bwd_kernels(label: str, C) -> list:
 
 def time_all(label: str) -> list:
     """Every kernel at every launch the timers know: the paged kernel,
-    both dense attention kernels, the SSD scan (both SSM paths' launches
-    and one model rank's of each), the forward RMSNorm kernels, the split
-    gated norm and the backward kernels.  Returns the rows."""
+    the paged-prefill kernel, both dense attention kernels, the SSD scan
+    (both SSM paths' launches and one model rank's of each), the forward
+    RMSNorm kernels, the split gated norm and the backward kernels.
+    Returns the rows."""
     from repro_torch.kernels.ssd_scan.cases import SSD_MAIN, SSD_TP
     rows = time_paged_launches(label)
+    rows += time_paged_prefill_launches(label)
     rows += time_served_shapes(label, 28)       # qwen3-0.6b's layers
     for name in list(SSD_MAIN.values()) + list(SSD_TP.values()):
         rows.append(time_ssd(label, name)[0])

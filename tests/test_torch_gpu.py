@@ -11,7 +11,12 @@ three fused RMSNorm kernels (residual add, qk-norm with RoPE, Mamba2's
 gate) also bit for bit against the unfused card sequences they replace
 (the RMSNorm kernel beside torch's eager ops); the CUDA
 SSD-scan kernel at the JAX package's SSD tolerances (f32 1e-4, bf16
-5e-2; every bf16 case takes the tensor-core route).  The paged kernel
+5e-2; every bf16 case takes the tensor-core route).  The paged-prefill
+kernel is held to its plain version (f32 2e-5, bf16 2e-2) on every case
+of ``kernels/paged_prefill/cases.py`` (the chat cell's chunk call among
+them), rows that are not prefilling exactly zero, NaN planted in every
+slot past the rows' lengths changing nothing, and the paged backend's
+chunk calls launching it once per layer without a page gather.  The paged kernel
 is also held on rows cut by their attended range with a table wider
 than the rows (a full table, windows, len 0 and 1), and every launcher
 must refuse an input that requires grad.  The attention case lists here
@@ -28,6 +33,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_attention import ops as t_ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_ref as t_paged_ref
+from repro_torch.kernels.paged_prefill import ops as t_pp_ops
+from repro_torch.kernels.paged_prefill.cases import (
+    CARD_CASES as PREFILL_CARD_CASES, live_mask, prefill_case)
+from repro_torch.kernels.paged_prefill.ref import paged_prefill_ref
 from repro_torch.kernels.rmsnorm import kernel as t_rms_kernel
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm.cases import (
@@ -247,9 +256,15 @@ def test_kernels_refuse_grad_on_card():
                            "dense")
     q, k, wq, wk, pos = qk_rope_case_on("cuda", torch.float32, torch.float32,
                                         (2, 3, 4, 2, 16), "rows", True)
+    xq, xk, xv, xt, xs, xl = (torch.from_numpy(a).cuda() for a in
+                              prefill_case(2, 4, 4, 2, 16, 8, [0, 3],
+                                           [8, 5], None))
+    xk, xv = xk[0], xv[0]
     calls = [
         (t_ops.paged_attention_fwd,
          lambda: t_ops.paged_attention(grad(pq), pk, pv, table, ln)),
+        (t_pp_ops.paged_prefill_fwd,
+         lambda: t_pp_ops.paged_prefill(grad(xq), xk, xv, xt, xs, xl)),
         (t_da_ops.decode_attention_fwd,
          lambda: t_da_ops.decode_attention(grad(dq), dk, dv, dl - 1)),
         (t_fa_ops.flash_attention_fwd,
@@ -279,6 +294,116 @@ def test_kernels_refuse_grad_on_card():
             call()
         torch.cuda.synchronize()
         assert fn.launches == before + 1
+
+
+def _prefill_on(case, dtype, seed=0):
+    """A paged-prefill case on the card: (q, k_pool, v_pool, table, start,
+    kv_lens, scale, softcap), q and the pools in ``dtype``."""
+    _, shape, cap = case
+    q, kp, vp, table, st, ln = prefill_case(*shape, seed=seed)
+    f = [torch.from_numpy(a).to("cuda", dtype) for a in (q, kp[0], vp[0])]
+    i = [torch.from_numpy(a).cuda() for a in (table, st, ln)]
+    return (*f, *i, shape[4] ** -0.5, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PREFILL_CARD_CASES,
+                         ids=[c[0] for c in PREFILL_CARD_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_vs_plain_on_card(case, dtype):
+    """The kernel against its plain version on every row that prefills;
+    a row that does not (kv_lens 0) comes out as zeros.  ``start`` is
+    passed as a strided view, as the model passes ``positions[:, 0]``."""
+    _cuda_or_skip()
+    q, kp, vp, table, st, ln, scale, cap = _prefill_on(case, dtype)
+    C = q.shape[1]
+    positions = st[:, None] + torch.arange(C, dtype=torch.int32,
+                                           device="cuda")[None, :]
+    out = t_pp_ops.paged_prefill(q, kp, vp, table, positions[:, 0], ln,
+                                 attn_softcap=cap)
+    ref = paged_prefill_ref(q.cpu(), kp.cpu(), vp.cpu(), table.cpu(),
+                            st.cpu(), ln.cpu(), scale=scale, softcap=cap)
+    torch.cuda.synchronize()
+    live = ln.cpu() >= 1
+    assert torch.count_nonzero(out.cpu()[~live]).item() == 0
+    torch.testing.assert_close(out.cpu()[live].float(), ref[live].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_nan_past_the_lengths_changes_nothing(dtype):
+    """NaN in every pool slot that no row attends (the tails of the rows'
+    last pages, the pages of rows that do not prefill, parked and free
+    pages) leaves the output finite and bit for bit as it was: keys past
+    a row's length are zero-filled, never multiplied by a zero weight."""
+    _cuda_or_skip()
+    case = next(c for c in PREFILL_CARD_CASES if c[0] == "chat-call")
+    q, kp, vp, table, st, ln, _, _ = _prefill_on(case, dtype)
+    clean = t_pp_ops.paged_prefill(q, kp, vp, table, st, ln)
+    live = torch.from_numpy(live_mask(table.cpu().numpy(), ln.cpu().numpy(),
+                                      kp.shape[1], kp.shape[0])).cuda()
+    kp[~live] = float("nan")
+    vp[~live] = float("nan")
+    dirty = t_pp_ops.paged_prefill(q, kp, vp, table, st, ln)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(dirty, clean)
+
+
+@pytest.mark.gpu
+def test_paged_prefill_zero_length_rows_are_zero():
+    """Rows with ``kv_lens == 0`` (every row of this call) come out as
+    exactly zero, on both routes, whatever their tables hold."""
+    _cuda_or_skip()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, table, st, ln = (
+            torch.from_numpy(a).cuda() for a in
+            prefill_case(3, 16, 8, 2, 64, 32, [0, 0, 0], [0, 0, 0], 4))
+        q, kp, vp = (t.to(dtype) for t in (q, kp[0], vp[0]))
+        out = t_pp_ops.paged_prefill(q, kp, vp, table, st, ln)
+        torch.cuda.synchronize()
+        assert torch.count_nonzero(out).item() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen3-moe-30b-a3b"])
+def test_paged_chunk_calls_launch_the_prefill_kernel_and_gather_nothing(
+        arch, monkeypatch):
+    """The paged backend on the card (smoke configs, bf16): every chunk
+    call launches the paged-prefill kernel once per layer, the page
+    gather never runs, and ``attn.kv_gathered`` counts each prefilling
+    row's live pages (``read_slots``)."""
+    _cuda_or_skip()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.kernels.paged_prefill.kernel import paged_prefill_fwd
+    from repro_torch.obs.spans import COUNTERS
+    from repro_torch.serve.paged import TorchPagedBackend
+    from repro_torch.serve.request import Request
+
+    def no_gather(*a, **k):
+        raise AssertionError("the chunk call gathered pages on the card")
+    monkeypatch.setattr(pa_ref, "gather_pages", no_gather)
+    cfg = get_config(arch, smoke=True)
+    be = TorchPagedBackend(cfg, num_pages=64, page_size=8, prefill_chunk=16,
+                           device="cuda")
+    reqs = [Request(rid=i, arrival=0.0, prompt_len=n, max_new_tokens=3)
+            for i, n in enumerate([40, 9, 23])]
+    launches = paged_prefill_fwd.launches
+    before = dict(COUNTERS.counters)
+    be.join(reqs, 0.0)
+    while not all(r.done for r in reqs):
+        be.decode(reqs)
+    torch.cuda.synchronize()
+    assert paged_prefill_fwd.launches - launches == \
+        cfg.num_layers * be.prefill_calls
+    gathered = COUNTERS.counters["attn.kv_gathered"] - before.get(
+        "attn.kv_gathered", 0)
+    # pages of 8: 40 prompt tokens in chunks of 16 read 16, 32 and 40
+    # slots; 9 reads 16; 23 reads 16 and 24
+    assert be.prefill_calls == 3
+    assert gathered == cfg.num_layers * (16 + 32 + 40 + 16 + 16 + 24)
 
 
 @pytest.mark.gpu
@@ -785,6 +910,7 @@ def _train_launches(arch, device):
         flash_attention_fwd
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_fwd
+    from repro_torch.kernels.paged_prefill.kernel import paged_prefill_fwd
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
     from repro_torch.models import model as tm
     from repro_torch.train import optim
@@ -801,8 +927,8 @@ def _train_launches(arch, device):
                  3, cfg.vocab_size, (2, 32)).astype(np.int32)).to(device),
              "labels": torch.from_numpy(r.integers(
                  3, cfg.vocab_size, (2, 32)).astype(np.int32)).to(device)}
-    fns = [paged_attention_fwd, flash_attention_fwd, decode_attention_fwd,
-           ssd_scan_fwd] + [getattr(t_rms_kernel, f"{e[:-4]}_{d}")
+    fns = [paged_attention_fwd, paged_prefill_fwd, flash_attention_fwd,
+           decode_attention_fwd, ssd_scan_fwd] + [getattr(t_rms_kernel, f"{e[:-4]}_{d}")
                             for e in BWD_ENTRIES for d in ("fwd", "bwd")]
     before = {f.__name__: f.launches for f in fns}
     params2, _, metrics = build_train_step(cfg, tc)(params, opt, batch)
@@ -823,8 +949,8 @@ def test_train_step_on_card_runs_the_norm_kernels_and_no_other(arch):
     _cuda_or_skip()
     torch.backends.cuda.matmul.allow_tf32 = False
     m_gpu, p_gpu, counts = _train_launches(arch, "cuda")
-    for k in ("paged_attention_fwd", "flash_attention_fwd",
-              "decode_attention_fwd", "ssd_scan_fwd"):
+    for k in ("paged_attention_fwd", "paged_prefill_fwd",
+              "flash_attention_fwd", "decode_attention_fwd", "ssd_scan_fwd"):
         assert counts[k] == 0, (k, counts)
     assert counts["rmsnorm_fwd"] > 0 and counts["rmsnorm_bwd"] > 0
     assert counts["add_rmsnorm_bwd"] > 0

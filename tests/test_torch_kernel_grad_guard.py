@@ -1,4 +1,4 @@
-"""A bare launcher records nothing for autograd, so each of the eight
+"""A bare launcher records nothing for autograd, so each of the nine
 forward launchers (and the four RMSNorm backward launchers, and the four
 of the gated norm split over ranks) refuses an
 input that requires grad while grad is enabled, before it looks at the
@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels.decode_attention.kernel import decode_attention_fwd
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.paged_attention.kernel import paged_attention_fwd
+from repro_torch.kernels.paged_prefill.kernel import paged_prefill_fwd
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.kernel import (add_rmsnorm_bwd,
                                                 add_rmsnorm_fwd,
@@ -37,6 +38,13 @@ torch.set_num_threads(1)
 def _paged():
     return ((torch.zeros(2, 4, 1, 16), torch.zeros(8, 4, 2, 16),
              torch.zeros(8, 4, 2, 16), torch.zeros(2, 3, dtype=torch.int32),
+             torch.ones(2, dtype=torch.int32)), dict(scale=1.0))
+
+
+def _prefill():
+    return ((torch.zeros(2, 8, 4, 16), torch.zeros(8, 4, 2, 16),
+             torch.zeros(8, 4, 2, 16), torch.zeros(2, 3, dtype=torch.int32),
+             torch.zeros(2, dtype=torch.int32),
              torch.ones(2, dtype=torch.int32)), dict(scale=1.0))
 
 
@@ -116,6 +124,7 @@ def _scale_bwd():
 #: (launcher, inputs, indices of the float inputs that may require grad)
 WRAPPERS = [
     (paged_attention_fwd, _paged, (0, 1, 2)),
+    (paged_prefill_fwd, _prefill, (0, 1, 2)),
     (decode_attention_fwd, _decode, (0, 1, 2)),
     (flash_attention_fwd, _flash, (0, 1, 2)),
     (rmsnorm_fwd, _rmsnorm, (0, 1)),

@@ -200,14 +200,16 @@ def test_kernel_build_helpers(tmp_path, monkeypatch):
     srcs = build.sources()
     assert [s.name for s in srcs] == ["decode_attention.cu",
                                       "flash_attention.cu",
-                                      "paged_attention.cu", "rmsnorm.cu",
+                                      "paged_attention.cu",
+                                      "paged_prefill.cu", "rmsnorm.cu",
                                       "ssd_scan.cu"]
     assert [h.name for h in build.headers()] == ["attention_common.cuh",
                                                  "wgmma.cuh"]
-    for s in srcs[:4]:      # the attention kernels and RMSNorm share it
+    for s in srcs[:5]:      # the attention kernels and RMSNorm share it
         assert '#include "attention_common.cuh"' in s.read_text()
-    # flash prefill and the SSD scan share one copy of the wgmma helpers
-    for s in (srcs[1], srcs[4]):
+    # flash prefill, paged prefill and the SSD scan share one copy of the
+    # wgmma helpers
+    for s in (srcs[1], srcs[3], srcs[5]):
         assert '#include "wgmma.cuh"' in s.read_text()
         assert "wgmma.mma_async" not in s.read_text()
     a = tmp_path / "k.cu"

@@ -4,7 +4,8 @@ tool does without a card.
 * The bound functions (shapes only, no device) give ``PERF.md`` §6's
   bound column at every launch the table names, to the digits it prints,
   and bound by what it says: the paged, flash and dense decode kernels
-  at every served launch, the SSD scan at both SSM paths' launches and
+  at every served launch, the paged-prefill kernel at both chunk calls
+  it is timed at, the SSD scan at both SSM paths' launches and
   one model rank's, ``rmsnorm_fwd`` and the fused forwards at their
   JSON-line and train launches, the split gated norm's four entries and
   the four backwards at the train step's launches.
@@ -29,6 +30,10 @@ torch.set_num_threads(1)
 
 BF16, F32 = torch.bfloat16, torch.float32
 LENS = [161, 160, 151, 140, 129, 97, 64, 17]
+#: the two chunk calls the paged-prefill kernel is timed at: 8 of 16 rows
+#: prefilling (kernels/paged_prefill/cases.py::TIMED)
+CHAT_CALL_STARTS = [640, 672, 704, 608, 736, 576, 768, 544] + [0] * 8
+QWEN3_CHUNK_STARTS = [1408, 1536, 1280, 1664, 1152, 1536, 1408, 1280] + [0] * 8
 SSD = {name: (shape, init) for name, shape, init in SSD_CASES}
 
 
@@ -44,6 +49,12 @@ BOUNDS = [
      "0.001233"),
     ("paged qwen3-moe", kb.paged_bound_ms(8, 32, 128, 16, 4, LENS, BF16),
      "0.000646"),
+    ("paged_prefill chat call", kb.paged_prefill_bound(
+        16, 32, 32, 4, 128, 16, CHAT_CALL_STARTS, [32] * 8 + [0] * 8, BF16),
+     "0.004617"),
+    ("paged_prefill qwen3 chunk", kb.paged_prefill_bound(
+        16, 128, 16, 8, 128, 16, QWEN3_CHUNK_STARTS, [128] * 8 + [0] * 8,
+        BF16), "0.01753"),
     ("flash qwen3", kb.flash_bound(8, 128, 16, 8, 128, 0, BF16), "0.003756"),
     ("flash zamba2", kb.flash_bound(8, 128, 32, 32, 80, 0, BF16),
      "0.006260"),
@@ -134,6 +145,9 @@ def test_bound_is_perf_md_column(row, got, printed):
 
 
 def test_timed_launches_are_cases():
+    from repro_torch.kernels.paged_prefill.cases import TIMED
+    assert [shape[6] for _, shape, _ in TIMED] == [CHAT_CALL_STARTS,
+                                                   QWEN3_CHUNK_STARTS]
     paged = {c[0] for c in kb.CASES}
     assert all(name in paged for _, name, _ in kb.PAGED_TIMED)
     for cases in (kb.FLASH_CASES, kb.DECODE_CASES):
