@@ -38,10 +38,12 @@ def serve_readings(cell, seeds, control_seeds, seconds):
     """Each seed's program numbers and, on the control seeds, the
     control's, each judged with the cell's limits as a run judges."""
     import torch
-    from chipbench.harness import cells, serve, weights
-    from chipbench.reference import qwen3
+    from chipbench import archs
+    from chipbench.harness import serve, weights
     from chipbench.reference.compare import judge, serve_numbers
-    dm = qwen3.Dims.of(cell.config)
+    arch = archs.for_config(cell.config)
+    ref = arch.reference
+    dm = ref.Dims.of(cell.config)
     limits = cell.workload["check"]["limits"]
     min_tokens = int(cell.workload["check"].get("request_min_tokens", 1))
     for seed in seeds:
@@ -53,11 +55,11 @@ def serve_readings(cell, seeds, control_seeds, seconds):
             del rec
             gc.collect()
             torch.cuda.empty_cache()
-            params = weights.make(cells.model_config(cell.config), seed,
+            params = weights.make(arch.model_config(cell.config), seed,
                                   "cuda")
-            gaps = qwen3.served_gaps(params, dm, rd["sample"]["prompts"],
-                                     rd["sample"]["served"], "cuda",
-                                     quant=True)
+            gaps = ref.served_gaps(params, dm, rd["sample"]["prompts"],
+                                   rd["sample"]["served"], "cuda",
+                                   quant=True)
             nums = serve_numbers(gaps, min_tokens)
             row["control"] = _stats(gaps)
             row["control_correct"] = judge(nums, limits)
@@ -67,7 +69,7 @@ def serve_readings(cell, seeds, control_seeds, seconds):
             served = [list(x) for x in rd["sample"]["served"]]
             i = max(range(len(served)), key=lambda j: len(served[j]))
             served[i][1:] = [(t + 97) % dm.vocab for t in served[i][1:]]
-            one = serve_numbers(qwen3.served_gaps(
+            one = serve_numbers(ref.served_gaps(
                 params, dm, rd["sample"]["prompts"], served, "cuda"),
                 min_tokens)
             row["one_request_correct"] = judge(one, limits)
@@ -80,14 +82,16 @@ def serve_readings(cell, seeds, control_seeds, seconds):
 
 def train_readings(cell, seeds, control_seeds, seconds, faults):
     import torch
-    from chipbench.harness import cells, faults as planted, train, weights
-    from chipbench.reference import qwen3
+    from chipbench import archs
+    from chipbench.harness import faults as planted, train, weights
     from chipbench.reference import train as ref_train
     from chipbench.reference.compare import train_numbers
     from chipbench.traffic.train_batches import Batches
-    dm = qwen3.Dims.of(cell.config)
+    arch = archs.for_config(cell.config)
+    ref_mod = arch.reference
+    dm = ref_mod.Dims.of(cell.config)
     hp = cell.workload["optimizer"]
-    cfg = cells.model_config(cell.config, training=True)
+    cfg = arch.model_config(cell.config, training=True)
     for seed in seeds:
         _, rd = train.run(cell, seed, seconds, False)
         out = {"seed": seed, "program": _values(rd["numbers"])}
@@ -100,10 +104,10 @@ def train_readings(cell, seeds, control_seeds, seconds, faults):
             data = Batches(cell.workload["batches"], seed, cfg.vocab_size,
                            "cuda")
             first = [data.next() for _ in range(train.CHECKED_STEPS)]
-            ref = ref_train.run(weights.make(cfg, seed, "cuda"), dm, first,
-                                hp)
-            ctl = ref_train.run(weights.make(cfg, seed, "cuda"), dm, first,
-                                hp, quant=True)
+            ref = ref_train.run(weights.make(cfg, seed, "cuda"), ref_mod,
+                                dm, first, hp)
+            ctl = ref_train.run(weights.make(cfg, seed, "cuda"), ref_mod,
+                                dm, first, hp, quant=True)
             out["control"] = _values(train_numbers(ctl, ref))
         print(json.dumps(out), flush=True)
         gc.collect()

@@ -8,6 +8,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import List
 
+from chipbench import archs
+
 #: the checkout's root (``chipbench/`` lies in it)
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -51,35 +53,7 @@ def load(name: str, root: Path = ROOT) -> Cell:
 
 
 def model_config(config: dict, training: bool = False, **overrides):
-    """The port's ``ModelConfig`` of a qwen3 / qwen3_moe configuration
-    file (the keys of the published ``config.json``); with ``training``,
-    the file's training settings (parameter dtype, recomputation)."""
-    from repro_torch.configs.base import ModelConfig
-    moe = config["model_type"] == "qwen3_moe"
-    if config["model_type"] not in ("qwen3", "qwen3_moe"):
-        raise ValueError(f"no mapping for {config['model_type']!r}")
-    kw = dict(
-        name=config["name"], family="moe" if moe else "dense",
-        num_layers=config["num_hidden_layers"],
-        d_model=config["hidden_size"],
-        num_heads=config["num_attention_heads"],
-        num_kv_heads=config["num_key_value_heads"],
-        head_dim=config["head_dim"],
-        d_ff=0 if moe else config["intermediate_size"],
-        vocab_size=config["vocab_size"],
-        use_qk_norm=True, rope_theta=float(config["rope_theta"]),
-        tie_embeddings=bool(config["tie_word_embeddings"]),
-        norm_eps=float(config["rms_norm_eps"]),
-        act=config["hidden_act"],
-        param_dtype=config["torch_dtype"],
-        compute_dtype=config["torch_dtype"])
-    if moe:
-        kw.update(num_experts=config["num_experts"],
-                  experts_per_token=config["num_experts_per_tok"],
-                  moe_d_ff=config["moe_intermediate_size"],
-                  capacity_factor=float(config["capacity_factor"]))
-    if training:
-        kw.update(param_dtype=config["training"]["param_dtype"],
-                  remat=config["training"]["remat"])
-    kw.update(overrides)
-    return ModelConfig(**kw)
+    """The port's config object of a configuration file, by its
+    architecture's module (``chipbench/archs/``)."""
+    return archs.for_config(config).model_config(config, training,
+                                                 **overrides)

@@ -5,16 +5,8 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-#: launcher entry -> module that defines it
-ENTRIES = {
-    "paged_attention_fwd": "repro_torch.kernels.paged_attention.kernel",
-    "rmsnorm_fwd": "repro_torch.kernels.rmsnorm.kernel",
-    "add_rmsnorm_fwd": "repro_torch.kernels.rmsnorm.kernel",
-    "qk_norm_rope_fwd": "repro_torch.kernels.rmsnorm.kernel",
-    "rmsnorm_bwd": "repro_torch.kernels.rmsnorm.kernel",
-    "add_rmsnorm_bwd": "repro_torch.kernels.rmsnorm.kernel",
-    "qk_norm_rope_bwd": "repro_torch.kernels.rmsnorm.kernel",
-}
+#: launcher entry -> module that defines it, over every kernel family
+from chipbench.roofline.kernels import ENTRIES
 
 
 class Counters:

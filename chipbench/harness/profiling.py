@@ -61,9 +61,10 @@ def summarise(events) -> Summary:
         s = _ns(e, "start")
         t = s + _ns(e, "duration")
         if e.device_type() == cuda:
-            # the harness's own ranges also appear on the device's
-            # timeline (user annotations): they are not device work
-            if not name.startswith("chipbench/"):
+            # a user annotation (a ``record_function`` range, the
+            # harness's own among them) is copied onto the device's
+            # timeline too: it is no device work
+            if not e.is_user_annotation():
                 dev.append((s, t, name))
         elif name == SLICE:
             lo, hi = s, t

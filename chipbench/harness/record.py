@@ -1,6 +1,8 @@
 """What one run leaves for the metric readers: the model calls, the
 tokens' stamps, the requests' due and join times, the window, the
-profiled slice and the train steps."""
+profiled slice and the train steps, with the port's config and the
+architecture module (``chipbench/archs/``) whose FLOP count the readers
+take."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -10,6 +12,7 @@ from typing import Dict, List, Optional, Tuple
 @dataclass
 class ServeRecord:
     cfg: object                                  # the port's ModelConfig
+    arch: object                                 # its chipbench.archs module
     window: Tuple[float, float]
     calls: list                                  # wall.Call, in order
     stamps: Dict[int, List[float]]               # rid -> token stamps
@@ -40,6 +43,7 @@ class ServeRecord:
 @dataclass
 class TrainRecord:
     cfg: object
+    arch: object
     window: Tuple[float, float]
     step_ends: List[float]                       # wall end of each step
     tokens_per_step: int

@@ -12,10 +12,10 @@ import time
 import numpy as np
 import torch
 
-from chipbench.harness import cells, weights
+from chipbench import archs
+from chipbench.harness import weights
 from chipbench.harness.record import ServeRecord
 from chipbench.harness.wall import WallPagedBackend, WindowClosed
-from chipbench.reference import qwen3
 from chipbench.reference.compare import serve_numbers
 from chipbench.traffic import requests as traffic
 
@@ -83,7 +83,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     t_start = time.perf_counter() if t_start is None else t_start
     cuda = torch.device(device).type == "cuda"
-    cfg = cells.model_config(cell.config)
+    arch = archs.for_config(cell.config)
+    cfg = arch.model_config(cell.config)
     srv, wl = cell.config["serving"], cell.workload
     page, chunk = int(srv["page_size"]), int(srv["prefill_chunk"])
     max_batch, pool = int(srv["max_batch"]), int(srv["kv_pool_tokens"])
@@ -140,7 +141,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
           f"{lags.max():.6f} s (the open loop's requests are released "
           f"that late)", file=log)
     record = ServeRecord(
-        cfg=cfg, window=(w0, w1), calls=backend.calls,
+        cfg=cfg, arch=arch, window=(w0, w1), calls=backend.calls,
         stamps=backend.stamps,
         due={r.rid: backend.origin + r.arrival for r in reqs},
         joined=backend.joined, cap=backend._cap, chunk=chunk, page=page,
@@ -162,8 +163,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    gaps = (qwen3.served_gaps(params, qwen3.Dims.of(cell.config), prompts,
-                              served, device) if picked else [])
+    ref = arch.reference
+    gaps = (ref.served_gaps(params, ref.Dims.of(cell.config), prompts,
+                            served, device) if picked else [])
     numbers = serve_numbers(gaps, int(chk.get("request_min_tokens", 1)))
     print(f"chipbench: reference over {len(picked)} requests "
           f"({sum(r.done for r in picked)} finished), "

@@ -12,9 +12,9 @@ import time
 
 import torch
 
-from chipbench.harness import cells, weights
+from chipbench import archs
+from chipbench.harness import weights
 from chipbench.harness.record import TrainRecord
-from chipbench.reference import qwen3
 from chipbench.reference import train as ref_train
 from chipbench.traffic.train_batches import Batches
 
@@ -42,7 +42,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     t_start = time.perf_counter() if t_start is None else t_start
     cuda = torch.device(device).type == "cuda"
-    cfg = cells.model_config(cell.config, training=True)
+    arch = archs.for_config(cell.config)
+    cfg = arch.model_config(cell.config, training=True)
     wl = cell.workload
     hp = wl["optimizer"]
     tc = TrainConfig(learning_rate=hp["learning_rate"],
@@ -106,7 +107,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
         launches = counters.since(before) if counters else {}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     record = TrainRecord(
-        cfg=cfg, window=(w0, w1), step_ends=ends,
+        cfg=cfg, arch=arch, window=(w0, w1), step_ends=ends,
         tokens_per_step=data.tokens_per_step, batch=data.batch,
         seq=data.seq, profile=prof.summary() if prof is not None
         and prof.prof else None, profiled_launches=launches,
@@ -119,8 +120,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     # the reference follows the first three steps
     t_ref = time.perf_counter()
-    ref = ref_train.run(weights.make(cfg, seed, device),
-                        qwen3.Dims.of(cell.config), first, hp)
+    ref = ref_train.run(weights.make(cfg, seed, device), arch.reference,
+                        arch.reference.Dims.of(cell.config), first, hp)
     from chipbench.reference.compare import train_numbers
     numbers = train_numbers({"losses": losses, "grad": grad,
                              "change": change}, ref)

@@ -2,9 +2,9 @@
 from __future__ import annotations
 
 import sys
-from typing import Optional
+from typing import Dict, Optional
 
-from chipbench.roofline import kernels, model_flops
+from chipbench.roofline import kernels
 from chipbench.roofline.peaks import BF16_FLOPS
 
 
@@ -28,7 +28,7 @@ def serve_mfu(rec) -> Optional[float]:
     calls = rec.calls_in("prefill") + rec.calls_in("decode")
     if not calls:
         return None
-    flops = sum(model_flops.forward_flops(rec.cfg, c.rows, c.logits_rows)
+    flops = sum(rec.arch.forward_flops(rec.cfg, c.rows, c.logits_rows)
                 for c in calls)
     return 100.0 * flops / sum(c.t1 - c.t0 for c in calls) / BF16_FLOPS
 
@@ -48,6 +48,18 @@ def _families_match(prof, launches) -> bool:
     return ok
 
 
+def _roofline(bound_ms: Dict[str, float], prof) -> float:
+    """Σ least ms ÷ Σ device ms over the families, in %; each family's
+    two sums are printed."""
+    for fam, s in sorted(prof.family_s.items()):
+        least = bound_ms.get(fam, 0.0)
+        print(f"chipbench: kernel family {fam}: least {least:.6f} ms of "
+              f"{1e3 * s:.6f} ms on the card ({100.0 * least / (1e3 * s):.3f}"
+              f" %)", file=sys.stderr)
+    total_s = sum(prof.family_s.values())
+    return 100.0 * sum(bound_ms.values()) / (1e3 * total_s)
+
+
 def serve_roofline(rec) -> Optional[float]:
     """The port kernels' time-weighted share of their bound over the
     profiled slice, in %: the least time of every launch at its call's
@@ -63,10 +75,14 @@ def serve_roofline(rec) -> Optional[float]:
             launches[e] = launches.get(e, 0) + n
     if not _families_match(prof, launches):
         return None
-    bound_ms = sum(kernels.serving_call_ms(
-        rec.cfg, c.kind, rec.cap, rec.chunk, c.lens, c.launches, rec.page)
-        for c in calls)
-    return 100.0 * bound_ms / (1e3 * sum(prof.family_s.values()))
+    bound_ms: Dict[str, float] = {}
+    for c in calls:
+        shape = kernels.CallShape(c.kind, rec.cap, rec.chunk, c.rows, c.lens,
+                                  rec.page)
+        for fam, ms in kernels.serving_by_family(rec.cfg, shape,
+                                                 c.launches).items():
+            bound_ms[fam] = bound_ms.get(fam, 0.0) + ms
+    return _roofline(bound_ms, prof)
 
 
 def train_roofline(rec) -> Optional[float]:
@@ -75,9 +91,8 @@ def train_roofline(rec) -> Optional[float]:
         return None
     if not _families_match(prof, rec.profiled_launches):
         return None
-    bound_ms = kernels.train_step_ms(rec.cfg, rec.batch, rec.seq,
-                                     rec.profiled_launches)
-    return 100.0 * bound_ms / (1e3 * sum(prof.family_s.values()))
+    return _roofline(kernels.train_by_family(rec.cfg, rec.batch, rec.seq,
+                                             rec.profiled_launches), prof)
 
 
 def idle(rec) -> Optional[float]:

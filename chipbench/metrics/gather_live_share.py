@@ -1,7 +1,8 @@
-"""KV entries the chunk calls' attention masks in over the entries it
-gathers (every row's whole page table), every layer of every chunk call
-of the run: ``attn.kv_live`` (the backend's host lengths) over
-``attn.kv_gathered`` (the gathered tensor's shape)."""
+"""KV entries the chunk calls' attention attends over the KV slots it
+reads, every layer of every chunk call of the run: ``attn.kv_live``
+(the backend's host lengths) over ``attn.kv_gathered`` (on the card the
+slots the paged-prefill kernel reads, each prefilling row's live pages;
+on the CPU the gathered tensor's shape)."""
 from chipbench.harness.work import ratio
 
 

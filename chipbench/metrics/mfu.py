@@ -5,7 +5,6 @@ the window over the window."""
 from chipbench.harness.endtoend import train_steps
 from chipbench.harness.record import TrainRecord
 from chipbench.metrics.common import serve_mfu
-from chipbench.roofline.model_flops import train_step_flops
 from chipbench.roofline.peaks import BF16_FLOPS
 
 
@@ -15,5 +14,6 @@ def read(rec):
     steps = train_steps(rec)
     if steps == 0:
         return None
-    return 100.0 * steps * train_step_flops(rec.cfg, rec.batch, rec.seq) \
-        / (rec.window[1] - rec.window[0]) / BF16_FLOPS
+    per_step = rec.arch.train_step_flops(rec.cfg, rec.batch, rec.seq)
+    return 100.0 * steps * per_step / (rec.window[1] - rec.window[0]) \
+        / BF16_FLOPS

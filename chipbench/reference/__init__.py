@@ -1,3 +1,4 @@
-"""The plain reference: Qwen3 and Qwen3-MoE in float32 with TF32 off,
-and the comparisons that decide ``correct``.  Imports nothing of the
-program."""
+"""The plain references, one module an architecture (``qwen3``: Qwen3
+and Qwen3-MoE), in float32 with TF32 off; the training path's steps
+(``train``) and the comparisons that decide ``correct``.  Imports
+nothing of the program."""

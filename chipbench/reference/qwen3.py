@@ -202,6 +202,11 @@ def head_weight(params: dict, dm: Dims) -> torch.Tensor:
     return params["embed"].T if dm.tied else params["lm_head"]
 
 
+def final_logits(h, final_w, head, dm: Dims, quant=False):
+    """The final RMSNorm and the LM head of h [..., d]."""
+    return linear(rms_norm(h, final_w, dm.eps), head, quant)
+
+
 @torch.no_grad()
 def logits_at(params: dict, dm: Dims, seqs: Sequence[Sequence[int]],
               wanted: Sequence[Sequence[int]], device,
@@ -223,8 +228,8 @@ def logits_at(params: dict, dm: Dims, seqs: Sequence[Sequence[int]],
     head = head_weight(params, dm)
     out = []
     for h, pos in zip(hs, wanted):
-        hn = rms_norm(h[0, list(pos)], params["final_ln_w"], dm.eps)
-        out.append(linear(hn, head, quant))
+        out.append(final_logits(h[0, list(pos)], params["final_ln_w"],
+                                head, dm, quant))
     return out
 
 

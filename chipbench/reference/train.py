@@ -1,8 +1,10 @@
 """Three training steps of the plain reference: the next-token
-cross-entropy of ``qwen3`` over a batch, its gradients by autograd, and
-AdamW (Loshchilov & Hutter) with the gradients clipped to a global norm
-first, decoupled weight decay scaled by the learning rate, and the
-learning rate on a linear warm-up then a cosine to a tenth of its peak.
+cross-entropy of an architecture's reference module (``ref``: its
+``block``, ``head_weight`` and ``final_logits``) over a batch, its
+gradients by autograd, and AdamW (Loshchilov & Hutter) with the
+gradients clipped to a global norm first, decoupled weight decay scaled
+by the learning rate, and the learning rate on a linear warm-up then a
+cosine to a tenth of its peak.
 All of it in float32 with TF32 off; the parameters are kept between
 steps in the type the configuration stores them in (bf16: no float32
 master copy), the moments in float32, as the configuration states.
@@ -15,8 +17,6 @@ from typing import Dict, List
 
 import torch
 from torch.utils.checkpoint import checkpoint
-
-from chipbench.reference import qwen3
 
 
 def leaves(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -41,29 +41,28 @@ def unflatten(flat: Dict[str, torch.Tensor]) -> dict:
     return tree
 
 
-def _ce_rows(h, labels, final_w, head, dm, quant):
-    hn = qwen3.rms_norm(h, final_w, dm.eps)
-    logits = qwen3.linear(hn, head, quant)
+def _ce_rows(h, labels, final_w, head, ref, dm, quant):
+    logits = ref.final_logits(h, final_w, head, dm, quant)
     return torch.nn.functional.cross_entropy(logits, labels,
                                              reduction="sum")
 
 
-def loss(params: dict, dm: qwen3.Dims, tokens, labels, quant=False,
+def loss(params: dict, ref, dm, tokens, labels, quant=False,
          ce_rows: int = 2048):
     """Mean next-token cross-entropy of ``tokens`` [B, S] against
     ``labels`` [B, S]."""
     x = params["embed"][tokens].float()
-    for w in qwen3.all_layers(params["blocks"]):
-        x = checkpoint(qwen3.block, x, w, dm, quant, use_reentrant=False)
+    for w in ref.all_layers(params["blocks"]):
+        x = checkpoint(ref.block, x, w, dm, quant, use_reentrant=False)
     h = x.reshape(-1, dm.d)
     lab = labels.reshape(-1)
-    head = qwen3.head_weight(params, dm)
+    head = ref.head_weight(params, dm)
     total = 0.0
     for lo in range(0, h.shape[0], ce_rows):
         total = total + checkpoint(_ce_rows, h[lo:lo + ce_rows],
                                    lab[lo:lo + ce_rows],
-                                   params["final_ln_w"], head, dm, quant,
-                                   use_reentrant=False)
+                                   params["final_ln_w"], head, ref, dm,
+                                   quant, use_reentrant=False)
     return total / h.shape[0]
 
 
@@ -77,13 +76,14 @@ def learning_rate(hp: dict, step: int) -> float:
         0.1 + 0.9 * 0.5 * (1.0 + math.cos(math.pi * frac)))
 
 
-def run(params: dict, dm: qwen3.Dims, batches: List[dict], hp: dict,
+def run(params: dict, ref, dm, batches: List[dict], hp: dict,
         store_dtype=torch.bfloat16, quant: bool = False) -> dict:
-    """``len(batches)`` steps from ``params`` (stored in ``store_dtype``).
+    """``len(batches)`` steps of the reference module ``ref`` (``dm``
+    its ``Dims``) from ``params`` (stored in ``store_dtype``).
     Returns the losses, the first step's clipped gradient norm per leaf,
     its unclipped global norm, and each leaf's change after the last
     step (norms, float32)."""
-    qwen3.no_tf32()
+    ref.no_tf32()
     start = {k: v.detach().to(store_dtype) for k, v in
              leaves(params).items()}
     stored = dict(start)
@@ -95,7 +95,7 @@ def run(params: dict, dm: qwen3.Dims, batches: List[dict], hp: dict,
     for t, batch in enumerate(batches, start=1):
         p32 = {k: s.float().requires_grad_(True) for k, s in
                stored.items()}
-        L = loss(unflatten(p32), dm, batch["tokens"], batch["labels"],
+        L = loss(unflatten(p32), ref, dm, batch["tokens"], batch["labels"],
                  quant)
         names = list(p32)
         grads = torch.autograd.grad(L, [p32[k] for k in names])

@@ -1,2 +1,3 @@
-"""Frozen arithmetic: the card's peaks, each port kernel's necessary
-operations and bytes, and the model's useful FLOPs."""
+"""Frozen arithmetic: the card's peaks and each port kernel's necessary
+operations and bytes, one file per kernel family (``families/``); a
+model's useful FLOPs are its architecture module's (``chipbench/archs/``)."""

@@ -1,144 +1,66 @@
-"""Each port kernel's least time on the card: the larger of its
-necessary bytes over the memory rate and its operations over the peak
-rate.  The formulas are copies of ``repro_torch.tools.kernel_bench``'s
-bounds (a CPU test holds them equal), with the model's widths passed in;
-the functions at the end add up a serving call's or a train step's
-launches at their shapes."""
+"""Each port kernel's least time on the card, over the kernel families
+of ``chipbench/roofline/families/`` (one module each): the families'
+device-name patterns, their launcher entries, and the least time of a
+serving call's or a train step's launches as the sum over the
+families."""
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict
 
-from chipbench.roofline.peaks import BF16_FLOPS, F32_FLOPS, HBM_BYTES_S
+from chipbench.roofline.families import (  # noqa: F401
+    CallShape, bound, found, widths)
+from chipbench.roofline.families.norm_bwd import norm_bwd_bound  # noqa: F401
+from chipbench.roofline.families.norm_fwd import (  # noqa: F401
+    add_rmsnorm_bound, rmsnorm_bound)
+from chipbench.roofline.families.paged_decode import (  # noqa: F401
+    paged_bound_ms)
+from chipbench.roofline.families.paged_prefill import (  # noqa: F401
+    paged_prefill_bound)
+from chipbench.roofline.families.qk_norm_rope_fwd import (  # noqa: F401
+    qk_norm_rope_bound)
 
-PEAK_OPS_S = {"bfloat16": BF16_FLOPS, "float32": F32_FLOPS}
-BF16 = 2
-
-#: operations per element (kernel_bench's NORM_OPS, NORM_BWD_OPS)
-NORM_OPS = {"rmsnorm_fwd": 4, "add_rmsnorm_fwd": 5,
-            "qk_norm_rope_fwd": 4 + 3 + 1.5}
-NORM_BWD_OPS = {"rmsnorm_bwd": 10, "add_rmsnorm_bwd": 11,
-                "qk_norm_rope_bwd": 10 + 6 + 1.5}
-
-
-def bound(nbytes: float, ops: float, dtype: str) -> Tuple[float, str]:
-    """(least ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_OPS_S[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def paged_bound_ms(B, Hq, D, page, Hkv, lens, es=BF16):
-    """Paged decode: each live K/V page, q, the output, the live table
-    slots and lens moved once; 4 * Hq * D operations per live token."""
-    pages = sum(-(-int(n) // page) for n in lens)
-    nbytes = (pages * page * Hkv * D * 2 * es + 2 * B * Hq * D * es
-              + pages * 4 + B * 4)
-    ops = 4 * Hq * D * int(sum(int(n) for n in lens))
-    return bound(nbytes, ops, "bfloat16")
-
-
-def rmsnorm_bound(rows: int, d: int, es=BF16):
-    """``rmsnorm_fwd`` on [rows, d]: x read, out written, w read."""
-    numel = rows * d
-    nbytes = 2 * numel * es + d * es
-    return (*bound(nbytes, NORM_OPS["rmsnorm_fwd"] * numel, "float32"),
-            nbytes)
-
-
-def add_rmsnorm_bound(rows: int, d: int, es=BF16):
-    """``add_rmsnorm_fwd``: x, delta read, normed and sum written."""
-    numel = rows * d
-    nbytes = 4 * numel * es + d * es
-    return (*bound(nbytes, NORM_OPS["add_rmsnorm_fwd"] * numel,
-                   "float32"), nbytes)
-
-
-def qk_norm_rope_bound(B, S, Hq, Hkv, D, position_bytes, qk_norm=True,
-                       es=BF16):
-    """``qk_norm_rope_fwd``: q and k read and written once, the norm
-    weights, the positions and the fp32 inverse frequencies read once."""
-    outs = B * S * (Hq + Hkv) * D
-    nbytes = (2 * outs * es + 2 * D * es * qk_norm + position_bytes
-              + 4 * D // 2)
-    return (*bound(nbytes, NORM_OPS["qk_norm_rope_fwd"] * outs,
-                   "float32"), nbytes)
-
-
-def norm_bwd_bound(entry, B, S, d, Hq, Hkv, D, qk_norm=True, es=BF16):
-    """A backward at a train step's launch: the incoming gradients and
-    the forward's inputs read once, the gradients written once (dw in
-    w's dtype), RoPE's int64 positions and fp32 frequencies read once."""
-    if entry == "qk_norm_rope_bwd":
-        outs = B * S * (Hq + Hkv) * D
-        nbytes = (3 * outs * es + 4 * D * es * qk_norm + 4 * D // 2
-                  + 8 * S)
-    else:
-        outs = B * S * d
-        acts = {"rmsnorm_bwd": 3, "add_rmsnorm_bwd": 4}[entry]
-        nbytes = acts * outs * es + 2 * d * es
-    return (*bound(nbytes, NORM_BWD_OPS[entry] * outs, "float32"), nbytes)
-
-
-# --- launches of a path, at their shapes -----------------------------------
+FAMILIES = {m.__name__.rsplit(".", 1)[1]: m for m in found()}
 
 #: the port's kernels as the device trace names them, and the launcher
 #: entries (``<launcher>.launches``) whose launches each name counts
-KERNEL_FAMILIES = {
-    "paged_decode": (r"paged_decode_split_kernel",
-                     ("paged_attention_fwd",)),
-    "norm_fwd": (r"(?<![A-Za-z0-9_])norm_kernel",
-                 ("rmsnorm_fwd", "add_rmsnorm_fwd")),
-    "qk_norm_rope_fwd": (r"qk_norm_rope_kernel", ("qk_norm_rope_fwd",)),
-    "norm_bwd": (r"(?<![A-Za-z0-9_])norm_bwd_kernel",
-                 ("rmsnorm_bwd", "add_rmsnorm_bwd")),
-    "qk_norm_rope_bwd": (r"qk_norm_rope_bwd_kernel", ("qk_norm_rope_bwd",)),
-    "dw_sum": (r"sum_partials_kernel",
-               ("rmsnorm_bwd", "add_rmsnorm_bwd", "qk_norm_rope_bwd")),
-}
+KERNEL_FAMILIES = {name: (m.PATTERN, tuple(m.ENTRIES))
+                   for name, m in FAMILIES.items()}
 
 
-def widths(cfg) -> Dict[str, int]:
-    return dict(d=cfg.d_model, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
-                D=cfg.head_dim, qk_norm=int(cfg.use_qk_norm))
+def _entries() -> Dict[str, str]:
+    out: Dict[str, str] = {}
+    for name, m in FAMILIES.items():
+        for entry, module in m.ENTRIES.items():
+            if out.setdefault(entry, module) != module:
+                raise ValueError(f"launcher {entry!r}: family {name} says "
+                                 f"{module}, another {out[entry]}")
+    return out
 
 
-def serving_call_ms(cfg, kind: str, cap: int, chunk: int,
-                    lens: Sequence[int], launches: Dict[str, int],
-                    page: int) -> float:
-    """Least ms of the port kernels one serving call launched:
-    ``kind`` "prefill" (a chunk of ``chunk`` tokens on each of ``cap``
-    rows; its last ``add_rmsnorm_fwd`` is the final norm on one row
-    each) or "decode" (``lens``: the kv length each of the ``cap`` rows
-    attends, as launched)."""
-    w = widths(cfg)
-    S = chunk if kind == "prefill" else 1
-    rows = cap * S
-    ms = launches.get("rmsnorm_fwd", 0) * rmsnorm_bound(rows, w["d"])[0]
-    n_add = launches.get("add_rmsnorm_fwd", 0)
-    if n_add:
-        last = cap if kind == "prefill" else rows
-        ms += ((n_add - 1) * add_rmsnorm_bound(rows, w["d"])[0]
-               + add_rmsnorm_bound(last, w["d"])[0])
-    ms += launches.get("qk_norm_rope_fwd", 0) * qk_norm_rope_bound(
-        cap, S, w["Hq"], w["Hkv"], w["D"], 4 * cap * S, w["qk_norm"])[0]
-    if launches.get("paged_attention_fwd", 0):
-        ms += launches["paged_attention_fwd"] * paged_bound_ms(
-            cap, w["Hq"], w["D"], page, w["Hkv"], lens)[0]
-    return ms
+#: launcher entry -> the module that defines it, over every family
+ENTRIES = _entries()
+
+
+def serving_by_family(cfg, call: CallShape,
+                      launches: Dict[str, int]) -> Dict[str, float]:
+    """Each family's least ms of the launches of one serving call."""
+    return {name: m.serving_ms(cfg, call, launches)
+            for name, m in FAMILIES.items() if hasattr(m, "serving_ms")}
+
+
+def train_by_family(cfg, B: int, S: int,
+                    launches: Dict[str, int]) -> Dict[str, float]:
+    """Each family's least ms of the launches of a train step, every one
+    on the step's [B * S] rows."""
+    return {name: m.train_ms(cfg, B, S, launches)
+            for name, m in FAMILIES.items() if hasattr(m, "train_ms")}
+
+
+def serving_call_ms(cfg, call: CallShape, launches: Dict[str, int]) -> float:
+    """Least ms of the port kernels one serving call launched."""
+    return sum(serving_by_family(cfg, call, launches).values())
 
 
 def train_step_ms(cfg, B: int, S: int, launches: Dict[str, int]) -> float:
-    """Least ms of the norm kernels a train step launched, every one on
-    the step's [B * S] rows (positions int64 [S])."""
-    w = widths(cfg)
-    rows = B * S
-    ms = (launches.get("rmsnorm_fwd", 0) * rmsnorm_bound(rows, w["d"])[0]
-          + launches.get("add_rmsnorm_fwd", 0)
-          * add_rmsnorm_bound(rows, w["d"])[0]
-          + launches.get("qk_norm_rope_fwd", 0) * qk_norm_rope_bound(
-              B, S, w["Hq"], w["Hkv"], w["D"], 8 * S, w["qk_norm"])[0])
-    for entry in ("rmsnorm_bwd", "add_rmsnorm_bwd", "qk_norm_rope_bwd"):
-        ms += launches.get(entry, 0) * norm_bwd_bound(
-            entry, B, S, w["d"], w["Hq"], w["Hkv"], w["D"],
-            w["qk_norm"])[0]
-    return ms
+    """Least ms of the port kernels a train step launched."""
+    return sum(train_by_family(cfg, B, S, launches).values())

@@ -83,9 +83,10 @@ def test_training_faults_and_control_fail():
     data = Batches(cell.workload["batches"], 41, cfg.vocab_size, "cpu")
     first = [data.next() for _ in range(train.CHECKED_STEPS)]
     dm, hp = qwen3.Dims.of(cell.config), cell.workload["optimizer"]
-    ref = ref_train.run(weights.make(cfg, 41, "cpu"), dm, first, hp)
-    ctl = ref_train.run(weights.make(cfg, 41, "cpu"), dm, first, hp,
-                        quant=True)
+    ref = ref_train.run(weights.make(cfg, 41, "cpu"), qwen3, dm, first,
+                        hp)
+    ctl = ref_train.run(weights.make(cfg, 41, "cpu"), qwen3, dm, first,
+                        hp, quant=True)
     broken["control"] = {k: n["value"]
                          for k, n in train_numbers(ctl, ref).items()}
     # a state left unchanged reads 1 on the change; half a batch fails

@@ -82,7 +82,8 @@ def test_three_train_steps_equal_the_port():
                     for k, v in ref_train.leaves(opt.m).items()}
     change = {k: float((v - s).norm()) for (k, v), s in zip(
         ref_train.leaves(params).items(), ref_train.leaves(start).values())}
-    ref = ref_train.run(weights.make(cfg, 4, "cpu"), qwen3.Dims.of(config),
+    ref = ref_train.run(weights.make(cfg, 4, "cpu"), qwen3,
+                        qwen3.Dims.of(config),
                         batches, hp, store_dtype=torch.float32)
     nums = train_numbers({"losses": losses, "grad": grad,
                           "change": change}, ref)

@@ -1,10 +1,11 @@
 """The frozen formulas equal the kernel bench's bounds at the shapes of
-PERF.md's kernel table, and the model's FLOPs count what they say."""
+PERF.md's kernel table, the families' sums follow the launches, and the
+model's FLOPs count what they say."""
 import pytest
 import torch
 
 from chipbench.harness import cells
-from chipbench.roofline import kernels, model_flops, peaks
+from chipbench.roofline import kernels, peaks
 
 from repro_torch.tools import kernel_bench as kb
 
@@ -59,38 +60,78 @@ def test_norm_bwd_bound(entry):
         kb.norm_bwd_bound(entry, "qwen3-0.6b", 8, 1024)
 
 
+@pytest.mark.parametrize("case", [0, 1])
+def test_paged_prefill_bound(case):
+    """The chunk call's attention at the kernel bench's timed launches
+    (the chat call, 0.004617 ms; qwen3-0.6b's chunk of 128, 0.01753 ms)."""
+    from repro_torch.kernels.paged_prefill.cases import TIMED
+    _, (B, page, Hq, Hkv, D, C, starts, lens, _), _ = TIMED[case]
+    got = kernels.paged_prefill_bound(B, Hq, Hkv, D, page, starts, lens)
+    assert got == kb.paged_prefill_bound(B, C, Hq, Hkv, D, page, starts,
+                                         lens, torch.bfloat16)
+    assert got[0] == pytest.approx([0.004617, 0.01753][case], rel=1e-3)
+    assert got[1] == "bytes"
+
+
+def _shape(kind, rows=(), lens=(), cap=16, chunk=128):
+    return kernels.CallShape(kind, cap, chunk, list(rows), list(lens), 16)
+
+
 def test_call_sums_follow_the_launches():
     cfg = cells.model_config(cells.load("qwen3-0.6b.train-16k").config)
     w = kernels.widths(cfg)
     launches = {"rmsnorm_fwd": 1, "add_rmsnorm_fwd": 56,
                 "qk_norm_rope_fwd": 28}
-    got = kernels.serving_call_ms(cfg, "prefill", 16, 128, [], launches, 16)
+    rows = [(0, 128), (1408, 128), (4000, 7)]
+    got = kernels.serving_call_ms(cfg, _shape("prefill", rows), launches)
     want = (kernels.rmsnorm_bound(16 * 128, 1024)[0]
             + 55 * kernels.add_rmsnorm_bound(16 * 128, 1024)[0]
             + kernels.add_rmsnorm_bound(16, 1024)[0]
             + 28 * kernels.qk_norm_rope_bound(16, 128, 16, 8, 128,
                                               4 * 16 * 128)[0])
     assert got == pytest.approx(want)
+    # the chunk call's attention: each launch at the prefilling rows'
+    # starts and chunk lengths
+    got = kernels.serving_call_ms(cfg, _shape("prefill", rows),
+                                  dict(launches, paged_prefill_fwd=28))
+    assert got == pytest.approx(want + 28 * kernels.paged_prefill_bound(
+        16, 16, 8, 128, 16, [0, 1408, 4000], [128, 128, 7])[0])
     lens = [5, 100, 1, 1]
-    got = kernels.serving_call_ms(cfg, "decode", 4, 128, lens,
-                                  {"paged_attention_fwd": 28}, 16)
+    got = kernels.serving_call_ms(cfg, _shape("decode", lens=lens, cap=4),
+                                  {"paged_attention_fwd": 28})
     assert got == pytest.approx(28 * kernels.paged_bound_ms(
         4, w["Hq"], w["D"], 16, w["Hkv"], lens)[0])
 
 
+def test_families_cover_the_launchers():
+    """Every launcher entry is counted by some family, and every family's
+    pattern finds its kernels' device names."""
+    assert kernels.KERNEL_FAMILIES["paged_prefill"][1] == (
+        "paged_prefill_fwd",)
+    assert kernels.ENTRIES["paged_prefill_fwd"] == \
+        "repro_torch.kernels.paged_prefill.kernel"
+    import re
+    for name in ("void (anonymous namespace)::paged_prefill_wgmma_kernel"
+                 "<128, 8>(Args)", "paged_prefill_f32_kernel<64>"):
+        hits = [f for f, (pat, _) in kernels.KERNEL_FAMILIES.items()
+                if re.search(pat, name)]
+        assert hits == ["paged_prefill"]
+
+
 def test_model_flops():
+    from chipbench.archs import qwen3
     moe = cells.model_config(cells.load("qwen3-moe-30b-a3b.chat-batch")
                              .config)
     dense = cells.model_config(cells.load("qwen3-0.6b.train-16k").config)
     # qwen3-30b-a3b activates about 3.3 billion parameters a token
-    active = model_flops.body_params_per_token(moe) + 2048 * 151936
+    active = qwen3.body_params_per_token(moe) + 2048 * 151936
     assert 3.0e9 < active < 3.5e9
-    assert model_flops.attention_pairs([(0, 4)]) == 10
-    assert model_flops.attention_pairs([(10, 1)]) == 11
-    f = model_flops.forward_flops(dense, [(0, 1)], 1)
-    assert f == pytest.approx(2 * (model_flops.body_params_per_token(dense)
+    assert qwen3.attention_pairs([(0, 4)]) == 10
+    assert qwen3.attention_pairs([(10, 1)]) == 11
+    f = qwen3.forward_flops(dense, [(0, 1)], 1)
+    assert f == pytest.approx(2 * (qwen3.body_params_per_token(dense)
                                    + 1024 * 151936)
                               + 4 * 16 * 128 * 28)
     # about 3.9 GFLOP a token for qwen3-0.6b training at 1,024
-    per_tok = model_flops.train_step_flops(dense, 16, 1024) / 16384
+    per_tok = qwen3.train_step_flops(dense, 16, 1024) / 16384
     assert 3.5e9 < per_tok < 4.2e9
